@@ -1,0 +1,101 @@
+"""Serving launcher of the port: the continuous-batching engine over the
+SASRec retrieval route, through the `ivf_topk` CUDA kernel.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec --requests 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec --device cpu
+
+Requests are enqueued on a virtual arrival clock (``--qps`` spaces them;
+0 = all at once, the closed-loop shape) and coalesced into padded
+micro-batches under ``--max-batch`` / ``--max-wait-ms``. The model is
+the arch's SMOKE_CONFIG with random weights from a fixed seed, as in the
+reference CLI. The run needs CUDA unless ``--device cpu`` is given.
+
+Not ported yet, and refused with a message: ``--ladder`` (health slice),
+``--replicas`` / ``--chaos`` (cluster slice) and ``--obs-dir``
+(observability slice), and every arch but sasrec (models slice).
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_arch
+from repro_torch.device import resolve_device
+from repro_torch.models import recsys
+from repro_torch.obs.bus import MetricsBus
+from repro_torch.obs.sinks import HumanLogSink
+from repro_torch.serve import CoalescePolicy, RecsysMIPSRoute, ServingEngine
+
+_NOT_PORTED = {
+    "ladder": "the health slice",
+    "replicas": "the cluster slice",
+    "chaos": "the cluster slice",
+    "obs_dir": "the observability slice",
+}
+
+
+def percentile(values: list[float], p: float) -> float:
+    """Nearest-rank percentile."""
+    vs = sorted(values)
+    return vs[min(len(vs) - 1, max(0, round(p / 100.0 * (len(vs) - 1))))]
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--qps", type=float, default=0.0,
+                    help="offered arrival rate (0 = all at t=0, closed loop)")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-wait-ms", type=float, default=2.0)
+    ap.add_argument("--k", type=int, default=10, help="top-k per request")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--ladder", action="store_true", help="not ported yet")
+    ap.add_argument("--replicas", type=int, default=1, help="not ported yet")
+    ap.add_argument("--chaos", action="store_true", help="not ported yet")
+    ap.add_argument("--obs-dir", default=None, help="not ported yet")
+    args = ap.parse_args(argv)
+    for opt, slice_name in _NOT_PORTED.items():
+        if getattr(args, opt) != ap.get_default(opt):
+            flag = "--" + opt.replace("_", "-")
+            raise SystemExit(
+                f"{flag} is not ported to repro_torch yet; it comes with "
+                f"{slice_name}"
+            )
+    try:
+        mod = get_arch(args.arch)
+    except NotImplementedError as exc:
+        raise SystemExit(str(exc)) from None
+    device = resolve_device(args.device)
+    cfg = mod.SMOKE_CONFIG
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = recsys.init_params(cfg, gen, device)
+    route = RecsysMIPSRoute(cfg, params, k=args.k, device=device)
+    rng = np.random.default_rng(0)
+    bus = MetricsBus(sinks=[HumanLogSink()])
+    engine = ServingEngine(
+        route,
+        CoalescePolicy(max_batch=args.max_batch, max_wait_s=args.max_wait_ms / 1e3),
+        bus=bus,
+    )
+    engine.warmup()
+    for i in range(args.requests):
+        payload = rng.integers(-1, cfg.item_vocab, (cfg.seq_len,)).astype(np.int32)
+        engine.submit(payload, arrival=i / args.qps if args.qps else 0.0)
+    records = engine.drain()
+    lats = engine.latencies()
+    makespan = max(r.finish for r in records) - records[0].arrival
+    bus.log(
+        f"{cfg.name} on {device}: {len(records)} requests in {engine.batches} "
+        f"batches (occupancy {engine.occupancy():.2f}) — p50 "
+        f"{percentile(lats, 50) * 1e3:.1f} ms, p99 "
+        f"{percentile(lats, 99) * 1e3:.1f} ms, "
+        f"{len(records) / makespan:.1f} req/s"
+    )
+    bus.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,54 @@
+"""Helpers shared by the `test_torch_*` parity tests (this module holds
+no tests): numpy inputs from a seed, JAX-built IVF indexes carried
+across to the port, and the TopK comparison.
+
+Tolerances of the TopK comparison: scores rtol=1e-5, atol=1e-6 (fp32
+sums taken in another order); ids compared as sorted sets, exactly
+(top-K ties may be broken in another order)."""
+import functools
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.mips import build_ivf as jax_build_ivf  # noqa: E402
+from repro_torch.convert import ivf_index_from_numpy  # noqa: E402
+
+
+def data(p: int, l: int, b: int, seed: int):
+    """(items [p, l], queries [b, l]) float32, standard normal."""
+    rng = np.random.default_rng(seed)
+    items = rng.standard_normal((p, l)).astype(np.float32)
+    q = rng.standard_normal((b, l)).astype(np.float32)
+    return items, q
+
+
+@functools.lru_cache(maxsize=None)
+def jax_index(p: int, l: int, c: int, seed: int, key: int, **kw):
+    """(items, the reference's IVFIndex over them), built once per
+    geometry: the reference build compiles anew for every shape."""
+    items, _ = data(p, l, 1, seed)
+    return items, jax_build_ivf(
+        jax.random.PRNGKey(key), jnp.asarray(items), num_clusters=c, **kw
+    )
+
+
+def to_port(index):
+    """The reference's IVFIndex as the port's, through `convert`."""
+    return ivf_index_from_numpy(
+        np.asarray(index.centroids), np.asarray(index.lists),
+        np.asarray(index.list_embs), index.num_items,
+    )
+
+
+def assert_topk_equal(port, ref):
+    np.testing.assert_allclose(
+        port.scores.cpu().numpy(), np.asarray(ref.scores), rtol=1e-5, atol=1e-6
+    )
+    np.testing.assert_array_equal(
+        np.sort(port.indices.cpu().numpy(), -1), np.sort(np.asarray(ref.indices), -1)
+    )
