@@ -8,16 +8,17 @@ and imports neither JAX nor the reference package. Phases, one line or
 more each:
 
   1. environment  torch and CUDA versions, the card's name and power limit
-  2. build        every hand-written kernel of the path, from source
-                  (one nvcc per source, started together), timed
+  2. build        every hand-written kernel, from source (one nvcc per
+                  source, all started together), timed
   3. kernels      each kernel against its plain PyTorch version on the
-                  card, at small shapes and at the serving path's shapes,
-                  within the CPU parity tests' tolerances; times of the
-                  kernel and the plain version (device time per call from
-                  a replayed CUDA graph, and time per eager call), and
-                  the least time the card could take for the same work
-                  (bytes over 3.35 TB/s or operations over 67 TFLOP/s
-                  fp32, the larger)
+                  card, at small shapes and at the shapes its path gives
+                  it, within the CPU parity tests' tolerances; times of
+                  the kernel and the plain version (device time per call
+                  from a replayed CUDA graph, and time per eager call),
+                  the library call where one computes the same function,
+                  and the least time the card could take for the same
+                  work (bytes over 3.35 TB/s or operations over 67
+                  TFLOP/s fp32, the larger)
   4. serve        the serving path at full SASRec width (10^6 items,
                   embed 50, 2 blocks, 1 head, seq 50; random weights from
                   a seed): `RecsysMIPSRoute` builds its IVF index, then a
@@ -26,7 +27,25 @@ more each:
                   kernel, and the answers are held to the plain path on
                   the CPU; then one pass over the same batches split into
                   stages (prepare, tower, retrieval, finalize)
-  5. a JSON line of the kernels, then the card's name and power limit,
+  5. train        `FOPOTrainer` trains fopo-paper at full width (P 750,000,
+                  L 100, S 1000, K 256, eps 0.8, batch 32, lr 1e-4)
+                  through the kernel path (retriever="pallas", fused=True,
+                  fused_sampler=True, TS 8) for 20 steps; the launch
+                  counters show one launch of each training kernel per
+                  step and no plain-version call; step time p50 / p99;
+                  a profiled window splits a step's device time by
+                  kernel. Then the first 3 steps again on the CPU through
+                  the plain versions, from the same theta, Adam state and
+                  seeds: the CPU's top-K held to the card's at every step,
+                  then the step run on the card's draws and its loss,
+                  diagnostics and theta held to the card's. The dataset is
+                  cut: beta and
+                  the contexts come from the seeded `clustered_catalog`
+                  (1024 clusters, 4096 contexts), the positives are 8 ids
+                  per context drawn from its exact top-64 under the
+                  initial tower (`generate_sessions` cannot make a
+                  750,000-item catalog in a smoke run)
+  6. a JSON line of the kernels, then the card's name and power limit,
      then the last line {"ok": true, "device": {...}}
 
 Any failed check raises, and the script exits non-zero without the last
@@ -34,6 +53,7 @@ line; it also exits non-zero when CUDA is not available.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -47,6 +67,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 RTOL, ATOL = 1e-5, 1e-6  # the CPU parity tests' score tolerances
 N_PROBE, K_SERVE, MAX_BATCH, REQUESTS = 8, 10, 8, 64
+TRAIN_STEPS, REPLAY_STEPS, PROFILED_STEPS, TS = 20, 3, 3, 8
 
 
 def log(msg: str) -> None:
@@ -151,6 +172,14 @@ def topk_err(out, ref, tag: str) -> float:
     return float((ks - rs).abs().max())
 
 
+def roof(nbytes: float, nops: float) -> tuple[float, str]:
+    """The least time for `nbytes` moved and `nops` fp32 operations:
+    (ms, "bytes" or "operations")."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = nops / FP32_FLOPS * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
 def bound_ms(q, probe, lists, list_embs, k) -> tuple[float, str, float]:
     """The least time for this call's work, from its data: each probed
     list's ids and its live slots' embeddings read once, the queries and
@@ -165,9 +194,7 @@ def bound_ms(q, probe, lists, list_embs, k) -> tuple[float, str, float]:
         + n_live * 4 * l  # live embeddings
         + q.numel() * 4 + probe.numel() * 4 + b * k * 8
     )
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * l * n_live / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+    return (*roof(nbytes, 2 * l * n_live), nbytes)
 
 
 def kernel_phase(index, state, users) -> dict:
@@ -290,6 +317,392 @@ def stage_times(route, payloads, records) -> None:
         + f" (sum {sum(med.values()):.3f})")
 
 
+def timed(tag: str, kernel_fn, plain_fn, sets: list, nbytes: float, nops: float,
+          library_fn=None, library_note: str = "") -> dict:
+    """Device ms per call (CUDA graph) of the kernel, its plain version and
+    the library call; eager ms of the first two; the bound."""
+    t_k, t_p = device_ms(kernel_fn, sets), device_ms(plain_fn, sets)
+    e_k, e_p = time_ms(kernel_fn, sets, 50), time_ms(plain_fn, sets, 10)
+    t_l = device_ms(library_fn, sets) if library_fn is not None else None
+    b_ms, b_by = roof(nbytes, nops)
+    lib = f"; library {t_l:.4f} ({library_note})" if t_l is not None else ""
+    log(f"  time {tag}: device ms per call (CUDA graph) kernel {t_k:.4f}, plain "
+        f"{t_p:.4f}{lib}; eager ms per call kernel {e_k:.4f}, plain {e_p:.4f}; bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.3f} MB, {nops / 1e9:.3f} Gop); "
+        f"kernel device time at {100 * b_ms / t_k:.1f}% of the bound")
+    return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+
+
+def close_err(got, want, tag: str, rtol: float = RTOL, atol: float = ATOL,
+              sums: bool = False) -> float:
+    """Elementwise |got - want| <= atol + rtol |want|; returns the max
+    absolute difference. ``sums=True`` is for outputs that are sums of
+    terms of both signs (the scores, L products; g and grad_h, S rows):
+    an fp32 sum taken in another order is off by about rtol times the
+    size of the terms, not of their sum, so atol becomes
+    ATOL + RTOL * max |want| (the output's scale)."""
+    import torch
+
+    torch.cuda.synchronize()
+    got, want = got.float().cpu(), want.float().cpu()
+    check(got.shape == want.shape, f"{tag}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all() == torch.isfinite(want).all()), f"{tag}: non-finite")
+    if sums:
+        atol = atol + rtol * float(want.abs().max())
+    diff = (got - want).abs()
+    check(bool((diff <= atol + rtol * want.abs()).all()),
+          f"{tag}: differs, max {float(diff.max())}")
+    return float(diff.max())
+
+
+def sampler_err(out, want, tag: str) -> tuple[float, float]:
+    """The sampler's kernel against its plain version: the arm choice and
+    the uniform-arm draws exactly, the kappa arm at an agreement >= 0.999
+    (an fp32 log may flip a near-tie), slot where the draws agree, log q
+    within 1e-6 there. Returns (max |log q diff|, kappa agreement)."""
+    import torch
+
+    torch.cuda.synchronize()
+    (ka, kq, ks), (ra, rq, rs) = ([t.cpu() for t in x] for x in (out, want))
+    uniform = rs == -1
+    check(bool(torch.equal(ks == -1, uniform)), f"{tag}: arm choice differs")
+    check(bool(torch.equal(ka[uniform], ra[uniform])), f"{tag}: uniform-arm draws differ")
+    kappa = ~uniform
+    agree = float((ka[kappa] == ra[kappa]).float().mean()) if kappa.any() else 1.0
+    check(agree >= 0.999, f"{tag}: kappa-arm agreement {agree}")
+    same = ka == ra
+    check(bool(torch.equal(ks[same], rs[same])), f"{tag}: slots differ")
+    err = close_err(kq[same], rq[same], tag + " log q", rtol=1e-6, atol=1e-6)
+    return err, agree
+
+
+def training_data(dev):
+    """The full-width fopo-paper dataset, cut as the module docstring says:
+    (SessionDataset, theta0 on the CPU, h0 [4096, 100] on the card)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.policy import linear_tower_init
+    from repro_torch.data import SessionDataset, clustered_catalog
+
+    cfg = get_arch("fopo-paper").CONFIG
+    t0 = time.perf_counter()
+    items, contexts = clustered_catalog(cfg.num_items, cfg.embed_dim, num_clusters=1024,
+                                        num_queries=4096, seed=0)
+    theta0 = linear_tower_init(torch.Generator().manual_seed(0), cfg.embed_dim, cfg.embed_dim)
+    beta = torch.from_numpy(items).to(dev)
+    h0 = torch.from_numpy(contexts).to(dev) @ theta0["w"].to(dev)
+    top64 = torch.cat([torch.topk(h0[i:i + 512] @ beta.T, 64).indices
+                       for i in range(0, len(contexts), 512)]).cpu().numpy()
+    rng = np.random.default_rng(0)
+    pick = np.argsort(rng.random(top64.shape), axis=1)[:, :8]
+    positives = np.take_along_axis(top64, pick, axis=1).astype(np.int32)
+    ds = SessionDataset(contexts=contexts, positives=positives, item_embeddings=items,
+                        num_items=cfg.num_items)
+    log(f"[train] dataset: clustered_catalog P={cfg.num_items} L={cfg.embed_dim} (1024 "
+        f"clusters), {len(contexts)} contexts, 8 positives each from the exact top-64 "
+        f"under theta0; made in {time.perf_counter() - t0:.2f} s")
+    return ds, theta0, beta, h0
+
+
+def training_kernel_phase(beta, h0, positives) -> dict:
+    """Each training kernel against its plain version on the card, at
+    small shapes and at the training path's shapes (B 32, L 100,
+    P 750,000, S 1000, K 256, TS 8; covgrad also at TS 1 and in both
+    modes); times at the training shapes."""
+    import torch
+
+    from repro_torch.constants import LOG_Q_PAD
+    from repro_torch.kernels.fused_sampler import kernel as fk, ref as fr
+    from repro_torch.kernels.mips_topk import kernel as mk, ref as mr
+    from repro_torch.kernels.snis_covgrad import kernel as sk, ops as so, ref as sr
+
+    dev = beta.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+    res = {}
+    b, l = 32, beta.shape[1]
+    p = beta.shape[0]
+    k, s = 256, 1000
+
+    # -- mips_topk ----------------------------------------------------------
+    err = 0.0
+    for bb, pp, ll, kk in [(5, 3000, 24, 64), (3, 700, 17, 10), (40, 5000, 100, 256),
+                           (1, 64, 8, 64), (33, 20000, 100, 256)]:
+        q = torch.randn((bb, ll), generator=gen, device=dev)
+        it = torch.randn((pp, ll), generator=gen, device=dev)
+        e = topk_err(mk.mips_topk_cuda(q, it, kk), mr.mips_topk_ref(q, it, kk),
+                     f"mips small b={bb} p={pp}")
+        err = max(err, e)
+        log(f"  mips_topk small: B={bb} P={pp} L={ll} K={kk} max_abs_err={e:.3g} ok")
+    hs = [h0[i * b:(i + 1) * b].contiguous() for i in range(4)]
+    for i, h in enumerate(hs[:2]):
+        e = topk_err(mk.mips_topk_cuda(h, beta, k), mr.mips_topk_ref(h, beta, k),
+                     f"mips full {i}")
+        err = max(err, e)
+        log(f"  mips_topk full: B={b} P={p} L={l} K={k} (training contexts) "
+            f"max_abs_err={e:.3g} ok")
+    res["mips_topk"] = dict(max_abs_err=err, **timed(
+        f"mips_topk B={b} P={p} K={k}", mk.mips_topk_cuda, mr.mips_topk_ref,
+        [(h, beta, k) for h in hs], p * l * 4 + b * l * 4 + b * k * 8, 2 * b * p * l,
+        library_fn=lambda q, it, kk: torch.topk(q @ it.T, kk),
+        library_note="torch.topk(h @ beta.T, K): two calls"))
+
+    # -- fused_sampler --------------------------------------------------------
+    err, agree_min = 0.0, 1.0
+    for bb, ss, ts, kk, pp, eps, off in [(3, 37, 8, 6, 40, 0.4, 0), (4, 100, 16, 16, 300, 0.8, 3),
+                                         (2, 50, 1, 6, 40, 0.25, 5)]:
+        sc = 2 * torch.randn((bb, kk), generator=gen, device=dev)
+        ids = torch.stack([torch.randperm(pp, generator=gen, device=dev)[:kk]
+                           for _ in range(bb)]).int()
+        ev = torch.full((), eps, device=dev)
+        kw = dict(num_samples=ss, num_items=pp, sample_tile=ts, row_offset=off)
+        e, a = sampler_err(fk.fused_sampler_cuda(12345, ev, ids, sc, **kw),
+                           fr.fused_sampler_ref(12345, ev, ids, sc, **kw), f"sampler small {ss}")
+        err, agree_min = max(err, e), min(agree_min, a)
+        log(f"  fused_sampler small: B={bb} S={ss} TS={ts} K={kk} offset={off} "
+            f"max_abs_err(log q)={e:.3g} kappa agreement {a:.6f} ok")
+    tops = [mk.mips_topk_cuda(h, beta, k) for h in hs]
+    eps = torch.full((), 0.8, device=dev)
+    kw = dict(num_samples=s, num_items=p, sample_tile=TS)
+    for i, (ts_, ti_) in enumerate(tops[:2]):
+        e, a = sampler_err(fk.fused_sampler_cuda(1000 + i, eps, ti_, ts_, **kw),
+                           fr.fused_sampler_ref(1000 + i, eps, ti_, ts_, **kw), f"sampler full {i}")
+        err, agree_min = max(err, e), min(agree_min, a)
+        log(f"  fused_sampler full: B={b} S={s} TS={TS} K={k} P={p} (training top-K) "
+            f"max_abs_err(log q)={e:.3g} kappa agreement {a:.6f} ok")
+    # the operations these draws need: 23 per (kappa-arm draw, slot) for the
+    # Gumbel noise (hash, two logs, the add and compare), 1 per (draw, slot)
+    # for the membership compare; uniform-arm draws need no Gumbel noise
+    sets = [(2000 + i, ti_, ts_) for i, (ts_, ti_) in enumerate(tops)]
+    n_kappa = sum(int((fk.fused_sampler_cuda(sd, eps, ti_, ts_, **kw)[2] >= 0).sum())
+                  for sd, ti_, ts_ in sets) / len(sets)
+    log(f"  fused_sampler: {n_kappa:.1f} of {b * s} draws per call on the kappa arm "
+        f"({n_kappa / (b * s):.4f}), mean over the timed inputs")
+    res["fused_sampler"] = dict(max_abs_err=err, kappa_agreement=agree_min, **timed(
+        f"fused_sampler B={b} S={s} K={k}",
+        lambda sd, ti_, ts_: fk.fused_sampler_cuda(sd, eps, ti_, ts_, **kw),
+        lambda sd, ti_, ts_: fr.fused_sampler_ref(sd, eps, ti_, ts_, **kw),
+        sets, b * k * 8 + b * s * 12, n_kappa * k * 23 + b * s * k))
+
+    # -- snis_covgrad forward and backward ------------------------------------
+    ferr = berr = 0.0
+    for bb, ss, ll, pp in [(4, 24, 16, 300), (3, 40, 256, 500), (5, 1000, 100, 2000)]:
+        h = torch.randn((bb, ll), generator=gen, device=dev)
+        bt = 0.3 * torch.randn((pp, ll), generator=gen, device=dev)
+        a = torch.randint(0, pp, (bb, ss), generator=gen, device=dev).int()
+        a[0, ::3] = -1
+        a[-1] = -1
+        lq = torch.where(a >= 0, torch.randn((bb, ss), generator=gen, device=dev) - 5, LOG_Q_PAD)
+        r = (torch.rand((bb, ss), generator=gen, device=dev) < 0.3).float() * (a >= 0)
+        for ts in (1, 8, 5):
+            gk, wk, sck = so.snis_covgrad_fused(h, bt, a, lq, r, sample_tile=ts)
+            sref, gref = sr.snis_fwd_ref(h, bt, a, lq, r, covgrad=True)
+            ferr = max(ferr, close_err(sck, sref, "covgrad scores", sums=True),
+                       close_err(gk, gref, "covgrad g", sums=True),
+                       close_err(so.snis_scores_fused(h, bt, a, lq, r, sample_tile=ts), sref,
+                                 "scores only", sums=True))
+            check(bool((gk[-1] == 0).all()), "an all-masked row's gradient is not 0")
+            cf = torch.randn((bb, ss), generator=gen, device=dev)
+            cf[a < 0] = float("nan")
+            berr = max(berr, close_err(so.snis_covgrad_bwd(cf, a, bt, sample_tile=ts),
+                                       sr.snis_bwd_ref(cf, a, bt), "bwd", sums=True))
+        log(f"  snis_covgrad small: B={bb} S={ss} L={ll} TS in (1, 8, 5), both modes, masked "
+            f"slots, an all-masked row, NaN coefficients on dead lanes: ok")
+    # the training shapes: the sampler's draws over the training top-K
+    steps = []
+    for i, (ts_, ti_) in enumerate(tops):
+        a, lq, _ = fk.fused_sampler_cuda(3000 + i, eps, ti_, ts_, **kw)
+        pos = torch.from_numpy(positives[i * b:(i + 1) * b]).to(dev)
+        r = (a[:, :, None] == pos[:, None, :]).any(-1).float()
+        cf = torch.randn((b, s), generator=gen, device=dev) * 1e-3
+        steps.append((hs[i], a, lq, r, cf))
+    for ts in (TS, 1):
+        h, a, lq, r, cf = steps[0]
+        sref, gref = sr.snis_fwd_ref(h, beta, a, lq, r, covgrad=True)
+        gk, _, sck = so.snis_covgrad_fused(h, beta, a, lq, r, sample_tile=ts)
+        ferr = max(ferr, close_err(sck, sref, "full scores", sums=True),
+                   close_err(gk, gref, "full g", sums=True),
+                   close_err(so.snis_scores_fused(h, beta, a, lq, r, sample_tile=ts), sref,
+                             "full scores only", sums=True))
+        berr = max(berr, close_err(so.snis_covgrad_bwd(cf, a, beta, sample_tile=ts),
+                                   sr.snis_bwd_ref(cf, a, beta), "full bwd", sums=True))
+        log(f"  snis_covgrad full: B={b} S={s} L={l} TS={ts} (training draws), both modes "
+            f"and the backward: ok")
+    rows = b * s * l * 4
+    res["snis_covgrad_fwd"] = dict(max_abs_err=ferr, **timed(
+        f"snis_covgrad_fwd scores-only B={b} S={s} L={l}",
+        lambda h, a, lq, r, cf: sk.snis_fwd_cuda(h, beta, a, lq, r, covgrad=False),
+        lambda h, a, lq, r, cf: sr.snis_fwd_ref(h, beta, a, lq, r, covgrad=False),
+        steps, rows + b * s * 8 + b * l * 4, 2 * b * s * l))
+    res["snis_covgrad_fwd_covgrad_mode"] = timed(
+        f"snis_covgrad_fwd covgrad mode B={b} S={s} L={l}",
+        lambda h, a, lq, r, cf: sk.snis_fwd_cuda(h, beta, a, lq, r, covgrad=True),
+        lambda h, a, lq, r, cf: sr.snis_fwd_ref(h, beta, a, lq, r, covgrad=True),
+        steps, rows + b * s * 16 + b * l * 8, 6 * b * s * l)
+    res["snis_covgrad_bwd"] = dict(max_abs_err=berr, **timed(
+        f"snis_covgrad_bwd B={b} S={s} L={l}",
+        lambda h, a, lq, r, cf: sk.snis_bwd_cuda(cf, a, beta),
+        lambda h, a, lq, r, cf: sr.snis_bwd_ref(cf, a, beta),
+        steps, rows + b * s * 8 + b * l * 4, 2 * b * s * l,
+        library_fn=lambda h, a, lq, r, cf: torch.nn.functional.embedding_bag(
+            a, beta, per_sample_weights=cf, mode="sum"),
+        library_note="embedding_bag(actions, beta, per_sample_weights=coeff, mode='sum')"))
+    return res
+
+
+def recording_plan(plan, record: list, replay: list | None = None):
+    """A copy of ``plan`` that records each step's (top-K, draws); with
+    ``replay`` (another run's records) the step goes on with that run's
+    draws instead of its own, which are still recorded."""
+    base = type(plan)
+
+    class Recording(base):
+        def _draw_mixture(self, seed, topk, eps):
+            own = base._draw_mixture(self, seed, topk, eps)
+            record.append((topk, own))
+            if replay is None:
+                return own
+            theirs = replay[len(record) - 1][1]
+            return type(own)(*(t.to(own.actions.device) for t in theirs))
+
+    return Recording(**{f.name: getattr(plan, f.name) for f in dataclasses.fields(plan)})
+
+
+def train_phase(ds, theta0) -> dict:
+    """fopo-paper at full width through the kernel path on the card, the
+    launch counts, step times and a profiled window; then the CPU replay
+    of the first steps through the plain versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.fused_sampler import kernel as fk, ref as fr
+    from repro_torch.kernels.ivf_topk import kernel as ik, ref as ir
+    from repro_torch.kernels.mips_topk import kernel as mk, ref as mr
+    from repro_torch.kernels.snis_covgrad import kernel as sk, ref as sr
+    from repro_torch.train import FOPOTrainer, TrainerConfig
+
+    paper = get_arch("fopo-paper").CONFIG
+    fopo = dataclasses.replace(paper.fopo, retriever="pallas", fused=True, fused_sampler=True,
+                               sample_tile=TS)
+    cfg = TrainerConfig(estimator="fopo", fopo=fopo, batch_size=paper.batch_size,
+                        learning_rate=paper.learning_rate, num_steps=TRAIN_STEPS, seed=0)
+    seeds = np.random.default_rng(17).integers(0, 2**31 - 1, TRAIN_STEPS + PROFILED_STEPS)
+    tr = FOPOTrainer(cfg, ds, device="cuda", params=theta0,
+                     step_seeds=lambda step: int(seeds[step]))
+    card_draws: list = []
+    tr.plan = recording_plan(tr.plan, card_draws)
+    w0 = tr.params["w"].clone()
+    counters = [(mk.mips_topk_cuda, "launches"), (fk.fused_sampler_cuda, "launches"),
+                (sk.snis_fwd_cuda, "launches"), (sk.snis_bwd_cuda, "launches"),
+                (ik.ivf_probe_topk_cuda, "launches"), (mr.mips_topk_ref, "calls"),
+                (fr.fused_sampler_ref, "calls"), (sr.snis_fwd_ref, "calls"),
+                (sr.snis_bwd_ref, "calls"), (ir.ivf_probe_topk_ref, "calls")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    hist, thetas = {"loss": [], "ess": [], "rbar": [], "max_wbar": [], "step_time": []}, []
+    for n in [1] * REPLAY_STEPS + [TRAIN_STEPS - REPLAY_STEPS]:
+        h = tr.train(n)
+        for key in hist:
+            hist[key] += h[key]
+        thetas.append(tr.params["w"].clone())
+    counts = {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counters}
+    log(f"[train] fopo-paper P={paper.num_items} L={paper.embed_dim} S={fopo.num_samples} "
+        f"K={fopo.top_k} eps={fopo.epsilon} B={cfg.batch_size} lr={cfg.learning_rate}, "
+        f"retriever=pallas fused fused_sampler TS={TS}: {TRAIN_STEPS} steps; counts {counts}")
+    for fn in (mk.mips_topk_cuda, fk.fused_sampler_cuda, sk.snis_fwd_cuda, sk.snis_bwd_cuda):
+        check(fn.launches == TRAIN_STEPS,
+              f"{fn.__name__} launched {fn.launches} times in {TRAIN_STEPS} steps")
+    check(ik.ivf_probe_topk_cuda.launches == 0, "ivf_topk ran on the training path")
+    for fn in (mr.mips_topk_ref, fr.fused_sampler_ref, sr.snis_fwd_ref, sr.snis_bwd_ref,
+               ir.ivf_probe_topk_ref):
+        check(fn.calls == 0, f"the plain version {fn.__name__} ran {fn.calls} times on the card")
+    for key in ("loss", "ess", "rbar", "max_wbar"):
+        check(bool(np.all(np.isfinite(hist[key]))), f"non-finite {key}: {hist[key]}")
+    moved = float((tr.params["w"] - w0).abs().max())
+    check(moved > 0, "theta did not change")
+    st = sorted(hist["step_time"][1:])
+    p50, p99 = percentile(st, 50) * 1e3, percentile(st, 99) * 1e3
+    log(f"[train] loss {hist['loss'][0]:+.5f} -> {hist['loss'][-1]:+.5f}, ess "
+        f"{hist['ess'][0]:.1f} -> {hist['ess'][-1]:.1f}, rbar {hist['rbar'][0]:+.4f} -> "
+        f"{hist['rbar'][-1]:+.4f}, max_wbar {hist['max_wbar'][-1]:.3f}; theta moved by up to "
+        f"{moved:.3g}; step time p50 {p50:.3f} ms, p99 {p99:.3f} ms over steps 1-"
+        f"{TRAIN_STEPS - 1} (step 0 {hist['step_time'][0] * 1e3:.3f} ms)")
+
+    # where a step's device time goes: a profiled window of a few steps
+    from torch.profiler import ProfilerActivity, profile
+
+    # device activity only: each entry is a kernel, a copy or a fill, so
+    # their times add up to the device's busy time without double counts
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train(PROFILED_STEPS)
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    def device_us(ev) -> float:
+        return getattr(ev, "self_device_time_total", None) or getattr(ev, "device_time_total", 0.0)
+
+    groups = {"mips_topk": 0.0, "fused_sampler": 0.0, "snis_fwd": 0.0, "snis_bwd": 0.0,
+              "other": 0.0}
+    for ev in prof.key_averages():
+        dt = device_us(ev) / PROFILED_STEPS / 1e3
+        if dt <= 0:
+            continue
+        name = ev.key
+        group = ("mips_topk" if "mips_" in name else "fused_sampler" if "fused_sampler" in name
+                 else "snis_fwd" if "snis_fwd" in name else "snis_bwd" if "snis_bwd" in name
+                 else "other")
+        groups[group] += dt
+    busy = sum(groups.values())
+    if busy > 0:
+        log(f"[train] profiled {PROFILED_STEPS} steps: device ms per step by kernel: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in groups.items())
+            + f"; busy {busy:.4f} of {wall:.4f} ms wall per step (profiled), device idle "
+            f"{100 * (1 - busy / wall):.1f}%")
+        other = sorted(((device_us(e) / PROFILED_STEPS / 1e3, e.key)
+                        for e in prof.key_averages() if device_us(e) > 0), reverse=True)[:8]
+        log("[train] top device entries (ms per step): "
+            + "; ".join(f"{n[:48]} {t:.4f}" for t, n in other))
+    else:
+        log("[train] the profiler reported no device time on this machine")
+
+    # the first steps again on the CPU, through the plain versions
+    t0 = time.perf_counter()
+    cpu_draws: list = []
+    rep = FOPOTrainer(cfg, ds, device="cpu", params=theta0,
+                      step_seeds=lambda step: int(seeds[step]))
+    rep.plan = recording_plan(rep.plan, cpu_draws, replay=card_draws)
+    kappa_agree, top_same = [], []
+    for t in range(REPLAY_STEPS):
+        h = rep.train(1)
+        for key in ("loss", "ess", "rbar", "max_wbar"):
+            close_err(torch.tensor(h[key]), torch.tensor(hist[key][t:t + 1]),
+                      f"replay step {t} {key}")
+        close_err(rep.params["w"], thetas[t], f"replay step {t} theta", rtol=0.0, atol=1e-6)
+        (ctop, cs), (gtop, gs) = cpu_draws[t], card_draws[t]
+        topk_err((gtop.scores, gtop.indices), (ctop.scores, ctop.indices),
+                 f"replay step {t} top-K")
+        gi, ci = gtop.indices.cpu(), ctop.indices
+        top_same.append(float(np.mean([set(a.tolist()) == set(c.tolist())
+                                       for a, c in zip(gi, ci)])))
+        kappa = gs.topk_slot.cpu() >= 0
+        kappa_agree.append(float((gs.actions.cpu()[kappa] == cs.actions[kappa]).float().mean()))
+        check(bool(torch.equal(gs.topk_slot.cpu() == -1, cs.topk_slot == -1)),
+              f"replay step {t}: arm choice differs")
+        # not every draw: fp32 sums taken in another order swap near-tied
+        # scores in the top-K order, and a draw at a swapped slot takes the
+        # other item; a broken sampler would agree on almost none
+        check(kappa_agree[-1] >= 0.99, f"replay step {t}: kappa agreement {kappa_agree[-1]}")
+    log(f"[train] CPU replay of steps 0-{REPLAY_STEPS - 1} through the plain versions "
+        f"({time.perf_counter() - t0:.1f} s): loss and diagnostics within rtol {RTOL} / atol "
+        f"{ATOL}, theta within 1e-6 of the card's at every step, on the card's draws; the "
+        f"CPU's own retrieval against the card's at every step: sorted scores within rtol "
+        f"{RTOL} / atol {ATOL}, ids as sets but for boundary ties (rows equal as sets "
+        f"{top_same}); the CPU's own draws: kappa-arm agreement {kappa_agree} (held >= "
+        f"0.99), uniform arm exact")
+    return dict(counts=counts, p50_ms=p50, p99_ms=p99, kappa_agreement=min(kappa_agree))
+
+
 def percentile(values: list[float], p: float) -> float:
     vs = sorted(values)
     return vs[min(len(vs) - 1, max(0, round(p / 100.0 * (len(vs) - 1))))]
@@ -319,11 +732,17 @@ def main() -> int:
         f"x{torch.cuda.device_count()}")
     log(f"[env] card: {card}")
 
-    # 2. build
+    # 2. build: every kernel's source, one nvcc each, all started together
+    from repro_torch.kernels.fused_sampler import kernel as fk
+    from repro_torch.kernels.mips_topk import kernel as mk
+    from repro_torch.kernels.snis_covgrad import kernel as sk
+
+    sources = [kernel.SOURCE, mk.SOURCE, fk.SOURCE, sk.FWD_SOURCE, sk.BWD_SOURCE]
     t0 = time.perf_counter()
-    _build.build([kernel.SOURCE])
-    kernel.library()
-    log(f"[build] ivf_topk ({kernel.SOURCE.relative_to(ROOT)}) built and "
+    _build.build(sources)
+    for lib in (kernel.library, mk.library, fk.library, sk.fwd_library, sk.bwd_library):
+        lib()
+    log(f"[build] {', '.join(str(x.relative_to(ROOT)) for x in sources)} built and "
         f"loaded in {time.perf_counter() - t0:.2f} s")
 
     # the serving route at full width: weights, tower, IVF index
@@ -407,9 +826,20 @@ def main() -> int:
         f"against exact search {recall_at_k(served_all, exact):.3f} (random weights)")
     stage_times(route, payloads, records)
 
-    # 5. the kernels line, the card, the result
+    # 5. the training path at full fopo-paper width
+    ds, theta0, beta, h0 = training_data(dev)
+    log("[kernels] the training kernels vs their plain versions, on the card (rtol="
+        f"{RTOL}, atol={ATOL}; for the sampled scores, g and grad_h, sums of terms of both "
+        "signs, atol scaled by max |output|; top-K ids as sets; sampler draws exact on the "
+        "uniform arm, kappa arm >= 0.999, log q within 1e-6)")
+    with torch.no_grad():
+        tk = training_kernel_phase(beta, h0, ds.positives)
+    del beta, h0
+    tres = train_phase(ds, theta0)
+
+    # 6. the kernels line, the card, the result
     t = kres["timing"]["main K=10"]
-    entry = {
+    entries = [{
         "name": "ivf_topk",
         "route": "cuda",
         "source": str(kernel.SOURCE.relative_to(ROOT)),
@@ -422,8 +852,31 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": None,
-    }
-    log(json.dumps({"kernels": [entry]}))
+    }]
+    for name, source, replaces, launch_fn in [
+        ("mips_topk", mk.SOURCE, "src/repro/kernels/mips_topk/kernel.py:72", mk.mips_topk_cuda),
+        ("fused_sampler", fk.SOURCE, "src/repro/kernels/fused_sampler/kernel.py:172",
+         fk.fused_sampler_cuda),
+        ("snis_covgrad_fwd", sk.FWD_SOURCE, "src/repro/kernels/snis_covgrad/kernel.py:259",
+         sk.snis_fwd_cuda),
+        ("snis_covgrad_bwd", sk.BWD_SOURCE, "src/repro/kernels/snis_covgrad/backward.py:137",
+         sk.snis_bwd_cuda),
+    ]:
+        r = tk[name]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": str(source.relative_to(ROOT)),
+            "replaces": replaces,
+            "launches": tres["counts"][f"{launch_fn.__name__}.launches"],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+    log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,7 @@ ARCH_IDS = [
     "fopo-paper",
 ]
 
-PORTED = {"sasrec": "sasrec"}
+PORTED = {"sasrec": "sasrec", "fopo-paper": "fopo_paper"}
 
 
 def get_arch(arch_id: str) -> types.ModuleType:

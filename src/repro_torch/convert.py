@@ -14,7 +14,9 @@ from repro_torch.mips.ivf import IVFIndex
 from repro_torch.mips.refresh import RefreshState
 
 __all__ = [
+    "adam_state_from_numpy",
     "ivf_index_from_numpy",
+    "linear_tower_params_from_numpy",
     "refresh_state_from_numpy",
     "sasrec_params_from_numpy",
 ]
@@ -58,3 +60,28 @@ def ivf_index_from_numpy(centroids, lists, list_embs, num_items: int) -> IVFInde
 def refresh_state_from_numpy(**arrays) -> RefreshState:
     """A `RefreshState` from its fields as numpy arrays, by name."""
     return RefreshState(**{f: _t(arrays[f]) for f in RefreshState._fields})
+
+
+def linear_tower_params_from_numpy(tree: dict) -> dict:
+    """The reference's `linear_tower_init` tree ({"w": [L, L]}) as the
+    port's linear-tower parameters."""
+    return {"w": _t(np.asarray(tree["w"], dtype=np.float32))}
+
+
+def adam_state_from_numpy(state: dict) -> dict:
+    """The reference's `adam` state ({"step", "m", "v"}, the moments
+    trees shaped like the parameters) as the port's, so that both
+    optimizers continue from the same point."""
+
+    def tree(x):
+        if isinstance(x, dict):
+            return {k: tree(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [tree(v) for v in x]
+        return _t(np.asarray(x))
+
+    return {
+        "step": _t(np.asarray(state["step"], dtype=np.int32)),
+        "m": tree(state["m"]),
+        "v": tree(state["v"]),
+    }

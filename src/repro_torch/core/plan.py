@@ -1,18 +1,25 @@
-"""The resolved ExecutionPlan, serving subset.
+"""The resolved ExecutionPlan of one FOPO training step, and of the
+query-only serve path.
 
-`FOPOConfig` is a knob matrix; `ExecutionPlan.resolve` validates it and
-resolves it once into a frozen object that knows which retriever runs.
-This slice ports the route the serving planner takes:
-``retriever="ivf_pallas"`` with ``index_refresh``, where the maintained
-index rides every query as a `RefreshState` operand, the retriever is
-(h, beta, state) -> TopK through the `ivf_topk` kernel with its delta
-pass, and a pre-resolved exact retriever with the same signature is the
-fallback that `degrade_to_fallback` swaps in.
+`FOPOConfig` is a knob matrix (`retriever`, `fused`, `fused_sampler`,
+`sample_tile`, `index_refresh`, `dist`); `ExecutionPlan.resolve`
+validates it and resolves it once into a frozen object that knows which
+retriever, which sampler and which surrogate run:
 
-Every other knob raises NotImplementedError naming the slice that brings
-it: the other retrievers, ``fused`` and ``fused_sampler`` (training), and
-``dist`` (multiple devices). `execute_query` is the serve path; the
-training step (`execute`) comes with the training slice.
+  cfg.sample_tile    -> plan.sample_tile    the clamped tile (S padding)
+  cfg.retriever      -> plan.retriever      (h, beta) -> TopK; with
+                                            index_refresh (h, beta, state)
+  cfg.fused_sampler  -> plan.fused_sampler  the in-kernel sampler vs the
+                                            generator-driven MixtureProposal
+  cfg.fused          -> plan.fused          the fused autograd Function
+                                            (covgrad kernels) vs plain torch
+
+`execute` is the Algorithm-1 step body (retrieval -> sample -> reward ->
+surrogate); `execute_query` the serve path (user embedding -> retrieval).
+``fused_interpret`` is accepted and written back as the reference does,
+but the port ignores it: a tensor's device picks the kernel or its plain
+version. ``dist`` and ``retriever="sharded"`` raise NotImplementedError
+naming the dist slice.
 """
 from __future__ import annotations
 
@@ -21,13 +28,43 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.kernels.snis_covgrad.ops import resolve_sample_tile
 from repro_torch.mips.exact import TopK
 
-__all__ = ["ExecutionPlan", "RETRIEVERS"]
+__all__ = ["ExecutionPlan", "RETRIEVERS", "make_retriever"]
 
 Retriever = Callable[..., TopK]
 
 RETRIEVERS = ("exact", "streaming", "ivf", "ivf_pallas", "sharded", "pallas")
+
+
+def make_retriever(cfg, **kw) -> Retriever:
+    """Build the configured MIPS retriever (h, beta) -> TopK."""
+    if cfg.retriever == "exact":
+        from repro_torch.mips.exact import topk_exact
+
+        return lambda h, beta: topk_exact(h, beta, cfg.top_k)
+    if cfg.retriever == "streaming":
+        from repro_torch.mips.streaming import topk_streaming
+
+        block = kw.get("block_items", 4096)
+        return lambda h, beta: topk_streaming(h, beta, cfg.top_k, block_items=block)
+    if cfg.retriever == "pallas":
+        from repro_torch.kernels.mips_topk.ops import mips_topk
+
+        return lambda h, beta: mips_topk(h, beta, cfg.top_k)
+    if cfg.retriever == "ivf":
+        from repro_torch.mips.ivf import DEFAULT_N_PROBE, ivf_query
+
+        index = kw["index"]  # prebuilt IVFIndex (Assumption 1: beta fixed)
+        n_probe = kw.get("n_probe", DEFAULT_N_PROBE)
+        return lambda h, beta: ivf_query(index, h, cfg.top_k, n_probe=n_probe)
+    if cfg.retriever == "ivf_pallas":
+        from repro_torch.kernels.ivf_topk.ops import ivf_topk
+
+        index, n_probe = _resolve_ivf_pallas_kwargs(kw)
+        return lambda h, beta: ivf_topk(h, index, cfg.top_k, n_probe=n_probe)
+    raise ValueError(f"unknown retriever {cfg.retriever!r}")
 
 
 def _resolve_ivf_pallas_kwargs(kw: dict):
@@ -40,9 +77,9 @@ def _resolve_ivf_pallas_kwargs(kw: dict):
     return index, kw.get("n_probe", DEFAULT_N_PROBE)
 
 
-def _validate(cfg, retriever_kwargs: dict) -> None:
+def _validate(cfg, *, injected_retriever: bool, retriever_kwargs: dict) -> None:
     """Construction-time knob validation: every invalid or not-yet-ported
-    combination fails here, before any query runs."""
+    combination fails here, before any step runs."""
     if cfg.num_items <= 0:
         raise ValueError(
             f"FOPOConfig.num_items must be > 0, got {cfg.num_items}"
@@ -53,45 +90,49 @@ def _validate(cfg, retriever_kwargs: dict) -> None:
         raise ValueError(f"top_k must be >= 1, got {cfg.top_k}")
     if isinstance(cfg.epsilon, (int, float)) and not 0.0 <= cfg.epsilon <= 1.0:
         raise ValueError(f"epsilon must lie in [0, 1], got {cfg.epsilon}")
-    if cfg.retriever not in RETRIEVERS:
+    if not injected_retriever and cfg.retriever not in RETRIEVERS:
         raise ValueError(
             f"unknown retriever {cfg.retriever!r} (one of {RETRIEVERS})"
         )
-    if cfg.dist is not None:
+    if cfg.dist is not None or (not injected_retriever and cfg.retriever == "sharded"):
         raise NotImplementedError(
-            "FOPOConfig.dist is not ported yet: the multi-device route comes "
-            "with the dist slice"
+            "FOPOConfig.dist and retriever='sharded' are not ported yet: the "
+            "multi-device route comes with the dist slice"
         )
-    if cfg.fused or cfg.fused_sampler:
-        raise NotImplementedError(
-            "fused / fused_sampler are not ported yet: the fused training "
-            "kernels come with the training slice"
-        )
-    if cfg.retriever != "ivf_pallas" or cfg.index_refresh is None:
-        raise NotImplementedError(
-            f"retriever={cfg.retriever!r} with index_refresh="
-            f"{cfg.index_refresh!r} is not ported yet: the serving slice "
-            "resolves retriever='ivf_pallas' with an index_refresh route; "
-            "the other retrievers come with the training slice"
-        )
-    from repro_torch.mips.ivf import IVFIndex
+    if not injected_retriever and cfg.retriever in ("ivf", "ivf_pallas"):
+        from repro_torch.mips.ivf import IVFIndex
+
+        if "index" not in retriever_kwargs:
+            raise ValueError(
+                f'retriever="{cfg.retriever}" needs a prebuilt index: pass '
+                "retriever_kwargs={'index': build_ivf(...)}"
+            )
+        if cfg.retriever == "ivf_pallas" and not isinstance(
+            retriever_kwargs["index"], IVFIndex
+        ):
+            raise ValueError(
+                'retriever="ivf_pallas" takes a single IVFIndex (got '
+                f"{type(retriever_kwargs['index']).__name__})"
+            )
+    rc = cfg.index_refresh
+    if rc is None:
+        return
     from repro_torch.mips.refresh import RefreshConfig
 
-    if "index" not in retriever_kwargs:
-        raise ValueError(
-            'retriever="ivf_pallas" needs a prebuilt index: pass '
-            "retriever_kwargs={'index': build_ivf(...)}"
-        )
-    if not isinstance(retriever_kwargs["index"], IVFIndex):
-        raise ValueError(
-            'retriever="ivf_pallas" takes a single IVFIndex (got '
-            f"{type(retriever_kwargs['index']).__name__})"
-        )
-    rc = cfg.index_refresh
     if not isinstance(rc, RefreshConfig):
         raise ValueError(
             "FOPOConfig.index_refresh must be a RefreshConfig (or None), "
             f"got {type(rc).__name__}"
+        )
+    if injected_retriever:
+        raise ValueError(
+            "index_refresh= cannot combine with an injected retriever: the "
+            "refresh path owns retriever construction"
+        )
+    if cfg.retriever != "ivf_pallas":
+        raise ValueError(
+            "index_refresh= requires retriever='ivf_pallas' (the only "
+            f"maintained index layout), got {cfg.retriever!r}"
         )
     if rc.every < 0 or rc.compact_every < 0:
         raise ValueError(
@@ -112,16 +153,26 @@ def _validate(cfg, retriever_kwargs: dict) -> None:
 class ExecutionPlan:
     """What `FOPOConfig` leaves implicit, resolved once.
 
-    retriever            (h, beta, state) -> TopK through `ivf_topk`
+    retriever            (h, beta) -> TopK; with a refresh route
+                         (h, beta, state) -> TopK through `ivf_topk`
+    sample_tile          the clamped kernel tile
+    fused_sampler        in-kernel sampler (True) or MixtureProposal
+    fused                fused covgrad autograd Function (True) or the
+                         plain-torch surrogate
+    refresh              the RefreshConfig, or None
     initial_index_state  the RefreshState built from the caller's index
-    fallback_retriever   the exact retriever with the same signature
+    fallback_retriever   the exact retriever with the refresh signature
     degraded             True once `degrade_to_fallback` was taken
     """
 
     cfg: Any  # the normalised FOPOConfig (resolved knobs written back)
+    sample_tile: int
+    fused: bool
+    fused_sampler: bool
     retriever: Retriever
-    initial_index_state: Any
-    fallback_retriever: Retriever
+    refresh: Any = None
+    initial_index_state: Any = None
+    fallback_retriever: Retriever | None = None
     degraded: bool = False
 
     def degrade_to_fallback(self) -> "ExecutionPlan":
@@ -129,42 +180,69 @@ class ExecutionPlan:
         fallback, with the same operands. Idempotent."""
         if self.degraded:
             return self
+        if self.fallback_retriever is None:
+            raise ValueError(
+                "plan has no fallback retriever (only refresh plans resolve "
+                "one: nothing to degrade to)"
+            )
         return dataclasses.replace(
             self, retriever=self.fallback_retriever, degraded=True
         )
 
     @classmethod
-    def resolve(cls, cfg, *, retriever_kwargs: dict | None = None) -> "ExecutionPlan":
-        """Validate ``cfg`` and resolve its retriever from
-        ``retriever_kwargs`` (the prebuilt "index", "n_probe",
-        "cap_tile")."""
-        from repro_torch.kernels.ivf_topk.ops import ivf_topk
-        from repro_torch.mips import refresh as refresh_mod
-        from repro_torch.mips.exact import topk_exact
-
+    def resolve(
+        cls,
+        cfg,
+        *,
+        retriever: Retriever | None = None,
+        retriever_kwargs: dict | None = None,
+    ) -> "ExecutionPlan":
+        """Validate ``cfg`` and resolve it. ``retriever`` injects a
+        prebuilt (h, beta) -> TopK retriever and skips construction;
+        otherwise ``retriever_kwargs`` feeds the configured one (the
+        prebuilt "index", "n_probe", "cap_tile", "block_items")."""
         kw = retriever_kwargs or {}
-        _validate(cfg, kw)
+        _validate(cfg, injected_retriever=retriever is not None, retriever_kwargs=kw)
+        tile = resolve_sample_tile(cfg.sample_tile, cfg.num_samples)
+        # write the resolved knobs back, so what runs is what plan.cfg says
+        if tile != cfg.sample_tile:
+            cfg = dataclasses.replace(cfg, sample_tile=tile)
         if cfg.top_k > cfg.num_items:
             # a top_k past the catalog must not reach the retriever
             cfg = dataclasses.replace(cfg, top_k=cfg.num_items)
-        index, n_probe = _resolve_ivf_pallas_kwargs(kw)
-        top_k, num_items = cfg.top_k, cfg.num_items
-        state = refresh_mod.init_refresh_state(
-            index, num_items, cfg.index_refresh.delta_cap
-        )
+        if (cfg.fused or cfg.fused_sampler) and cfg.fused_interpret is None:
+            # the reference writes its resolved interpret mode back; the
+            # port has none (the tensor's device picks kernel or plain)
+            cfg = dataclasses.replace(cfg, fused_interpret=False)
+        refresh = cfg.index_refresh
+        state = fallback = None
+        if refresh is not None:
+            from repro_torch.kernels.ivf_topk.ops import ivf_topk
+            from repro_torch.mips import refresh as refresh_mod
+            from repro_torch.mips.exact import topk_exact
 
-        def retriever(h, beta, state):  # noqa: ARG001 — uniform signature
-            return ivf_topk(
-                h, state.as_index(num_items), top_k, n_probe=n_probe,
-                delta=state.delta(),
-            )
+            index, n_probe = _resolve_ivf_pallas_kwargs(kw)
+            top_k, n_items = cfg.top_k, cfg.num_items
+            state = refresh_mod.init_refresh_state(index, n_items, refresh.delta_cap)
 
-        def fallback(h, beta, state):  # noqa: ARG001 — uniform signature
-            return topk_exact(h, beta, top_k)
+            def retriever(h, beta, state):  # noqa: ARG001 — uniform signature
+                return ivf_topk(
+                    h, state.as_index(n_items), top_k, n_probe=n_probe,
+                    delta=state.delta(),
+                )
 
+            def fallback(h, beta, state):  # noqa: ARG001 — uniform signature
+                return topk_exact(h, beta, top_k)
+
+        elif retriever is None:
+            retriever = make_retriever(cfg, **kw)
         return cls(
             cfg=cfg,
+            sample_tile=tile,
+            fused=bool(cfg.fused),
+            fused_sampler=bool(cfg.fused_sampler),
             retriever=retriever,
+            refresh=refresh,
             initial_index_state=state,
             fallback_retriever=fallback,
         )
@@ -172,17 +250,102 @@ class ExecutionPlan:
     # -- the query-only serve path --------------------------------------
     def execute_query(self, policy, params, x, beta, index_state=None) -> TopK:
         """h_theta(x) through the resolved retriever: no sampling, no
-        reward, no surrogate. The maintained index rides as
+        reward, no surrogate. A maintained index rides as
         ``index_state`` (default: the plan's initial state)."""
+        h = self._user_embedding(policy, params, x, route="serve")
+        return self.retrieve(h, beta, index_state)
+
+    def _user_embedding(self, policy, params, x, route="train") -> torch.Tensor:
+        """h_theta(x), detached: the training and serving paths embed
+        identically."""
         from repro_torch.obs.trace import span
 
-        with span("user_embedding", route="serve"):
-            h = policy.user_embedding(params, x).detach()
-        return self.retrieve(h, beta, index_state)
+        with span("user_embedding", route=route):
+            return policy.user_embedding(params, x).detach()
+
+    # -- the step skeleton: retrieval -> sample -> reward -> surrogate ---
+    def execute(
+        self,
+        policy,
+        params,
+        seed: int,
+        x: torch.Tensor,  # [B, Dx]
+        beta: torch.Tensor,  # [P, L] fixed item embeddings
+        reward_fn,  # actions [B, S] -> [B, S]
+        epsilon: float | torch.Tensor | None = None,
+        index_state=None,
+    ) -> tuple[torch.Tensor, dict]:
+        """One Algorithm-1 step body; returns (loss, aux). ``seed`` is
+        this step's int32 seed: the in-kernel sampler's counter-hash
+        seed, or the seed of the generator the other samplers draw
+        from. The spans time the host side of each phase (a span around
+        a CUDA launch ends when the launch is queued)."""
+        from repro_torch.obs.trace import span
+
+        eps = self.cfg.epsilon if epsilon is None else epsilon
+        h_prop = self._user_embedding(policy, params, x)
+        sample = self.draw(seed, h_prop, beta, eps, index_state=index_state)
+        # clamp keeps reward lookups in range on pre-masked (padded) slots;
+        # their reward is zeroed and their SNIS weight is 0
+        valid = sample.actions >= 0
+        with span("reward"):
+            rewards = (reward_fn(sample.actions.clamp(min=0)) * valid).detach()
+        with span("surrogate"):
+            return self.surrogate(policy, params, x, beta, sample, rewards)
 
     def retrieve(self, h: torch.Tensor, beta: torch.Tensor, index_state=None) -> TopK:
         from repro_torch.obs.trace import span
 
-        state = index_state if index_state is not None else self.initial_index_state
         with span("retrieval", route=self.cfg.retriever):
-            return self.retriever(h, beta, state)
+            if self.refresh is not None:
+                state = index_state if index_state is not None else self.initial_index_state
+                return self.retriever(h, beta, state)
+            return self.retriever(h, beta)
+
+    def draw(self, seed: int, h_prop, beta, eps, index_state=None):
+        """Step 4: S proposal draws per context. A float eps >= 1 skips
+        retrieval (pure uniform proposal); a tensor eps takes the
+        mixture route, which reproduces the uniform pmf at eps == 1."""
+        from repro_torch.obs.trace import span
+
+        if isinstance(eps, (int, float)) and eps >= 1.0:
+            with span("sample", route="uniform"):
+                return self._draw_uniform(seed, h_prop.shape[0], h_prop.device)
+        topk = self.retrieve(h_prop, beta, index_state)
+        with span("sample", route="fused" if self.fused_sampler else "mixture"):
+            return self._draw_mixture(seed, topk, eps)
+
+    def _draw_uniform(self, seed: int, batch: int, device):
+        from repro_torch.core.proposals import UniformProposal
+
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return UniformProposal(self.cfg.num_items).sample(
+            gen, batch, self.cfg.num_samples, device=device
+        )
+
+    def _draw_mixture(self, seed: int, topk: TopK, eps):
+        from repro_torch.core.proposals import MixtureProposal, ProposalSample
+
+        cfg = self.cfg
+        if self.fused_sampler:
+            from repro_torch.kernels.fused_sampler.ops import fused_mixture_sample
+
+            actions, log_q, slots = fused_mixture_sample(
+                seed, topk.indices, topk.scores, num_samples=cfg.num_samples,
+                epsilon=eps, num_items=cfg.num_items, sample_tile=self.sample_tile,
+            )
+            return ProposalSample(actions=actions, log_q=log_q, topk_slot=slots)
+        gen = torch.Generator(device=topk.scores.device).manual_seed(seed)
+        return MixtureProposal(cfg.num_items, eps).sample(
+            gen, topk.indices, topk.scores, cfg.num_samples
+        )
+
+    def surrogate(self, policy, params, x, beta, sample, rewards) -> tuple[torch.Tensor, dict]:
+        """Step 5: SNIS weights + covariance-gradient surrogate, through
+        the fused kernels or in plain torch as the plan resolved."""
+        from repro_torch.core.gradients import covariance_surrogate
+
+        return covariance_surrogate(
+            policy, params, x, beta, sample.actions, sample.log_q, rewards,
+            fused=self.fused, sample_tile=self.sample_tile,
+        )

@@ -20,7 +20,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launch
 
 __all__ = ["SOURCE", "ivf_probe_topk_cuda", "library", "splits_for"]
 
@@ -36,15 +36,10 @@ def library() -> ctypes.CDLL:
     """Build (first use) and load the kernel's library, with its C
     signatures declared."""
     lib = _build.load(SOURCE)
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ivf_topk_launch.argtypes = [vp] * 8 + [i32] * 7 + [vp]
-    lib.ivf_topk_launch.restype = i32
-    lib.ivf_topk_smem_bytes.argtypes = [i32, i32, i32]
-    lib.ivf_topk_smem_bytes.restype = ctypes.c_size_t
-    lib.ivf_topk_threads.argtypes = []
-    lib.ivf_topk_threads.restype = i32
-    lib.ivf_topk_error_string.argtypes = [i32]
-    lib.ivf_topk_error_string.restype = ctypes.c_char_p
+    _launch.declare(lib, "ivf_topk_launch", "p" * 8 + "i" * 7 + "p")
+    _launch.declare(lib, "ivf_topk_smem_bytes", "iii", ctypes.c_size_t)
+    _launch.declare(lib, "ivf_topk_threads", "")
+    _launch.declare(lib, "ivf_topk_error_string", "i", ctypes.c_char_p)
     return lib
 
 
@@ -82,17 +77,6 @@ def splits_for(
     return -(-capp // chunk), chunk
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def ivf_probe_topk_cuda(
     queries: torch.Tensor,  # [B, L] float32
     probe: torch.Tensor,  # [B, n_probe] int32 cluster ids
@@ -104,10 +88,10 @@ def ivf_probe_topk_cuda(
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"ivf_probe_topk_cuda takes CUDA tensors, got {dev}")
-    _check("queries", queries, torch.float32, 2, dev)
-    _check("probe", probe, torch.int32, 2, dev)
-    _check("lists", lists, torch.int32, 2, dev)
-    _check("list_embs", list_embs, torch.float32, 3, dev)
+    _launch.check("queries", queries, torch.float32, 2, dev)
+    _launch.check("probe", probe, torch.int32, 2, dev)
+    _launch.check("lists", lists, torch.int32, 2, dev)
+    _launch.check("list_embs", list_embs, torch.float32, 3, dev)
     b, l = queries.shape
     n_probe = probe.shape[1]
     c, capp = lists.shape
@@ -129,16 +113,13 @@ def ivf_probe_topk_cuda(
     part_i = torch.empty((b, n_probe * splits, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = library().ivf_topk_launch(
         queries.data_ptr(), probe.data_ptr(), lists.data_ptr(),
         list_embs.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
         out_s.data_ptr(), out_i.data_ptr(),
-        b, l, n_probe, capp, k, splits, chunk, stream,
+        b, l, n_probe, capp, k, splits, chunk, _launch.stream(dev),
     )
-    if err != 0:
-        msg = library().ivf_topk_error_string(err).decode()
-        raise RuntimeError(f"ivf_topk kernel launch failed: {msg} ({err})")
+    _launch.raise_on_error(err, library(), "ivf_topk_error_string", "ivf_topk")
     ivf_probe_topk_cuda.launches += 1
     return out_s, out_i
 

@@ -1,4 +1,5 @@
-"""Config dataclasses of the ported architectures (recsys for now)."""
+"""Config dataclasses of the ported architectures (recsys for now) and
+the dry-run shape cell the configs list."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,3 +26,15 @@ class RecsysConfig:
     fopo_top_k: int = 256
     fopo_num_samples: int = 1000
     fopo_epsilon: float = 0.8
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (architecture x input-shape) cell: the reference's fields that
+    the ported configs set (the sequence and graph fields come with the
+    models slice)."""
+
+    name: str
+    kind: str  # train | retrieval (the reference also has prefill, decode, serve, graph)
+    global_batch: int = 0
+    n_candidates: int = 0

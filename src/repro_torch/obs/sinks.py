@@ -1,11 +1,31 @@
-"""Sinks of the metrics bus. This slice ports the human log-line sink;
-the ring and JSONL sinks come with the observability slice."""
+"""Sinks of the metrics bus, and the trainer's log-line format.
+
+RingSink      in-memory record buffer: the trainer's history backing
+HumanLogSink  prints the message of each "log" record, verbatim
+
+`format_train_line` is the single source of the trainer's cadence line,
+the reference's format. The JSONL sink and timestamps come with the
+observability slice.
+"""
 from __future__ import annotations
 
 import sys
 from typing import IO
 
-__all__ = ["HumanLogSink"]
+__all__ = ["HumanLogSink", "RingSink", "format_train_line"]
+
+
+class RingSink:
+    """Every drained record, in memory (the trainer's history backing)."""
+
+    def __init__(self):
+        self.records: list[dict] = []
+
+    def emit(self, record: dict) -> None:
+        self.records.append(record)
+
+    def close(self) -> None:
+        pass
 
 
 class HumanLogSink:
@@ -20,3 +40,17 @@ class HumanLogSink:
 
     def close(self) -> None:
         pass
+
+
+def format_train_line(step: int, loss: float, aux: dict | None = None) -> str:
+    """The log_every cadence line. ``aux`` carries the SNIS diagnostics
+    (ess / rbar / max_wbar) when the estimator produces them. The health
+    checks and the degraded mark come with the health slice."""
+    msg = f"step {step}: loss={float(loss):+.5f}"
+    if aux and "ess" in aux:
+        msg += (
+            f" ess={float(aux['ess']):.1f}"
+            f" rbar={float(aux['rbar']):+.4f}"
+            f" max_wbar={float(aux['max_wbar']):.3f}"
+        )
+    return msg

@@ -1,0 +1,151 @@
+"""First-order optimizers as (init, update) pairs over plain dicts of
+tensors, as the reference writes them: SGD (+momentum), Adam, AdamW,
+global-norm clipping and lr schedules. State is a plain nested dict of
+tensors. `adam` keeps the reference's update, u = (m mhat) / (sqrt(v
+vhat) + eps) with mhat, vhat the bias-correction scales;
+`torch.optim.Adam` places eps differently, so it is not used.
+
+Updates are pure (new tensors, no in-place change), so a caller may keep
+the old parameters; nothing here reads a device value on the host.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+__all__ = [
+    "Optimizer",
+    "adam",
+    "adamw",
+    "clip_by_global_norm",
+    "constant_schedule",
+    "cosine_schedule",
+    "sgd",
+    "tree_leaves",
+    "tree_map",
+]
+
+Params = Any
+Grads = Any
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Params], Any]
+    update: Callable[[Grads, Any, Params], tuple[Params, Any]]
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leafwise over nested dicts / lists / tuples of
+    tensors (None stays None)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def constant_schedule(lr: float):
+    return lambda step: torch.full((), lr, dtype=torch.float32, device=step.device)
+
+
+def cosine_schedule(lr: float, total_steps: int, warmup: int = 0, floor: float = 0.0):
+    def sched(step):
+        step = step.to(torch.float32)
+        warm = torch.clamp(step / max(warmup, 1), max=1.0)
+        t = torch.clamp((step - warmup) / max(total_steps - warmup, 1), 0.0, 1.0)
+        cos = floor + (1.0 - floor) * 0.5 * (1.0 + torch.cos(math.pi * t))
+        return lr * warm * cos
+
+    return sched
+
+
+def clip_by_global_norm(grads: Grads, max_norm: float) -> Grads:
+    leaves = tree_leaves(grads)
+    gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves))
+    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    return tree_map(lambda g: g * scale, grads)
+
+
+def _step0(params) -> torch.Tensor:
+    leaves = tree_leaves(params)
+    dev = leaves[0].device if leaves else None
+    return torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def sgd(lr: float | Callable = 1e-2, momentum: float = 0.0) -> Optimizer:
+    sched = lr if callable(lr) else constant_schedule(lr)
+
+    def init(params):
+        mu = tree_map(torch.zeros_like, params) if momentum else None
+        return {"step": _step0(params), "mu": mu}
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = sched(step)
+        if momentum:
+            mu = tree_map(lambda m, g: momentum * m + g, state["mu"], grads)
+            new_p = tree_map(lambda p, m: p - lr_t * m, params, mu)
+            return new_p, {"step": step, "mu": mu}
+        new_p = tree_map(lambda p, g: p - lr_t * g, params, grads)
+        return new_p, {"step": step, "mu": None}
+
+    return Optimizer(init=init, update=update)
+
+
+def adam(
+    lr: float | Callable = 1e-3,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+    moments_dtype: torch.dtype | None = None,
+) -> Optimizer:
+    """Adam; weight_decay > 0 gives AdamW (decoupled). moments_dtype
+    overrides the m / v storage type."""
+    sched = lr if callable(lr) else constant_schedule(lr)
+
+    def _zeros(p):
+        return torch.zeros(p.shape, dtype=moments_dtype or p.dtype, device=p.device)
+
+    def init(params):
+        return {
+            "step": _step0(params),
+            "m": tree_map(_zeros, params),
+            "v": tree_map(_zeros, params),
+        }
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = sched(step)
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], grads)
+        t = step.to(torch.float32)
+        mhat_scale = 1.0 / (1.0 - torch.pow(torch.full((), b1, device=t.device), t))
+        vhat_scale = 1.0 / (1.0 - torch.pow(torch.full((), b2, device=t.device), t))
+
+        def upd(p, m_, v_):
+            u = (m_ * mhat_scale) / (torch.sqrt(v_ * vhat_scale) + eps)
+            if weight_decay:
+                u = u + weight_decay * p
+            return p - lr_t * u
+
+        new_p = tree_map(upd, params, m, v)
+        return new_p, {"step": step, "m": m, "v": v}
+
+    return Optimizer(init=init, update=update)
+
+
+def adamw(lr: float | Callable = 1e-3, weight_decay: float = 0.01, **kw) -> Optimizer:
+    return adam(lr=lr, weight_decay=weight_decay, **kw)

@@ -1,11 +1,12 @@
-"""The port's ExecutionPlan (serving subset), coalescer and engine
-failure path, on the CPU.
+"""The port's ExecutionPlan, coalescer and engine failure path, on the
+CPU.
 
 The plan resolves the reference's ivf_pallas + index_refresh route and
-its exact fallback; every other knob raises NotImplementedError naming
-the slice that brings it, and invalid values raise ValueError as in the
-reference. The coalescer is a copy of the reference's and is pinned to
-it on random arrival streams.
+its exact fallback, and the training knobs (the retrievers, the fused
+sampler and the fused surrogate); the multi-device knobs raise
+NotImplementedError naming the dist slice, and invalid values raise
+ValueError as in the reference. The coalescer is a copy of the
+reference's and is pinned to it on random arrival streams.
 """
 import pytest
 
@@ -67,14 +68,37 @@ def test_top_k_is_clamped_to_the_catalog():
 
 
 @pytest.mark.parametrize(
+    "kw,retriever,fused_sampler,fused",
+    [
+        (dict(retriever="exact", index_refresh=None), "exact", False, False),
+        (dict(retriever="pallas", index_refresh=None), "pallas", False, False),
+        (dict(index_refresh=None), "ivf_pallas", False, False),
+        (dict(fused=True), "ivf_pallas", False, True),
+        (dict(fused_sampler=True), "ivf_pallas", True, False),
+    ],
+)
+def test_training_knobs_resolve(kw, retriever, fused_sampler, fused):
+    """Each knob set resolves: the plan says which retriever, sampler and
+    surrogate run, and its retriever answers a query; a kernel knob
+    writes fused_interpret back, as the reference does."""
+    items, index = _index()
+    plan = ExecutionPlan.resolve(_cfg(**kw), retriever_kwargs={"index": index, "n_probe": 4})
+    assert (plan.cfg.retriever, plan.fused_sampler, plan.fused) == (retriever, fused_sampler, fused)
+    assert (plan.refresh is not None) == ("index_refresh" not in kw)
+    assert plan.cfg.fused_interpret == (False if fused or fused_sampler else None)
+    h = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 8)).astype(np.float32))
+    got = plan.retrieve(h, items)
+    exact = torch.topk(h @ items.T, 5).indices
+    np.testing.assert_array_equal(
+        np.sort(got.indices.numpy(), -1), np.sort(exact.int().numpy(), -1)
+    )
+
+
+@pytest.mark.parametrize(
     "kw,slice_name",
     [
-        (dict(retriever="exact", index_refresh=None), "training slice"),
-        (dict(retriever="pallas"), "training slice"),
-        (dict(index_refresh=None), "training slice"),
-        (dict(fused=True), "training slice"),
-        (dict(fused_sampler=True), "training slice"),
         (dict(dist=object()), "dist slice"),
+        (dict(retriever="sharded", index_refresh=None), "dist slice"),
     ],
 )
 def test_later_slices_raise_not_implemented(kw, slice_name):
@@ -98,6 +122,8 @@ def test_later_slices_raise_not_implemented(kw, slice_name):
         (dict(index_refresh=RefreshConfig(every=1, minibatch=0)), None, "minibatch"),
         (dict(index_refresh=RefreshConfig(delta_cap=0)), None, "delta_cap"),
         (dict(index_refresh=RefreshConfig(count_decay=0.0)), None, "count_decay"),
+        (dict(retriever="ivf", index_refresh=None), {}, "prebuilt index"),
+        (dict(retriever="exact"), None, "requires retriever='ivf_pallas'"),
     ],
 )
 def test_invalid_knobs_raise_value_error(kw, kwargs, match):

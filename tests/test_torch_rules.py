@@ -23,8 +23,14 @@ import repro_torch  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.data import SyntheticConfig, generate_sessions  # noqa: E402
+from repro_torch.kernels.fused_sampler import ops as sampler_ops  # noqa: E402
 from repro_torch.kernels.ivf_topk import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.mips_topk import ops as mips_ops  # noqa: E402
+from repro_torch.kernels.snis_covgrad import ops as covgrad_ops  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.train import FOPOTrainer, TrainerConfig  # noqa: E402
 from repro_torch.mips import ivf  # noqa: E402
 from repro_torch.models import recsys  # noqa: E402
 from repro_torch.serve import QueryPlanner, RecsysMIPSRoute  # noqa: E402
@@ -95,6 +101,46 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.ivf_topk(torch.zeros((2, 8)), index, 3, n_probe=2)
     assert ref.ivf_probe_topk_ref.calls == calls
+
+
+def _covgrad_args():
+    z = torch.zeros((2, 8))
+    return torch.zeros((2, 8)), torch.zeros((10, 8)), z.int(), z, z
+
+
+_WRAPPERS = {
+    "mips_topk": (mips_ops, "mips_topk_ref", lambda: mips_ops.mips_topk(
+        torch.zeros((2, 8)), torch.zeros((10, 8)), 3)),
+    "fused_sampler": (sampler_ops, "fused_sampler_ref", lambda: sampler_ops.fused_mixture_sample(
+        0, torch.zeros((2, 4), dtype=torch.int32), torch.zeros((2, 4)), num_samples=8,
+        epsilon=0.5, num_items=10, sample_tile=8)),
+    "snis_covgrad_fwd": (covgrad_ops, "snis_fwd_ref", lambda: covgrad_ops.snis_scores_fused(
+        *_covgrad_args())),
+    "snis_covgrad_bwd": (covgrad_ops, "snis_bwd_ref", lambda: covgrad_ops.snis_covgrad_bwd(
+        torch.zeros((2, 8)), torch.zeros((2, 8), dtype=torch.int32), torch.zeros((10, 8)))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_WRAPPERS))
+def test_training_kernels_never_take_the_plain_version_on_cuda(monkeypatch, name):
+    """The training kernels' wrappers, as `ivf_topk`'s above: a tensor
+    taken for CUDA reaches the kernel's wrapper, which raises here, and
+    the plain version is not called."""
+    mod, plain, call = _WRAPPERS[name]
+    monkeypatch.setattr(mod, "_on_cuda", lambda t: True)
+    calls = getattr(mod._ref, plain).calls
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call()
+    assert getattr(mod._ref, plain).calls == calls
+
+
+def test_training_entry_points_refuse_cuda_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = generate_sessions(SyntheticConfig(num_items=50, num_users=20, embed_dim=4, session_len=4))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FOPOTrainer(TrainerConfig(), ds)  # the default device is "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--arch", "fopo-paper", "--steps", "1"])
 
 
 def test_kernel_build_failure_raises(monkeypatch, tmp_path):
