@@ -12,13 +12,15 @@ more each:
                   source, all started together), timed
   3. kernels      each kernel against its plain PyTorch version on the
                   card, at small shapes and at the shapes its path gives
-                  it, within the CPU parity tests' tolerances; times of
+                  it (ivf_topk also at the LM route's width, L 2304, and
+                  at widths not a multiple of 4), within the CPU parity
+                  tests' tolerances; times of
                   the kernel and the plain version (device time per call
                   from a replayed CUDA graph, and time per eager call),
                   the library call where one computes the same function,
                   and the least time the card could take for the same
-                  work (bytes over 3.35 TB/s or operations over 67
-                  TFLOP/s fp32, the larger)
+                  work (bytes over 3.35 TB/s or operations over their
+                  type's peak rate, the larger)
   4. serve        the serving path at full SASRec width (10^6 items,
                   embed 50, 2 blocks, 1 head, seq 50; random weights from
                   a seed): `RecsysMIPSRoute` builds its IVF index, then a
@@ -45,7 +47,29 @@ more each:
                   per context drawn from its exact top-64 under the
                   initial tower (`generate_sessions` cannot make a
                   750,000-item catalog in a smoke run)
-  6. a JSON line of the kernels, then the card's name and power limit,
+  6. flash        the flash-attention kernel (K9) against its plain
+                  version in fp32 and bf16, out and lse: small shapes
+                  (ragged S, windows 8 / 64, cap 50, q_offset > 0, GQA
+                  n_rep 1 and 2, every head width), the Gemma-2 prefill
+                  shape (B 8, H 8, KV 4, S 2048, D 256, bf16) and S 8192
+                  at batch 1 with window 4096; times and bounds, and at
+                  the prefill shape torch's flex_attention, compiled, as
+                  the library yardstick (in bf16 and on the fp32 upcast)
+  7. lm           the Gemma-2 2B generation path at full width (26 layers,
+                  d_model 2304, vocab 256,000, bf16; random weights from a
+                  seed; use_flash_kernel=True): `LMGenerateRoute` builds
+                  its IVF index over the unembed rows, a `ServingEngine`
+                  with max_batch=8 answers 16 requests of a 2048-token
+                  prompt and 16 generated tokens; the launch counters show
+                  26 K9 launches per prefill batch, ivf_topk on every
+                  token and no plain version; stage times, step p50 / p99,
+                  a profiled batch's device idle share, ivf_topk at the LM
+                  shape; then the gate against the plain chunked attention
+                  (use_flash_kernel=False) on the card: the prefill hidden
+                  states in bf16, a teacher-forced decode step by step
+                  (token disagreements only at near ties), and one prefill
+                  batch in fp32 within rtol 1e-4
+  8. a JSON line of the kernels, then the card's name and power limit,
      then the last line {"ok": true, "device": {...}}
 
 Any failed check raises, and the script exits non-zero without the last
@@ -55,6 +79,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -65,9 +90,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 RTOL, ATOL = 1e-5, 1e-6  # the CPU parity tests' score tolerances
 N_PROBE, K_SERVE, MAX_BATCH, REQUESTS = 8, 10, 8, 64
 TRAIN_STEPS, REPLAY_STEPS, PROFILED_STEPS, TS = 20, 3, 3, 8
+LM_PROMPT, LM_GEN, LM_BATCH, LM_REQUESTS, LM_TOP_K = 2048, 16, 8, 16, 4
+BF16_RTOL = 2.0**-7  # one bf16 ulp at the bottom of a binade
+LM_HIDDEN_REL = 5e-2  # bf16 prefill hidden states, kernel vs plain path (relative L2)
 
 
 def log(msg: str) -> None:
@@ -249,6 +278,33 @@ def kernel_phase(index, state, users) -> dict:
         probe = torch.stack([torch.randperm(c, generator=gen, device=dev)[:n_probe]
                              for _ in range(b)]).to(torch.int32)
         compare(f"ragged capp={capp}", q, probe, lists, embs.contiguous(), k)
+
+    # the LM route's width (L 2304 = the Gemma-2 hidden, C 512, K 4, B 8,
+    # n_probe 8), streamed in 72 slices of 32 columns; and widths that are
+    # not a multiple of 4 (4-byte copies, a partial last slice)
+    for c, capp, l, b, n_probe, k in [(512, 512, 2304, 8, 8, 4), (16, 200, 2302, 3, 4, 10),
+                                      (8, 100, 7, 2, 3, 5)]:
+        lists = torch.randperm(c * capp, generator=gen, device=dev).reshape(c, capp)
+        lists = torch.where(torch.rand((c, capp), generator=gen, device=dev) < 0.25,
+                            -1, lists).to(torch.int32)
+        embs = (torch.randn((c, capp, l), generator=gen, device=dev) / l**0.5
+                * (lists >= 0)[..., None]).contiguous()
+        q = torch.randn((b, l), generator=gen, device=dev)
+        probe = torch.stack([torch.randperm(c, generator=gen, device=dev)[:n_probe]
+                             for _ in range(b)]).to(torch.int32)
+        compare(f"wide L={l}", q, probe, lists, embs, k)
+        if l == 2304:  # time it: 75 % of the slots live, read in 36 slices of 64 columns
+            sets = [(torch.randn((b, l), generator=gen, device=dev), torch.stack(
+                [torch.randperm(c, generator=gen, device=dev)[:n_probe] for _ in range(b)]
+            ).to(torch.int32), lists, embs, k) for _ in range(4)]
+            t_k, t_p = (device_ms(f, sets) for f in (kernel.ivf_probe_topk_cuda,
+                                                     ref.ivf_probe_topk_ref))
+            b_ms, b_by, nbytes = bound_ms(*sets[0])
+            log(f"  time wide L={l}: device ms per call (CUDA graph) kernel {t_k:.4f}, plain "
+                f"{t_p:.4f}; bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.3f} MB); kernel "
+                f"device time at {100 * b_ms / t_k:.1f}% of the bound")
+            del sets
+        del lists, embs
 
     # the serving shapes: the full index, K = 10 and 256, and the delta
     # pass, empty (as serving leaves it) and filled
@@ -703,6 +759,443 @@ def train_phase(ds, theta0) -> dict:
     return dict(counts=counts, p50_ms=p50, p99_ms=p99, kappa_agreement=min(kappa_agree))
 
 
+# ---------------------------------------------------------------------------
+# flash attention (K9): kernel vs plain version
+# ---------------------------------------------------------------------------
+
+def live_pairs(sq: int, skv: int, causal: bool, window, q_offset: int) -> int:
+    """Unmasked (query, key) pairs of one head: what the kernel must
+    compute (the masked ones it skips or discards)."""
+    import numpy as np
+
+    qpos = q_offset + np.arange(sq)
+    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq, dtype=np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bound(b, sq, skv, h, kv, d, itemsize, causal, window, q_offset) -> tuple:
+    """(ms, "bytes" or "operations", bytes, qk flops, pv flops): q, k, v
+    read once, out and lse written once; 2 D flops per unmasked (query,
+    key) pair for each product. q k^T of bf16 inputs at the bf16
+    tensor-core rate (a product of two bf16 values is exact in fp32, so
+    the tensor cores give it to fp32 accuracy), of fp32 inputs at the
+    fp32 rate; p v at the fp32 rate (p is fp32). The two times add."""
+    nbytes = (2 * b * sq * h * d + 2 * b * skv * kv * d) * itemsize + b * h * sq * 4
+    qk = pv = b * h * live_pairs(sq, skv, causal, window, q_offset) * 2 * d
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = (qk / (BF16_FLOPS if itemsize == 2 else FP32_FLOPS) + pv / FP32_FLOPS) * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, qk, pv
+
+
+def flex_yardstick(sets: list, plain, kw: dict) -> dict:
+    """K9's library call: torch's `flex_attention`, compiled, with the
+    soft-cap as a score_mod, the causal mask and window as a block mask,
+    enable_gqa and the lse requested (a yardstick only: the port never calls
+    it). Timed on the same bf16 inputs (p is rounded to bf16 before p v:
+    held to the plain version within relative L2 1e-2) and on their fp32
+    upcast (the kernel's arithmetic: held within rtol 1e-4, atol 1e-5
+    max |out|), in [B, H, S, D] layout. Returns {"bf16"|"fp32": ms or the
+    error it raised or the disagreement}."""
+    import torch
+    from torch.nn.attention.flex_attention import AuxRequest, create_block_mask, flex_attention
+
+    from repro_torch.kernels import _build
+
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(_build.BUILD_DIR / sub))
+    import torch._inductor.config
+
+    torch._inductor.config.compile_threads = 1  # no pool of compile workers left behind
+    cap, window, causal = kw.get("logit_cap"), kw.get("window"), kw.get("causal", True)
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, qi, ki):
+        live = (ki <= qi) if causal else (ki >= 0)
+        return live & (qi - ki < window) if window else live
+
+    s_ = sets[0][0].shape[1]
+    block_mask = create_block_mask(mask_mod, None, None, s_, s_, device=sets[0][0].device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    res = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        try:
+            args = [tuple(x.transpose(1, 2).to(dtype).contiguous() for x in st) for st in sets]
+
+            def call(q, k, v):
+                return flex(q, k, v, score_mod=score_mod if cap else None,
+                            block_mask=block_mask, enable_gqa=True,
+                            return_aux=AuxRequest(lse=True))
+
+            out, aux = call(*args[0])
+            lse = aux.lse
+            want, want_lse = plain(*(x.to(dtype) for x in sets[0]), **kw)
+            out = out.transpose(1, 2).float()
+            want = want.float()
+            rel, err = rel_l2(out, want), float((out - want).abs().max())
+            lerr = float((lse - want_lse).abs().max())
+            ok = rel <= 1e-2 if dtype == torch.bfloat16 else bool(
+                ((out - want).abs() <= 1e-5 * want.abs().max() + 1e-4 * want.abs()).all())
+            del out, aux, lse, want, want_lse
+            t = device_ms(call, args, calls=8, replays=5)
+            log(f"  library {tag}: flex_attention (compiled) {t:.4f} ms per call (CUDA graph); "
+                f"against the plain version: out relative L2 {rel:.3g}, max abs {err:.3g}, lse "
+                f"max abs {lerr:.3g}: {'agrees' if ok else 'DISAGREES (not used)'}")
+            res[tag] = t if ok else f"disagrees: out relative L2 {rel:.3g}, max abs {err:.3g}"
+            del args
+        except Exception as e:  # noqa: BLE001 — a yardstick, not a check of the port
+            msg = f"{type(e).__name__}: {str(e).splitlines()[0][:300] if str(e) else ''}"
+            log(f"  library {tag}: flex_attention (compiled) did not run: {msg}")
+            res[tag] = msg
+        torch.cuda.empty_cache()
+    return res
+
+
+def flash_phase() -> dict:
+    """K9 against its plain version on the card, fp32 and bf16, out and
+    lse; times at the Gemma-2 prefill shape and at S 8192 with window
+    4096."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs = {"out_fp32": 0.0, "out_bf16": 0.0, "lse": 0.0}
+
+    def inputs(b, sq, skv, h, kv, d, dtype):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+
+    def plain(q, k, v, **kw):
+        b, sq, h, d = q.shape
+        n_rep = h // k.shape[2]
+        fold = lambda x, r: x.transpose(1, 2).repeat_interleave(r, 1).reshape(b * h, -1, d)  # noqa: E731
+        out, lse = fr.flash_attention_ref(fold(q, 1), fold(k, n_rep), fold(v, n_rep), **kw)
+        return out.reshape(b, h, sq, d).transpose(1, 2), lse.reshape(b, h, sq)
+
+    def compare(tag, q, k, v, **kw):
+        out, lse = fk.flash_attention_fwd_cuda(q, k, v, **kw)
+        ro, rl = plain(q, k, v, **kw)
+        if q.dtype == torch.bfloat16:
+            e = close_err(out, ro, tag + " out", rtol=BF16_RTOL, atol=ATOL)
+            errs["out_bf16"] = max(errs["out_bf16"], e)
+        else:
+            e = close_err(out, ro, tag + " out", sums=True)
+            errs["out_fp32"] = max(errs["out_fp32"], e)
+        el = close_err(lse, rl, tag + " lse", atol=1e-5)
+        errs["lse"] = max(errs["lse"], el)
+        b, sq, h, d = q.shape
+        log(f"  {tag}: B={b} Sq={sq} Skv={k.shape[1]} H={h} KV={k.shape[2]} D={d} "
+            f"{str(q.dtype)[6:]} {kw}: out max_abs_err {e:.3g}, lse {el:.3g} ok")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in fk.HEAD_DIMS:
+            compare("small", *inputs(2, 77, 77, 4, 2, d, dtype), logit_cap=50.0)
+        compare("small", *inputs(1, 300, 300, 2, 2, 64, dtype), window=64)
+        compare("small", *inputs(1, 130, 130, 4, 2, 16, dtype), window=8, logit_cap=50.0)
+        compare("small", *inputs(1, 40, 130, 4, 2, 128, dtype), window=8, q_offset=90,
+                logit_cap=50.0)
+        compare("small", *inputs(2, 100, 100, 2, 1, 256, dtype), causal=False)
+
+    timing = {}
+    for tag, (b, s_, h, kv, d), kw in [
+        ("gemma prefill", (LM_BATCH, LM_PROMPT, 8, 4, 256), dict(logit_cap=50.0)),
+        ("gemma prefill local", (LM_BATCH, LM_PROMPT, 8, 4, 256),
+         dict(logit_cap=50.0, window=4096)),
+        ("S 8192 window 4096", (1, 8192, 8, 4, 256), dict(logit_cap=50.0, window=4096)),
+    ]:
+        sets = [inputs(b, s_, s_, h, kv, d, torch.bfloat16) for _ in range(2)]
+        compare(tag, *sets[0], **kw)
+        kern = lambda q, k, v: fk.flash_attention_fwd_cuda(q, k, v, **kw)  # noqa: E731
+        ref_ = lambda q, k, v: plain(q, k, v, **kw)  # noqa: E731
+        t_k = device_ms(kern, sets, calls=8, replays=5)
+        t_p = device_ms(ref_, sets, calls=2, replays=3)
+        e_k = time_ms(kern, sets, 10)
+        b_ms, b_by, nbytes, qk, pv = flash_bound(b, s_, s_, h, kv, d, 2, True,
+                                                 kw.get("window"), 0)
+        timing[tag] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"  time {tag} (B={b} S={s_} H={h} KV={kv} D={d} bf16 {kw}): device ms per call "
+            f"(CUDA graph) kernel {t_k:.4f}, plain {t_p:.4f}; eager kernel {e_k:.4f}; bound "
+            f"{b_ms:.4f} ms ({b_by}: q k^T {qk / 1e9:.2f} GFLOP at the bf16 tensor-core rate, "
+            f"{qk / BF16_FLOPS * 1e3:.4f} ms, + p v {pv / 1e9:.2f} GFLOP at the fp32 rate, "
+            f"{pv / FP32_FLOPS * 1e3:.4f} ms; {nbytes / 1e6:.2f} MB, "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); kernel at {100 * b_ms / t_k:.1f}% of "
+            "the bound")
+        if tag == "gemma prefill":
+            lib = flex_yardstick(sets, plain, kw)
+            timing[tag]["library"] = lib
+            if isinstance(lib["bf16"], float):
+                timing[tag]["library_ms"] = lib["bf16"]
+        del sets
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs.values()), errs=errs, timing=timing)
+
+
+
+# ---------------------------------------------------------------------------
+# the LM generation path (Gemma-2 2B at full width)
+# ---------------------------------------------------------------------------
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def near_tie(h1, h2, a: int, b: int, unembed, centroids, n_probe: int) -> tuple[bool, str]:
+    """Whether two paths' different greedy tokens a (path 1) and b (path
+    2) sit at a near tie. Token scores: (h1 - h2) moves s(a) - s(b) by at
+    most |h1 - h2| |u_a - u_b|, so a gap under h1 within that can flip.
+    Retrieval: if the two hidden states probe different clusters, the
+    n_probe-th and next centroid scores under h1 must sit within
+    |h1 - h2| times the largest centroid norm of each other."""
+    import torch
+
+    h1, h2 = h1.float(), h2.float()
+    dh = float((h1 - h2).norm())
+    du = unembed[a].float() - unembed[b].float()
+    gap = float(h1 @ du)
+    if abs(gap) <= dh * float(du.norm()) * 1.001 + 1e-6:
+        return True, f"token gap {gap:.4g} <= |dh| |du| = {dh * float(du.norm()):.4g}"
+    c1 = h1 @ centroids.float().T
+    c2 = h2 @ centroids.float().T
+    p1 = set(torch.topk(c1, n_probe).indices.tolist())
+    p2 = set(torch.topk(c2, n_probe).indices.tolist())
+    if p1 != p2:
+        top = torch.topk(c1, n_probe + 1).values
+        cgap = float(top[n_probe - 1] - top[n_probe])
+        cbound = 2 * dh * float(centroids.float().norm(dim=1).max())
+        return cgap <= cbound, f"probe sets differ, centroid gap {cgap:.4g} (bound {cbound:.4g})"
+    return False, f"token gap {gap:.4g} > |dh| |du| = {dh * float(du.norm()):.4g}"
+
+
+def lm_phase(cfg=None, dev=None) -> dict:
+    """The Gemma-2 2B generation path at full width on the card: the
+    engine's run with its launch counts, stage times, a profiled batch,
+    ivf_topk at the LM shape, and the gate against the plain path.
+    (``cfg`` and ``dev`` default to the full CONFIG and the card.)"""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.ivf_topk import kernel as ik, ref as ir
+    from repro_torch.models import lm
+    from repro_torch.serve import CoalescePolicy, LMGenerateRoute, ServingEngine
+
+    dev = torch.device(dev or "cuda")
+    cfg = dataclasses.replace(cfg or get_arch("gemma2-2b").CONFIG, use_flash_kernel=True)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params["layers"].values()) + sum(
+        params[k].numel() for k in ("embed", "final_norm"))
+    log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.dh}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, window {cfg.sliding_window} on even layers, caps "
+        f"{cfg.attn_logit_softcap}/{cfg.final_logit_softcap}, {cfg.dtype}: {n_params / 1e9:.3f} B "
+        f"parameters ({n_params * 2 / 1e9:.2f} GB), random from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    route = LMGenerateRoute(cfg, params, prompt_len=LM_PROMPT, gen_len=LM_GEN,
+                            max_batch=LM_BATCH, top_k=LM_TOP_K, device=dev)
+    torch.cuda.synchronize()
+    planner = route.planner
+    state = planner.index_state
+    c, capp = state.lists.shape
+    live = (state.lists >= 0).sum(dim=1)
+    log(f"[lm] IVF index over the {cfg.vocab_size} unembed rows built in "
+        f"{time.perf_counter() - t0:.2f} s: C={c}, capp={capp} (largest list {int(live.max())}, "
+        f"mean {float(live.float().mean()):.1f}), list slab {state.list_embs.numel() * 4 / 1e9:.2f} "
+        f"GB fp32, n_probe={planner.n_probe}, K={LM_TOP_K}")
+    engine = ServingEngine(route, CoalescePolicy(max_batch=LM_BATCH, max_wait_s=0.002))
+    t0 = time.perf_counter()
+    engine.warmup()
+    log(f"[lm] warmup (one batch through the path and the exact fallback) "
+        f"{time.perf_counter() - t0:.2f} s; device memory {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB allocated")
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (LM_PROMPT,)).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+    counters = [(fk.flash_attention_fwd_cuda, "launches"), (ik.ivf_probe_topk_cuda, "launches"),
+                (fr.flash_attention_ref, "calls"), (ir.ivf_probe_topk_ref, "calls")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    for p in prompts:
+        engine.submit(p, arrival=0.0)
+    records = engine.drain()
+    counts = {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counters}
+    nb = engine.batches
+    check(len(records) == LM_REQUESTS, f"answered {len(records)}/{LM_REQUESTS}")
+    check(fk.flash_attention_fwd_cuda.launches == cfg.num_layers * nb,
+          f"K9 launched {fk.flash_attention_fwd_cuda.launches} times for {nb} prefill batches")
+    check(ik.ivf_probe_topk_cuda.launches == 2 * LM_GEN * nb,
+          f"ivf_topk launched {ik.ivf_probe_topk_cuda.launches} times for {nb} batches of "
+          f"{LM_GEN} tokens (expected main + delta per token)")
+    check(fr.flash_attention_ref.calls == 0 and ir.ivf_probe_topk_ref.calls == 0,
+          f"a plain version ran on the card: {counts}")
+    check(not route.degraded, "the LM route fell back to exact search")
+    served = np.array([r.result for r in records])
+    check(served.shape == (LM_REQUESTS, LM_GEN) and ((served >= 0) & (served < cfg.vocab_size)).all(),
+          "served tokens out of range")
+    lats = [r.latency for r in records]
+    makespan = max(r.finish for r in records) - min(r.arrival for r in records)
+    log(f"[lm] {len(records)}/{LM_REQUESTS} answered in {nb} batches (prompt {LM_PROMPT}, "
+        f"{LM_GEN} generated tokens each); counts {counts}; latency p50 "
+        f"{percentile(lats, 50) * 1e3:.1f} ms, p99 {percentile(lats, 99) * 1e3:.1f} ms, "
+        f"{len(records) / makespan:.2f} req/s, {served.size / makespan:.1f} generated tokens/s")
+
+    # one more pass over the batches, each stage ended by a synchronize
+    stages = {"prefill": [], "retrieval": [], "decode": []}
+    steps, hiddens, tokens = [], [], []
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        stages[name].append(dt)
+        return out, dt
+
+    for i in range(0, LM_REQUESTS, LM_BATCH):
+        x = route.prepare(prompts[i:i + LM_BATCH])
+        (hidden, cache), _ = timed("prefill", lambda: route.prefill(x))
+        hs, ts = [hidden], []
+        for t in range(LM_GEN):
+            tok, dr = timed("retrieval", lambda: route.next_token(hidden))
+            ts.append(tok)
+            if t + 1 < LM_GEN:
+                (hidden, cache), dd = timed("decode", lambda: lm.decode_step(
+                    cfg, route.params, tok, cache, return_hidden=True))
+                hs.append(hidden)
+                steps.append(dr + dd)
+        hiddens.append(hs)
+        tokens.append(torch.stack(ts, dim=1))
+        del cache
+    again = torch.cat(tokens).cpu().numpy()
+    med = {k: float(np.median(v)) for k, v in stages.items()}
+    log(f"[lm] stages, median ms: prefill {med['prefill']:.3f} (per batch of {LM_BATCH} x "
+        f"{LM_PROMPT}), retrieval {med['retrieval']:.3f} per token (ivf_topk and the greedy "
+        f"head), decode {med['decode']:.3f} per token; step (retrieval + decode) p50 "
+        f"{percentile(steps, 50):.3f} ms, p99 {percentile(steps, 99):.3f} ms over {len(steps)} "
+        f"steps; the stage pass reproduces {int((again == served).sum())}/{served.size} served "
+        "tokens")
+
+    # where a batch's device time goes: one profiled batch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = route.prepare(prompts[:LM_BATCH])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        route.run(x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def device_us(ev) -> float:
+        return getattr(ev, "self_device_time_total", None) or getattr(ev, "device_time_total", 0.0)
+
+    evs = [(device_us(e) / 1e3, e.key) for e in prof.key_averages() if device_us(e) > 0]
+    busy = sum(t for t, _ in evs)
+    idle = None
+    if busy > 0:
+        idle = 100 * (1 - busy / wall)
+        flash_ms = sum(t for t, n in evs if "flash_fwd" in n)
+        ivf_ms = sum(t for t, n in evs if "ivf_" in n)
+        log(f"[lm] profiled batch: device busy {busy:.3f} of {wall:.3f} ms wall (profiled), idle "
+            f"{idle:.1f}%; K9 {flash_ms:.3f} ms ({cfg.num_layers} launches), ivf_topk "
+            f"{ivf_ms:.3f} ms ({2 * LM_GEN} launches)")
+        log("[lm] top device entries (ms per batch): " + "; ".join(
+            f"{n[:48]} {t:.3f}" for t, n in sorted(evs, reverse=True)[:10]))
+    else:
+        log("[lm] the profiler reported no device time on this machine")
+
+    # ivf_topk at the LM shape, on the route's index and its decode queries
+    sets = []
+    for h in hiddens[0][:4]:
+        q = h.float().contiguous()
+        probe = torch.topk(q @ state.centroids.float().T, planner.n_probe, dim=1).indices
+        sets.append((q, probe.to(torch.int32), state.lists, state.list_embs, LM_TOP_K))
+    ivf_err = topk_err(ik.ivf_probe_topk_cuda(*sets[0]), ir.ivf_probe_topk_ref(*sets[0]),
+                       "ivf_topk LM shape")
+    t_k, t_p = device_ms(ik.ivf_probe_topk_cuda, sets), device_ms(ir.ivf_probe_topk_ref, sets)
+    b_ms, b_by, nbytes = bound_ms(*sets[0])
+    ivf_lm = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, max_abs_err=ivf_err)
+    log(f"  time ivf_topk LM shape (B={LM_BATCH} L={cfg.d_model} C={c} capp={capp} "
+        f"n_probe={planner.n_probe} K={LM_TOP_K}, decode queries): device ms per call (CUDA "
+        f"graph) kernel {t_k:.4f}, plain {t_p:.4f}; bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes / 1e6:.2f} MB); kernel at {100 * b_ms / t_k:.1f}% of the bound; max_abs_err "
+        f"{ivf_err:.3g}")
+    del sets
+
+    # the gate: the same prompts and weights through the plain chunked
+    # attention (use_flash_kernel=False), on the card
+    plain_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
+    x = route.prepare(prompts[:LM_BATCH])
+    max_len = LM_PROMPT + LM_GEN
+    hp, cache_p = lm.prefill(plain_cfg, route.params, x,
+                             lm.init_cache(plain_cfg, LM_BATCH, max_len, device=dev),
+                             return_hidden=True)
+    hk = hiddens[0][0]
+    rel0 = rel_l2(hk, hp)
+    check(rel0 <= LM_HIDDEN_REL, f"bf16 prefill hidden states differ: relative L2 {rel0}")
+    log(f"[lm gate] bf16 prefill, kernel vs plain chunked attention: hidden states relative L2 "
+        f"{rel0:.3g} (held <= {LM_HIDDEN_REL}), max abs {float((hk.float() - hp.float()).abs().max()):.3g}"
+        f" of max |h| {float(hp.float().abs().max()):.3g}")
+    toks_k = tokens[0]
+    unembed = route.params["embed"]
+    agree, rels, ties = 0, [], []
+    for t in range(LM_GEN):
+        if t > 0:
+            hp, cache_p = lm.decode_step(plain_cfg, route.params, toks_k[:, t - 1], cache_p,
+                                         return_hidden=True)
+        hk = hiddens[0][t]
+        rels.append(rel_l2(hk, hp))
+        check(rels[-1] <= LM_HIDDEN_REL, f"step {t}: hidden states differ, relative L2 {rels[-1]}")
+        tp = route.next_token(hp)
+        for r in range(LM_BATCH):
+            a, b = int(toks_k[r, t]), int(tp[r])
+            if a == b:
+                agree += 1
+                continue
+            slate = planner.query(hk[r:r + 1])
+            top2 = torch.sort(slate.scores[0], descending=True).values[:2]
+            ok, why = near_tie(hk[r], hp[r], a, b, unembed, state.centroids, planner.n_probe)
+            ties.append(f"step {t} row {r}: kernel {a} / plain {b}, top-2 gap "
+                        f"{float(top2[0] - top2[1]):.4g}; {why}")
+            check(ok, "a token disagreement away from a near tie: " + ties[-1])
+    del cache_p
+    log(f"[lm gate] teacher-forced decode of the kernel path's tokens through the plain path: "
+        f"hidden states relative L2 max {max(rels):.3g} over {LM_GEN} steps (held <= "
+        f"{LM_HIDDEN_REL}); token agreement {agree}/{LM_BATCH * LM_GEN}"
+        + "".join(f"\n[lm gate]   {s}" for s in ties))
+
+    # one prefill batch in fp32: the same weights upcast
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = {k: (v.float() if torch.is_tensor(v) else {n: w.float() for n, w in v.items()})
+                for k, v in route.params.items()}
+    outs = {}
+    for flash in (True, False):
+        c32 = dataclasses.replace(cfg32, use_flash_kernel=flash)
+        cache = lm.init_cache(c32, LM_BATCH, LM_PROMPT, device=dev)
+        t0 = time.perf_counter()
+        outs[flash], _ = lm.prefill(c32, params32, x, cache, return_hidden=True)
+        torch.cuda.synchronize()
+        log(f"[lm gate] fp32 prefill ({'kernel' if flash else 'plain'} attention) "
+            f"{time.perf_counter() - t0:.2f} s")
+        del cache
+    e32 = close_err(outs[True], outs[False], "fp32 prefill hidden", rtol=1e-4, atol=1e-4, sums=True)
+    log(f"[lm gate] fp32 prefill, kernel vs plain: hidden states within rtol 1e-4 (atol 1e-4 "
+        f"max |h|): max abs {e32:.3g}, relative L2 {rel_l2(outs[True], outs[False]):.3g}")
+    del params32, outs, hiddens, tokens, route, engine, params, planner, state
+    torch.cuda.empty_cache()
+    return dict(counts=counts, ivf_lm=ivf_lm, token_agreement=agree / (LM_BATCH * LM_GEN),
+                idle=idle)
+
+
 def percentile(values: list[float], p: float) -> float:
     vs = sorted(values)
     return vs[min(len(vs) - 1, max(0, round(p / 100.0 * (len(vs) - 1))))]
@@ -733,14 +1226,16 @@ def main() -> int:
     log(f"[env] card: {card}")
 
     # 2. build: every kernel's source, one nvcc each, all started together
+    from repro_torch.kernels.flash_attention import kernel as flk
     from repro_torch.kernels.fused_sampler import kernel as fk
     from repro_torch.kernels.mips_topk import kernel as mk
     from repro_torch.kernels.snis_covgrad import kernel as sk
 
-    sources = [kernel.SOURCE, mk.SOURCE, fk.SOURCE, sk.FWD_SOURCE, sk.BWD_SOURCE]
+    sources = [kernel.SOURCE, mk.SOURCE, fk.SOURCE, sk.FWD_SOURCE, sk.BWD_SOURCE, flk.SOURCE]
     t0 = time.perf_counter()
     _build.build(sources)
-    for lib in (kernel.library, mk.library, fk.library, sk.fwd_library, sk.bwd_library):
+    for lib in (kernel.library, mk.library, fk.library, sk.fwd_library, sk.bwd_library,
+                flk.library):
         lib()
     log(f"[build] {', '.join(str(x.relative_to(ROOT)) for x in sources)} built and "
         f"loaded in {time.perf_counter() - t0:.2f} s")
@@ -836,16 +1331,28 @@ def main() -> int:
         tk = training_kernel_phase(beta, h0, ds.positives)
     del beta, h0
     tres = train_phase(ds, theta0)
+    del ds, theta0, route, planner, state, index, users, engine
+    torch.cuda.empty_cache()
 
-    # 6. the kernels line, the card, the result
+    # 6. flash attention (K9) against its plain version
+    log("[kernels] flash_attention (K9) vs its plain version, on the card (fp32 out: rtol "
+        f"{RTOL}, atol {ATOL} scaled by max |out| (sums of terms of both signs); bf16 out: rtol "
+        f"2^-7 (one bf16 ulp), atol {ATOL}; lse: rtol {RTOL}, atol 1e-5)")
+    with torch.inference_mode():
+        fres = flash_phase()
+
+    # 7. the Gemma-2 2B generation path at full width, and its gate
+    lres = lm_phase()
+
+    # 8. the kernels line, the card, the result
     t = kres["timing"]["main K=10"]
     entries = [{
         "name": "ivf_topk",
         "route": "cuda",
         "source": str(kernel.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ivf_topk/kernel.py:86",
-        "launches": launches,
-        "max_abs_err": kres["max_abs_err"],
+        "launches": launches + lres["counts"]["ivf_probe_topk_cuda.launches"],
+        "max_abs_err": max(kres["max_abs_err"], lres["ivf_lm"]["max_abs_err"]),
         "ms": t["ms"],
         "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -876,6 +1383,20 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    t = fres["timing"]["gemma prefill"]
+    entries.append({
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": str(flk.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:104",
+        "launches": lres["counts"]["flash_attention_fwd_cuda.launches"],
+        "max_abs_err": fres["max_abs_err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+    })
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

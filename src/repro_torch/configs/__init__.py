@@ -22,7 +22,7 @@ ARCH_IDS = [
     "fopo-paper",
 ]
 
-PORTED = {"sasrec": "sasrec", "fopo-paper": "fopo_paper"}
+PORTED = {"sasrec": "sasrec", "fopo-paper": "fopo_paper", "gemma2-2b": "gemma2_2b"}
 
 
 def get_arch(arch_id: str) -> types.ModuleType:

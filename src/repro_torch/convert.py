@@ -12,11 +12,14 @@ import torch
 
 from repro_torch.mips.ivf import IVFIndex
 from repro_torch.mips.refresh import RefreshState
+from repro_torch.models.lm import KVCache
 
 __all__ = [
     "adam_state_from_numpy",
     "ivf_index_from_numpy",
+    "kv_cache_from_numpy",
     "linear_tower_params_from_numpy",
+    "lm_params_from_numpy",
     "refresh_state_from_numpy",
     "sasrec_params_from_numpy",
 ]
@@ -24,6 +27,15 @@ __all__ = [
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def _leaf(a) -> torch.Tensor:
+    """``a`` as a tensor of its dtype; numpy's bfloat16 (ml_dtypes), which
+    `torch.from_numpy` does not take, goes across bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return _t(a.view(np.int16)).view(torch.bfloat16)
+    return _t(a)
 
 
 def sasrec_params_from_numpy(tree: dict) -> dict:
@@ -45,6 +57,24 @@ def sasrec_params_from_numpy(tree: dict) -> dict:
             for blk in tree["blocks"]
         ],
     }
+
+
+def lm_params_from_numpy(tree: dict) -> dict:
+    """The reference's `lm.init_params` tree (leaves as numpy arrays) as
+    the port's LM parameters, the same layout: `embed`, `final_norm`,
+    `unembed` when the embedding is not tied, and `layers` with every
+    leaf stacked [n_layers, ...]. bf16 leaves (numpy's ml_dtypes
+    bfloat16) come across as torch.bfloat16, bit for bit."""
+
+    out = {k: _leaf(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = {k: _leaf(v) for k, v in tree["layers"].items()}
+    return out
+
+
+def kv_cache_from_numpy(k, v, length) -> KVCache:
+    """A `KVCache` from the reference's ([n_layers, B, S, KV, Dh] k and v,
+    the filled length)."""
+    return KVCache(k=_leaf(k), v=_leaf(v), length=int(length))
 
 
 def ivf_index_from_numpy(centroids, lists, list_embs, num_items: int) -> IVFIndex:

@@ -14,8 +14,8 @@ __all__ = [
     "sm_count", "stream",
 ]
 
-# argtypes shorthands: a pointer or the stream, an int
-C_SIGNATURES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+# argtypes shorthands: a pointer or the stream, an int, a float
+C_SIGNATURES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 def declare(lib: ctypes.CDLL, name: str, args: str, restype=ctypes.c_int) -> None:

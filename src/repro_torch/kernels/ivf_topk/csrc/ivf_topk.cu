@@ -20,11 +20,19 @@
 // What the design does about that bound:
 //   * Nothing intermediate goes to device memory: neither the
 //     [B, n_probe*capp, L] candidate tensor nor the [B, n_probe*capp] score
-//     matrix exists. Each probed tile of T list slots (T*L contiguous
-//     floats) is copied once into shared memory and scored there.
+//     matrix exists. Each probed tile of T = 128 list slots is streamed
+//     through shared memory once, in slices of up to 64 columns of L (a
+//     stage: the 128 x 64 slice of the slots' embeddings and the query's
+//     64 columns, 35 KB), and each thread carries its slot's dot product
+//     from slice to slice in a register, in column order. The shared
+//     memory a block needs stops growing with L past 64 (an LM hidden
+//     width of 2304 streams 36 slices; SASRec's 50 is one slice, as
+//     before the slicing), only with K.
 //   * The copies are asynchronous (cp.async) and double-buffered: a block
-//     issues every load of the next tile before it scores the current one,
-//     so many loads are in flight per SM instead of one per thread.
+//     issues every load of the next stage before it scores the current one,
+//     so many loads are in flight per SM instead of one per thread. When L
+//     is a multiple of 4 (and the rows start on 16-byte boundaries) a copy
+//     moves 16 bytes, else 4.
 //   * The build packs each list from the front, so its padded tail holds
 //     no live slot. A block first finds the end of the live slots in its
 //     range and copies no tile past it: the bytes read follow the live
@@ -47,9 +55,6 @@
 //     rounded up to a power of two, restores the order. The merge kernel
 //     reads the sorted partial lists rank by rank, so the K-th score rises
 //     early and most later tiles sort nothing.
-//   * L = 50 (SASRec) makes a row 200 bytes, not 16-byte aligned, so the
-//     copies are 4 bytes each. Padding L for 16-byte copies is left for
-//     later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,6 +64,31 @@
 namespace {
 
 constexpr int kThreads = 128;  // threads per block == candidates per tile
+constexpr int kMaxSlice = 64;  // columns of L per stage, at most
+
+// How L is cut into stages.
+struct Slicing {
+  int sw;      // columns per slice: all of L up to kMaxSlice (the last may be short)
+  int stride;  // row stride of a staged slice in shared memory, in floats
+  int stage;   // floats of one stage buffer: the slots' slice, then the query's
+};
+
+// An L of at most 64 is one slice, staged as it lies in device memory
+// (stride L): a tile's embeddings are one contiguous run, copied as such.
+// A wider L is cut into slices of 64 columns, and the stride padded: with
+// 4-byte copies a thread reads its row word by word, and an odd stride puts
+// thread i's word l in bank (i * stride + l) % 32, distinct across the warp;
+// with 16-byte copies it reads 16-byte words, and a stride of an odd number
+// of them puts the 8 threads of each quarter-warp on distinct ones. A stage
+// is a multiple of 4 floats, so both buffers start on 16 bytes.
+__host__ __device__ inline Slicing slicing(int L, bool vec) {
+  Slicing s;
+  s.sw = L < kMaxSlice ? L : kMaxSlice;
+  if (L <= kMaxSlice) s.stride = L;
+  else s.stride = vec ? 4 * ((kMaxSlice / 4) | 1) : (kMaxSlice | 1);
+  s.stage = ((kThreads * s.stride + 3) & ~3) + ((s.sw + 3) & ~3);
+  return s;
+}
 
 __host__ __device__ inline int next_pow2(int x) {
   int p = 1;
@@ -69,6 +99,11 @@ __host__ __device__ inline int next_pow2(int x) {
 __device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -157,30 +192,92 @@ __device__ void offer(const TopK& t, float cand_s, int cand_id) {
   if (threadIdx.x == 0) *t.count = 0;
 }
 
-// Issue the cp.async copies of one tile (m slots from t0) and commit them
-// as one group.
-__device__ void issue_tile(float* tile, int* tile_ids, const float* embs_c,
-                           const int* ids_c, int t0, int m, int L) {
-  const float* src = embs_c + (size_t)t0 * L;
-  for (int e = threadIdx.x; e < m * L; e += blockDim.x) cp_async4(tile + e, src + e);
-  if (threadIdx.x < m) cp_async4(tile_ids + threadIdx.x, ids_c + t0 + threadIdx.x);
+// The copies of a slice of m rows, wu copies each, to rows of stride S:
+// this thread's copies e = threadIdx.x + i * blockDim.x, walked as (row,
+// column) with no division per copy.
+template <bool kVec>
+__device__ void issue_rows(float* buf, int S, const float* embs_c, int t0, int m, int l0,
+                           int wu, int L) {
+  constexpr int U = kVec ? 4 : 1;
+  int r = threadIdx.x / wu;
+  int c = threadIdx.x - r * wu;
+  const int dr = blockDim.x / wu;
+  const int dc = blockDim.x - dr * wu;
+  for (int e = threadIdx.x; e < m * wu; e += blockDim.x) {
+    float* dst = buf + r * S + c * U;
+    const float* src = embs_c + (size_t)(t0 + r) * L + l0 + c * U;
+    if (kVec) cp_async16(dst, src);
+    else cp_async4(dst, src);
+    r += dr;
+    c += dc;
+    if (c >= wu) {
+      c -= wu;
+      ++r;
+    }
+  }
+}
+
+// Issue the cp.async copies of one stage: columns [l0, l0 + w) of the m
+// slots from t0, and the same columns of the query, committed as one group.
+template <bool kVec>
+__device__ void issue_stage(float* buf, const Slicing& sl, const float* embs_c,
+                            const float* qrow, int t0, int m, int l0, int w, int L) {
+  constexpr int U = kVec ? 4 : 1;  // floats per copy
+  const int S = sl.stride;
+  const int wu = w / U;  // copies per row (w is a multiple of 4 with 16-byte copies)
+  float* qbuf = buf + ((kThreads * S + 3) & ~3);
+  if (S == L) {  // one slice: the tile is one contiguous run
+    const float* src = embs_c + (size_t)t0 * L;
+    for (int e = threadIdx.x; e < m * wu; e += blockDim.x) {
+      if (kVec) cp_async16(buf + e * U, src + e * U);
+      else cp_async4(buf + e * U, src + e * U);
+    }
+  } else {
+    issue_rows<kVec>(buf, S, embs_c, t0, m, l0, wu, L);
+  }
+  if (threadIdx.x < wu) {
+    if (kVec) cp_async16(qbuf + U * threadIdx.x, qrow + l0 + U * threadIdx.x);
+    else cp_async4(qbuf + threadIdx.x, qrow + l0 + threadIdx.x);
+  }
   cp_async_commit();
+}
+
+// Carry this thread's dot product over the w staged columns of its slot,
+// in column order (the same order at any slicing).
+template <bool kVec>
+__device__ __forceinline__ float slice_dot(const float* buf, const Slicing& sl, int w,
+                                           float acc) {
+  const float* row = buf + threadIdx.x * sl.stride;
+  const float* qs = buf + ((kThreads * sl.stride + 3) & ~3);
+  if (kVec) {
+    for (int c = 0; c < w; c += 4) {
+      const float4 r = *reinterpret_cast<const float4*>(row + c);
+      const float4 q = *reinterpret_cast<const float4*>(qs + c);
+      acc = fmaf(q.x, r.x, acc);
+      acc = fmaf(q.y, r.y, acc);
+      acc = fmaf(q.z, r.z, acc);
+      acc = fmaf(q.w, r.w, acc);
+    }
+  } else {
+    for (int c = 0; c < w; ++c) acc = fmaf(qs[c], row[c], acc);
+  }
+  return acc;
 }
 
 // grid (n_probe * splits, B). Block (j, b) scores list slots
 // [split * chunk, min(capp, (split + 1) * chunk)) of cluster probe[b, j / splits]
 // and writes that range's top-K to part_s / part_i [B, n_probe * splits, K].
+template <bool kVec>
 __global__ void ivf_probe_kernel(
     const float* __restrict__ q, const int* __restrict__ probe,
     const int* __restrict__ lists, const float* __restrict__ embs,
     float* __restrict__ part_s, int* __restrict__ part_i,
     int L, int n_probe, int capp, int k, int kp, int splits, int chunk) {
   extern __shared__ __align__(16) float smem[];
-  float* tiles = smem;                                               // [2][T*L]
-  int* tile_ids = reinterpret_cast<int*>(tiles + 2 * kThreads * L);  // [2][T]
-  float* qs = reinterpret_cast<float*>(tile_ids + 2 * kThreads);     // [L]
-  float* ts = qs + L;                                         // top-K scores
-  int* ti = reinterpret_cast<int*>(ts + topk_buffer(kp));     // top-K ids
+  const Slicing sl = slicing(L, kVec);
+  float* stages = smem;                                        // [2][sl.stage]
+  float* ts = stages + 2 * sl.stage;                           // top-K scores
+  int* ti = reinterpret_cast<int*>(ts + topk_buffer(kp));      // top-K ids
   __shared__ int count, live_end;
   const TopK top{ts, ti, &count, k, kp};
 
@@ -191,8 +288,8 @@ __global__ void ivf_probe_kernel(
   const int hi = min(capp, lo + chunk);
   const float* embs_c = embs + (size_t)c * capp * L;
   const int* ids_c = lists + (size_t)c * capp;
+  const float* qrow = q + (size_t)b * L;
 
-  for (int e = threadIdx.x; e < L; e += blockDim.x) qs[e] = q[(size_t)b * L + e];
   init_topk(top);
   if (threadIdx.x == 0) live_end = lo;
   __syncthreads();
@@ -205,30 +302,38 @@ __global__ void ivf_probe_kernel(
   __syncthreads();
   end = live_end;
 
-  const int ntiles = (end - lo + kThreads - 1) / kThreads;
-  if (ntiles > 0) issue_tile(tiles, tile_ids, embs_c, ids_c, lo, min(kThreads, end - lo), L);
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = t & 1;
+  // stage g is slice g % nsl of tile g / nsl
+  const int nsl = (L + sl.sw - 1) / sl.sw;
+  const int nstages = (end - lo + kThreads - 1) / kThreads * nsl;
+  if (nstages > 0)
+    issue_stage<kVec>(stages, sl, embs_c, qrow, lo, min(kThreads, end - lo), 0, sl.sw, L);
+  int cid = -1;
+  float acc = 0.f;
+  for (int g = 0; g < nstages; ++g) {
+    const int t = g / nsl;
+    const int s = g - t * nsl;
     const int t0 = lo + t * kThreads;
     const int m = min(kThreads, end - t0);
-    if (t + 1 < ntiles) {
-      const int n0 = t0 + kThreads;
-      issue_tile(tiles + (buf ^ 1) * kThreads * L, tile_ids + (buf ^ 1) * kThreads,
-                 embs_c, ids_c, n0, min(kThreads, end - n0), L);
+    if (s == 0) {
+      cid = threadIdx.x < m ? ids_c[t0 + threadIdx.x] : -1;
+      acc = 0.f;
+    }
+    if (g + 1 < nstages) {
+      const int t1 = (g + 1) / nsl;
+      const int l1 = ((g + 1) - t1 * nsl) * sl.sw;
+      const int n0 = lo + t1 * kThreads;
+      issue_stage<kVec>(stages + ((g + 1) & 1) * sl.stage, sl, embs_c, qrow, n0,
+                        min(kThreads, end - n0), l1, min(sl.sw, L - l1), L);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int cid = threadIdx.x < m ? tile_ids[buf * kThreads + threadIdx.x] : -1;
-    float sc = NEG_INF_F;
     if (cid >= 0) {
-      const float* row = tiles + buf * kThreads * L + threadIdx.x * L;
-      float acc = 0.f;
-      for (int l = 0; l < L; ++l) acc = fmaf(qs[l], row[l], acc);
-      sc = acc;
+      const int l0 = s * sl.sw;
+      acc = slice_dot<kVec>(stages + (g & 1) * sl.stage, sl, min(sl.sw, L - l0), acc);
     }
-    offer(top, sc, cid);
+    if (s == nsl - 1) offer(top, cid >= 0 ? acc : NEG_INF_F, cid);
     __syncthreads();  // this buffer is refilled by the next iteration's copies
   }
 
@@ -277,7 +382,7 @@ __global__ void ivf_merge_kernel(
 // a launch needs more than it was last set to (the call costs host time,
 // so it is made once per new maximum, not once per launch).
 cudaError_t ensure_smem(int which, const void* fn, size_t bytes) {
-  static size_t set_to[2][64] = {};
+  static size_t set_to[3][64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -293,14 +398,14 @@ cudaError_t ensure_smem(int which, const void* fn, size_t bytes) {
 
 extern "C" {
 
-// Dynamic shared memory of the probe (which = 0) and merge (1) kernels,
-// in bytes; the caller checks it against the card's limit.
+// Dynamic shared memory of the probe kernel with 4-byte (which = 0) or
+// 16-byte (2) copies and of the merge kernel (1), in bytes; the caller
+// checks it against the card's limit. L is streamed in slices of at most
+// 64 columns, so it stops growing with L past 64.
 size_t ivf_topk_smem_bytes(int L, int k, int which) {
   const size_t topk = (size_t)topk_buffer(next_pow2(k)) * (sizeof(float) + sizeof(int));
-  if (which == 0)
-    return topk + (size_t)(2 * kThreads * L + L) * sizeof(float) +
-           2 * kThreads * sizeof(int);
-  return topk;
+  if (which == 1) return topk;
+  return topk + 2 * (size_t)slicing(L, which == 2).stage * sizeof(float);
 }
 
 int ivf_topk_threads(void) { return kThreads; }
@@ -313,18 +418,31 @@ int ivf_topk_launch(const void* q, const void* probe, const void* lists,
                     int capp, int k, int splits, int chunk, void* stream) {
   const int kp = next_pow2(k);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem0 = ivf_topk_smem_bytes(L, k, 0);
+  // 16-byte copies need every row and the query to start on 16 bytes
+  const bool vec = L % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(embs) % 16 == 0;
+  const size_t smem0 = ivf_topk_smem_bytes(L, k, vec ? 2 : 0);
   const size_t smem1 = ivf_topk_smem_bytes(L, k, 1);
-  cudaError_t err = ensure_smem(0, (const void*)ivf_probe_kernel, smem0);
+  const void* probe_fn = vec ? (const void*)ivf_probe_kernel<true>
+                             : (const void*)ivf_probe_kernel<false>;
+  cudaError_t err = ensure_smem(vec ? 2 : 0, probe_fn, smem0);
   if (err != cudaSuccess) return (int)err;
   err = ensure_smem(1, (const void*)ivf_merge_kernel, smem1);
   if (err != cudaSuccess) return (int)err;
   dim3 grid0(n_probe * splits, B);
-  ivf_probe_kernel<<<grid0, kThreads, smem0, st>>>(
-      static_cast<const float*>(q), static_cast<const int*>(probe),
-      static_cast<const int*>(lists), static_cast<const float*>(embs),
-      static_cast<float*>(part_s), static_cast<int*>(part_i), L, n_probe,
-      capp, k, kp, splits, chunk);
+  if (vec) {
+    ivf_probe_kernel<true><<<grid0, kThreads, smem0, st>>>(
+        static_cast<const float*>(q), static_cast<const int*>(probe),
+        static_cast<const int*>(lists), static_cast<const float*>(embs),
+        static_cast<float*>(part_s), static_cast<int*>(part_i), L, n_probe,
+        capp, k, kp, splits, chunk);
+  } else {
+    ivf_probe_kernel<false><<<grid0, kThreads, smem0, st>>>(
+        static_cast<const float*>(q), static_cast<const int*>(probe),
+        static_cast<const int*>(lists), static_cast<const float*>(embs),
+        static_cast<float*>(part_s), static_cast<int*>(part_i), L, n_probe,
+        capp, k, kp, splits, chunk);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ivf_merge_kernel<<<B, kThreads, smem1, st>>>(

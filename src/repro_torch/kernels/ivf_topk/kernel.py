@@ -46,13 +46,14 @@ def library() -> ctypes.CDLL:
 @functools.cache
 def _launch_shape(l: int, k: int) -> int:
     """The kernel's tile width, after checking that (L, K) fit the shared
-    memory of a Hopper block (K is never capped silently)."""
+    memory of a Hopper block (K is never capped silently; L is streamed
+    in slices of at most 64 columns, so any L fits beside a K that does)."""
     lib = library()
-    for which in (0, 1):
+    for which in (0, 1, 2):
         smem = lib.ivf_topk_smem_bytes(l, k, which)
         if smem > _MAX_SMEM:
             raise ValueError(
-                f"k={k}, L={l} need {smem} bytes of shared memory per block, "
+                f"k={k} (L={l}) needs {smem} bytes of shared memory per block, "
                 f"more than the {_MAX_SMEM} a Hopper block can use"
             )
     return lib.ivf_topk_threads()

@@ -1,18 +1,24 @@
 """Serving launcher of the port: the continuous-batching engine over the
-SASRec retrieval route, through the `ivf_topk` CUDA kernel.
+SASRec retrieval route (through the `ivf_topk` CUDA kernel) or the
+Gemma-2 generation route (prefill, then greedy decoding with every next
+token through the same `ivf_topk` plan path).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec --requests 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec --device cpu
 
 Requests are enqueued on a virtual arrival clock (``--qps`` spaces them;
 0 = all at once, the closed-loop shape) and coalesced into padded
 micro-batches under ``--max-batch`` / ``--max-wait-ms``. The model is
 the arch's SMOKE_CONFIG with random weights from a fixed seed, as in the
-reference CLI. The run needs CUDA unless ``--device cpu`` is given.
+reference CLI; an LM request is a random prompt of ``--prompt-len``
+tokens answered with ``--gen-len`` generated ones. The run needs CUDA
+unless ``--device cpu`` is given.
 
 Not ported yet, and refused with a message: ``--ladder`` (health slice),
 ``--replicas`` / ``--chaos`` (cluster slice) and ``--obs-dir``
-(observability slice), and every arch but sasrec (models slice).
+(observability slice), and every arch but sasrec and gemma2-2b (models
+slice).
 """
 from __future__ import annotations
 
@@ -23,10 +29,15 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.device import resolve_device
-from repro_torch.models import recsys
+from repro_torch.models import lm, recsys
 from repro_torch.obs.bus import MetricsBus
 from repro_torch.obs.sinks import HumanLogSink
-from repro_torch.serve import CoalescePolicy, RecsysMIPSRoute, ServingEngine
+from repro_torch.serve import (
+    CoalescePolicy,
+    LMGenerateRoute,
+    RecsysMIPSRoute,
+    ServingEngine,
+)
 
 _NOT_PORTED = {
     "ladder": "the health slice",
@@ -51,6 +62,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
     ap.add_argument("--k", type=int, default=10, help="top-k per request")
+    ap.add_argument("--prompt-len", type=int, default=16, help="LM prompt tokens")
+    ap.add_argument("--gen-len", type=int, default=8, help="LM generated tokens")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--ladder", action="store_true", help="not ported yet")
     ap.add_argument("--replicas", type=int, default=1, help="not ported yet")
@@ -68,12 +81,27 @@ def main(argv: list[str] | None = None) -> None:
         mod = get_arch(args.arch)
     except NotImplementedError as exc:
         raise SystemExit(str(exc)) from None
-    device = resolve_device(args.device)
     cfg = mod.SMOKE_CONFIG
+    if mod.FAMILY not in ("lm", "recsys"):
+        raise SystemExit(f"{cfg.name} ({mod.FAMILY}) has no serving path")
+    device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
-    params = recsys.init_params(cfg, gen, device)
-    route = RecsysMIPSRoute(cfg, params, k=args.k, device=device)
     rng = np.random.default_rng(0)
+    if mod.FAMILY == "lm":
+        params = lm.init_params(cfg, gen, device)
+        route = LMGenerateRoute(
+            cfg, params, prompt_len=args.prompt_len, gen_len=args.gen_len,
+            max_batch=args.max_batch, device=device,
+        )
+
+        def payload():
+            return rng.integers(0, cfg.vocab_size, (args.prompt_len,)).astype(np.int32)
+    else:
+        params = recsys.init_params(cfg, gen, device)
+        route = RecsysMIPSRoute(cfg, params, k=args.k, device=device)
+
+        def payload():
+            return rng.integers(-1, cfg.item_vocab, (cfg.seq_len,)).astype(np.int32)
     bus = MetricsBus(sinks=[HumanLogSink()])
     engine = ServingEngine(
         route,
@@ -82,8 +110,7 @@ def main(argv: list[str] | None = None) -> None:
     )
     engine.warmup()
     for i in range(args.requests):
-        payload = rng.integers(-1, cfg.item_vocab, (cfg.seq_len,)).astype(np.int32)
-        engine.submit(payload, arrival=i / args.qps if args.qps else 0.0)
+        engine.submit(payload(), arrival=i / args.qps if args.qps else 0.0)
     records = engine.drain()
     lats = engine.latencies()
     makespan = max(r.finish for r in records) - records[0].arrival

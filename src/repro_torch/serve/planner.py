@@ -10,8 +10,8 @@ path and returns without synchronising: the engine owns the wait.
 `warmup` runs both the primary and the fallback path once before
 traffic: the first run builds the `ivf_topk` kernel, so its `nvcc` time
 never lands in a request's latency, and a later `degrade()` swaps to a
-path that has already run. The ladder's recall probe and its
-compact/rebuild rungs come with the health slice.
+path that has already run. The ladder's recall probe (``probe_x``,
+``probe_k``) and its compact/rebuild rungs come with the health slice.
 """
 from __future__ import annotations
 
@@ -32,8 +32,10 @@ class QueryPlanner:
     """One policy + one beta table + one resolved plan, serving queries.
 
     ``policy`` maps (params, x) -> h via `user_embedding`; ``beta`` is the
-    [P, L] item table, moved to ``device`` (default "cuda"; see
-    `repro_torch.device`), where ``params`` must already be."""
+    [P, L] item table (the LM route's unembed rows), moved to ``device``
+    (default "cuda"; see `repro_torch.device`), where ``params`` must
+    already be. The index is built over beta in fp32 with
+    ``num_clusters`` clusters (default 2^round(log2 sqrt P))."""
 
     def __init__(
         self,
@@ -42,16 +44,24 @@ class QueryPlanner:
         beta: torch.Tensor,
         *,
         top_k: int,
+        num_clusters: int | None = None,
         n_probe: int | None = None,
+        probe_x=None,
+        probe_k: int | None = None,
         seed: int = 0,
         device=None,
     ):
+        if probe_x is not None or probe_k is not None:
+            raise NotImplementedError(
+                "the ladder's recall probe (probe_x / probe_k) is not ported to "
+                "repro_torch yet; it comes with the health slice"
+            )
         self.device = resolve_device(device)
         self.policy = policy
         self.params = params
         self.beta = beta = beta.to(self.device)
         self.n_probe = n_probe or DEFAULT_N_PROBE
-        index = build_ivf(beta, seed=seed, device=self.device)
+        index = build_ivf(beta, num_clusters=num_clusters, seed=seed, device=self.device)
         fcfg = FOPOConfig(
             num_items=beta.shape[0],
             num_samples=1,  # unused on the query-only path

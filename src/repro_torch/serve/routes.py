@@ -12,8 +12,10 @@ A route is the engine's model adapter:
 
 `RecsysMIPSRoute` serves SASRec retrieval: the user tower, then the
 plan's `execute_query` over the item table, through the `ivf_topk`
-kernel. DIEN and the LM and dense-candidate routes come with the models
-slice.
+kernel. `LMGenerateRoute` serves LM generation (Gemma-2): a batched
+prefill, then greedy decoding in which every next token is a query of
+the same plan path over the unembed rows. DIEN and the dense-candidate
+route come with the models slice.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.core.policy import SoftmaxPolicy
 from repro_torch.device import resolve_device
 from repro_torch.serve.planner import QueryPlanner
 
-__all__ = ["RecsysMIPSRoute"]
+__all__ = ["LMGenerateRoute", "RecsysMIPSRoute"]
 
 
 class RecsysMIPSRoute:
@@ -70,6 +72,101 @@ class RecsysMIPSRoute:
         ids = out.indices[:n].cpu().numpy()
         scores = out.scores[:n].cpu().numpy()
         return [(ids[i], scores[i]) for i in range(n)]
+
+    @property
+    def degraded(self) -> bool:
+        return self.planner.degraded
+
+    def degrade(self) -> None:
+        self.planner.degrade()
+
+
+def _identity_tower(params, h):  # noqa: ARG001 — the tower signature
+    return h
+
+
+class LMGenerateRoute:
+    """Batched prefill + greedy decode: prompt [prompt_len] -> gen_len
+    generated token ids.
+
+    The next-token head is the query-only plan path: the last hidden
+    state (after the final norm) goes through an identity tower to
+    `execute_query` over the unembed rows, through the `ivf_topk` kernel;
+    the token is the slate's best-scoring id (slots need not be sorted;
+    a dead -1 slot is clamped to 0). The final soft-cap is monotonic, so
+    this is the logits' argmax over the retrieved slate. Tokens stay on
+    the device until `finalize`. ``params`` is the `repro_torch.models.lm`
+    parameter tree; it is moved to ``device`` (default "cuda"). Prefill
+    attention runs the flash-attention kernel when
+    ``cfg.use_flash_kernel`` is set, else the chunked plain-torch
+    attention. The decode step after the last token is not run: the
+    reference runs it and discards its result."""
+
+    def __init__(
+        self, cfg, params, *, prompt_len: int, gen_len: int, max_batch: int,
+        top_k: int = 4, num_clusters: int | None = None, n_probe: int | None = None,
+        probe_hidden=None, probe_k: int | None = None, seed: int = 0, device=None,
+    ):
+        from repro_torch.models import lm
+
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.prompt_len, self.gen_len, self.max_batch = prompt_len, gen_len, max_batch
+        self._lm = lm
+        self.pad_payload = np.zeros((prompt_len,), np.int32)
+        self.params = params = _tree_to(params, self.device)
+        unembed = params.get("unembed", params["embed"])
+        self.planner = QueryPlanner(
+            SoftmaxPolicy(tower=_identity_tower, item_dim=cfg.d_model),
+            params, unembed, top_k=top_k, num_clusters=num_clusters,
+            n_probe=n_probe, probe_x=probe_hidden, probe_k=probe_k, seed=seed,
+            device=self.device,
+        )
+
+    def prepare(self, payloads: list) -> torch.Tensor:
+        return torch.from_numpy(np.stack(payloads)).to(self.device)
+
+    def prefill(self, tokens: torch.Tensor):
+        """[B, prompt_len] -> (hidden [B, d], the filled KV cache)."""
+        cache = self._lm.init_cache(
+            self.cfg, tokens.shape[0], self.prompt_len + self.gen_len, device=self.device
+        )
+        return self._lm.prefill(self.cfg, self.params, tokens, cache, return_hidden=True)
+
+    def next_token(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The greedy head: hidden [B, d] -> token ids [B] (int32)."""
+        slate = self.planner.query(hidden)
+        best = torch.argmax(slate.scores, dim=-1, keepdim=True)
+        return torch.gather(slate.indices, 1, best)[:, 0].clamp(min=0)
+
+    def generate(self, hidden: torch.Tensor, cache) -> torch.Tensor:
+        """gen_len greedy tokens from the prefill's (hidden, cache):
+        [B, gen_len] int32, on the device."""
+        toks = []
+        for t in range(self.gen_len):
+            tok = self.next_token(hidden)
+            toks.append(tok)
+            if t + 1 < self.gen_len:
+                hidden, cache = self._lm.decode_step(
+                    self.cfg, self.params, tok, cache, return_hidden=True
+                )
+        return torch.stack(toks, dim=1)
+
+    def run(self, tokens: torch.Tensor) -> torch.Tensor:
+        """[B, prompt_len] -> [B, gen_len] generated ids, launched without
+        waiting for the device."""
+        return self.generate(*self.prefill(tokens))
+
+    def warmup(self, max_batch: int) -> None:
+        """Run the whole path once, and the planner's fallback too."""
+        hidden, cache = self.prefill(self.prepare([self.pad_payload] * max_batch))
+        self.planner.warmup(hidden)
+        self.generate(hidden, cache)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def finalize(self, out, n: int) -> list:
+        return [row.tolist() for row in out[:n].cpu().numpy()]
 
     @property
     def degraded(self) -> bool:

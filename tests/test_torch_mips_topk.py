@@ -51,6 +51,22 @@ def test_streaming_matches_reference(p, block):
     np.testing.assert_allclose(out.scores.numpy(), dense.values.numpy(), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("block_items", [None, 128])
+def test_k_above_the_catalog_fills_dead_slots_as_the_reference(block_items):
+    """K > P (the plan clamps K, so no plan reaches it): the reference
+    (default tiling and 128-row blocks) and the port fill the empty slots
+    alike, id -1 at score -3e38, after the P live ones."""
+    items, q = data(5, 8, 3, seed=7)
+    kw = {} if block_items is None else {"block_items": block_items}
+    ref = jax_mips_topk(jnp.asarray(q), jnp.asarray(items), 8, interpret=True, **kw)
+    out = mips_topk(torch.from_numpy(q), torch.from_numpy(items), 8)
+    np.testing.assert_array_equal(np.asarray(ref.indices)[:, 5:], -1)
+    np.testing.assert_array_equal(out.indices[:, 5:].numpy(), -1)
+    np.testing.assert_array_equal(np.asarray(ref.scores)[:, 5:], np.float32(-3e38))
+    np.testing.assert_array_equal(out.scores[:, 5:].numpy(), np.float32(-3e38))
+    assert_topk_equal(out, ref)
+
+
 def test_cpu_tensors_take_the_plain_version():
     """On the CPU the wrapper runs the plain version and never the kernel."""
     items, q = data(200, 8, 3, seed=0)

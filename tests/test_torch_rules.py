@@ -184,3 +184,53 @@ def test_kernel_wrapper_splits_lists_to_fill_the_card():
     assert kernel.splits_for(8, 8, 2048, 256, 128) == (1, 2048)
     assert kernel.splits_for(8, 8, 8, 10, 128) == (1, 128)
     assert kernel.splits_for(4096, 8, 2048, 10, 128) == (1, 2048)
+
+
+def test_flash_attention_never_takes_the_plain_version_on_cuda(monkeypatch):
+    """K9's wrapper, as the others: a tensor taken for CUDA reaches the
+    kernel's wrapper, which raises here, and the plain version is not
+    called."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    monkeypatch.setattr(flash_ops, "_on_cuda", lambda t: True)
+    calls = flash_ops._ref.flash_attention_ref.calls
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_ops.flash_attention(torch.zeros((1, 8, 2, 16)), torch.zeros((1, 8, 1, 16)),
+                                  torch.zeros((1, 8, 1, 16)))
+    assert flash_ops._ref.flash_attention_ref.calls == calls
+
+
+def test_lm_entry_points_refuse_cuda_without_cuda(monkeypatch):
+    from repro_torch.models import lm
+    from repro_torch.serve import LMGenerateRoute
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("gemma2-2b").SMOKE_CONFIG
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LMGenerateRoute(cfg, params, prompt_len=4, gen_len=2, max_batch=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_cli.main(["--arch", "gemma2-2b", "--requests", "1"])
+
+
+@pytest.mark.parametrize(
+    "arch", ["gemma2-2b", "mistral-large-123b", "granite-8b", "olmoe-1b-7b", "arctic-480b"]
+)
+def test_lm_archs_resolve_only_when_ported(arch):
+    """gemma2-2b resolves to the port's config module; the other LM
+    arches still raise, naming the models slice."""
+    if arch == "gemma2-2b":
+        mod = get_arch(arch)
+        assert mod.FAMILY == "lm" and mod.CONFIG.name == arch
+        assert mod.__name__ == "repro_torch.configs.gemma2_2b"
+    else:
+        with pytest.raises(NotImplementedError, match="models slice"):
+            get_arch(arch)
+
+
+def test_planner_probe_waits_for_the_health_slice():
+    cfg = get_arch("sasrec").SMOKE_CONFIG
+    params = recsys.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for kw in (dict(probe_x=torch.zeros((2, 4))), dict(probe_k=8)):
+        with pytest.raises(NotImplementedError, match="health slice"):
+            QueryPlanner(None, params, params["items"], top_k=4, device="cpu", **kw)

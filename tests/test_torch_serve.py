@@ -156,3 +156,101 @@ def test_serve_on_cpu_never_launches_the_kernel():
     eng.warmup()
     _run_all(eng, _hists(3), [0.0] * 3)
     assert ivf_kernel.ivf_probe_topk_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the LM generation route (Gemma-2 SMOKE_CONFIG)
+# ---------------------------------------------------------------------------
+
+
+def _lm_routes(monkeypatch, flash: bool, max_batch: int, prompt_len: int, gen_len: int):
+    """The reference's and the port's LMGenerateRoute over the same
+    weights and the same IVF index (the reference's, carried across)."""
+    import dataclasses
+
+    from repro.models import lm as jax_lm
+    from repro.serve import LMGenerateRoute as JaxLMRoute
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.serve import LMGenerateRoute
+
+    jcfg = dataclasses.replace(jax_get_arch("gemma2-2b").SMOKE_CONFIG, use_flash_kernel=flash)
+    cfg = dataclasses.replace(get_arch("gemma2-2b").SMOKE_CONFIG, use_flash_kernel=flash)
+    jparams = jax_lm.init_params(jcfg, jax.random.PRNGKey(0))
+    jroute = JaxLMRoute(jcfg, jparams, prompt_len=prompt_len, gen_len=gen_len,
+                        max_batch=max_batch, top_k=4)
+    state = jroute.planner.index_state
+    index = ivf_index_from_numpy(
+        np.asarray(state.centroids), np.asarray(state.lists),
+        np.asarray(state.list_embs), jcfg.vocab_size,
+    )
+    monkeypatch.setattr(planner_mod, "build_ivf", lambda *a, **kw: index)
+    route = LMGenerateRoute(
+        cfg, lm_params_from_numpy(jax.tree.map(np.asarray, jparams)), prompt_len=prompt_len,
+        gen_len=gen_len, max_batch=max_batch, top_k=4, device="cpu",
+    )
+    return cfg, jroute, route
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["chunked", "kernel"])
+def test_lm_route_generates_the_reference_tokens(monkeypatch, flash):
+    """Both engines serve the same 3 prompts (max_batch 2, fixed service
+    time): the same virtual timeline and the same generated tokens."""
+    cfg, jroute, route = _lm_routes(monkeypatch, flash, max_batch=2, prompt_len=6, gen_len=4)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (6,)).astype(np.int32) for _ in range(3)]
+    fixed = lambda measured, batch_no: 0.001  # noqa: E731
+    jeng = JaxEngine(jroute, JaxCoalescePolicy(max_batch=2, max_wait_s=0.01),
+                     service_model=fixed)
+    eng = ServingEngine(route, CoalescePolicy(max_batch=2, max_wait_s=0.01),
+                        service_model=fixed)
+    jeng.warmup()
+    eng.warmup()
+    jrecs = _run_all(jeng, prompts, [0.0] * 3)
+    recs = _run_all(eng, prompts, [0.0] * 3)
+    assert len(recs) == len(jrecs) == 3
+    for r, jr in zip(recs, jrecs):
+        assert (r.rid, r.launch, r.finish, r.batch_size) == (
+            jr.rid, jr.launch, jr.finish, jr.batch_size
+        )
+        assert len(r.result) == 4 and all(0 <= t < cfg.vocab_size for t in r.result)
+        assert r.result == list(jr.result)
+
+
+def test_lm_route_on_cpu_runs_the_plain_versions():
+    """The kernel switch on, CPU tensors: every prefill runs the flash
+    plain version once per layer, every token one IVF pass (main +
+    delta), and no kernel launches."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.models import lm
+    from repro_torch.serve import LMGenerateRoute
+
+    cfg = dataclasses.replace(get_arch("gemma2-2b").SMOKE_CONFIG, use_flash_kernel=True)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    route = LMGenerateRoute(cfg, params, prompt_len=5, gen_len=3, max_batch=2, device="cpu")
+    eng = ServingEngine(route, CoalescePolicy(max_batch=2))
+    eng.warmup()
+    before = (flash_ref.flash_attention_ref.calls, ivf_ref.ivf_probe_topk_ref.calls,
+              flash_kernel.flash_attention_fwd_cuda.launches,
+              ivf_kernel.ivf_probe_topk_cuda.launches)
+    rng = np.random.default_rng(1)
+    recs = _run_all(eng, [rng.integers(0, 512, (5,)).astype(np.int32) for _ in range(4)],
+                    [0.0] * 4)
+    assert len(recs) == 4 and eng.batches == 2
+    after = (flash_ref.flash_attention_ref.calls, ivf_ref.ivf_probe_topk_ref.calls,
+             flash_kernel.flash_attention_fwd_cuda.launches,
+             ivf_kernel.ivf_probe_topk_cuda.launches)
+    assert after[0] - before[0] == 2 * cfg.num_layers
+    assert after[1] - before[1] == 2 * 2 * 3
+    assert after[2:] == before[2:]
+
+
+def test_serve_cli_gemma_on_cpu(capsys):
+    from repro_torch.launch import serve as serve_cli
+
+    serve_cli.main(["--arch", "gemma2-2b", "--device", "cpu", "--requests", "3",
+                    "--prompt-len", "6", "--gen-len", "3", "--max-batch", "2"])
+    out = capsys.readouterr().out
+    assert "gemma2-2b on cpu: 3 requests in 2 batches" in out
