@@ -50,12 +50,24 @@ more each:
   6. flash        the flash-attention kernel (K9) against its plain
                   version in fp32 and bf16, out and lse: small shapes
                   (ragged S, windows 8 / 64, cap 50, q_offset > 0, GQA
-                  n_rep 1 and 2, every head width), the Gemma-2 prefill
-                  shape (B 8, H 8, KV 4, S 2048, D 256, bf16) and S 8192
-                  at batch 1 with window 4096; times and bounds, and at
+                  n_rep 1 and 2, every head width), the training path's
+                  microbatch (B 1, H 8, KV 4, S 2048, D 256, fp32 and
+                  bf16), the Gemma-2 prefill shape (B 8, same heads,
+                  bf16) and S 8192 at batch 1 with window 4096; times and
+                  bounds (at the prefill and S 8192 shapes), and at
                   the prefill shape torch's flex_attention, compiled, as
                   the library yardstick (in bf16 and on the fp32 upcast)
-  7. lm           the Gemma-2 2B generation path at full width (26 layers,
+  7. flash bwd    the flash-attention backward kernel (K10) against its
+                  plain version in fp32 and bf16, dq, dk and dv, with lse
+                  and D from K9's plain version: small shapes (ragged S,
+                  windows 8 / 64, cap 50, q_offset > 0, GQA n_rep 1 and 2,
+                  every head width), the Gemma-2 training shape (B 4, H 8,
+                  KV 4, S 2048, D 256; also B 1, the main path's
+                  microbatch) and S 8192 at batch 1 with window 4096;
+                  times and bounds, and at the training shape torch's
+                  flex_attention forward + backward, compiled, as the
+                  library yardstick beside K9 + K10
+  8. lm           the Gemma-2 2B generation path at full width (26 layers,
                   d_model 2304, vocab 256,000, bf16; random weights from a
                   seed; use_flash_kernel=True): `LMGenerateRoute` builds
                   its IVF index over the unembed rows, a `ServingEngine`
@@ -69,7 +81,23 @@ more each:
                   states in bf16, a teacher-forced decode step by step
                   (token disagreements only at near ties), and one prefill
                   batch in fp32 within rtol 1e-4
-  8. a JSON line of the kernels, then the card's name and power limit,
+  9. lm-train     Gemma-2 2B training at full width (26 layers, d_model
+                  2304, vocab 256,000; bf16 parameters from a seed, remat
+                  on, use_flash_kernel=True): `lm.make_train_step` with
+                  Adam(1e-3) takes 6 steps of a global batch of 4 x 2048
+                  tokens in 4 strided microbatches of one row; step 1 runs
+                  on the bf16 parameters, Adam then promotes them to fp32
+                  (the reference's dtype rule, checked after every step);
+                  the launch counters show 208 K9 and 104 K10 launches per
+                  step and no plain version; step 1's time, the fp32
+                  steps' p50 / p99, tokens/s, peak device memory and a
+                  profiled step's device idle share; then the gate at 4
+                  layers of the full width: one step each through the
+                  kernels and through the plain chunked attention from the
+                  same parameters and tokens, in bf16 (loss within 1e-2
+                  relative, every gradient leaf within 5e-2 relative L2)
+                  and in fp32 (1e-5, 1e-4)
+ 10. a JSON line of the kernels, then the card's name and power limit,
      then the last line {"ok": true, "device": {...}}
 
 Any failed check raises, and the script exits non-zero without the last
@@ -79,6 +107,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -97,6 +126,10 @@ TRAIN_STEPS, REPLAY_STEPS, PROFILED_STEPS, TS = 20, 3, 3, 8
 LM_PROMPT, LM_GEN, LM_BATCH, LM_REQUESTS, LM_TOP_K = 2048, 16, 8, 16, 4
 BF16_RTOL = 2.0**-7  # one bf16 ulp at the bottom of a binade
 LM_HIDDEN_REL = 5e-2  # bf16 prefill hidden states, kernel vs plain path (relative L2)
+# LM training: global batch 4 x 2048 in microbatches of 1 row, 6 Adam steps
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_MICRO, LM_TRAIN_STEPS, LM_GATE_LAYERS = 4, 2048, 1, 6, 4
+# the training gate, kernel vs plain attention: (loss relative, gradient leaf relative L2)
+GATE_BF16, GATE_FP32 = (1e-2, 5e-2), (1e-5, 1e-4)
 
 
 def log(msg: str) -> None:
@@ -788,6 +821,36 @@ def flash_bound(b, sq, skv, h, kv, d, itemsize, causal, window, q_offset) -> tup
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, qk, pv
 
 
+def flex_setup(kw: dict, q):
+    """(compiled flex_attention, the soft-cap score_mod or None, the block
+    mask of the causal mask and window) for the library yardsticks, over
+    q's [B, S, H, D] sequence length. Inductor's and Triton's caches go
+    to the git-ignored build directory; one compile worker, none left
+    behind."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    from repro_torch.kernels import _build
+
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(_build.BUILD_DIR / sub))
+    import torch._inductor.config
+
+    torch._inductor.config.compile_threads = 1
+    cap, window, causal = kw.get("logit_cap"), kw.get("window"), kw.get("causal", True)
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, qi, ki):
+        live = (ki <= qi) if causal else (ki >= 0)
+        return live & (qi - ki < window) if window else live
+
+    s_ = q.shape[1]
+    block_mask = create_block_mask(mask_mod, None, None, s_, s_, device=q.device)
+    return torch.compile(flex_attention, dynamic=False), score_mod if cap else None, block_mask
+
+
 def flex_yardstick(sets: list, plain, kw: dict) -> dict:
     """K9's library call: torch's `flex_attention`, compiled, with the
     soft-cap as a score_mod, the causal mask and window as a block mask,
@@ -798,36 +861,18 @@ def flex_yardstick(sets: list, plain, kw: dict) -> dict:
     max |out|), in [B, H, S, D] layout. Returns {"bf16"|"fp32": ms or the
     error it raised or the disagreement}."""
     import torch
-    from torch.nn.attention.flex_attention import AuxRequest, create_block_mask, flex_attention
+    from torch.nn.attention.flex_attention import AuxRequest
 
-    from repro_torch.kernels import _build
-
-    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
-        os.environ.setdefault(var, str(_build.BUILD_DIR / sub))
-    import torch._inductor.config
-
-    torch._inductor.config.compile_threads = 1  # no pool of compile workers left behind
-    cap, window, causal = kw.get("logit_cap"), kw.get("window"), kw.get("causal", True)
-
-    def score_mod(score, b, h, qi, ki):
-        return cap * torch.tanh(score / cap)
-
-    def mask_mod(b, h, qi, ki):
-        live = (ki <= qi) if causal else (ki >= 0)
-        return live & (qi - ki < window) if window else live
-
-    s_ = sets[0][0].shape[1]
-    block_mask = create_block_mask(mask_mod, None, None, s_, s_, device=sets[0][0].device)
-    flex = torch.compile(flex_attention, dynamic=False)
+    flex, score_mod, block_mask = flex_setup(kw, sets[0][0])
+    cap = kw.get("logit_cap")
     res = {}
     for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         try:
             args = [tuple(x.transpose(1, 2).to(dtype).contiguous() for x in st) for st in sets]
 
             def call(q, k, v):
-                return flex(q, k, v, score_mod=score_mod if cap else None,
-                            block_mask=block_mask, enable_gqa=True,
-                            return_aux=AuxRequest(lse=True))
+                return flex(q, k, v, score_mod=score_mod, block_mask=block_mask,
+                            enable_gqa=True, return_aux=AuxRequest(lse=True))
 
             out, aux = call(*args[0])
             lse = aux.lse
@@ -855,8 +900,8 @@ def flex_yardstick(sets: list, plain, kw: dict) -> dict:
 
 def flash_phase() -> dict:
     """K9 against its plain version on the card, fp32 and bf16, out and
-    lse; times at the Gemma-2 prefill shape and at S 8192 with window
-    4096."""
+    lse, at small shapes and at the training path's B 1 x S 2048; times at
+    the Gemma-2 prefill shape and at S 8192 with window 4096."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
@@ -899,6 +944,9 @@ def flash_phase() -> dict:
         compare("small", *inputs(1, 40, 130, 4, 2, 128, dtype), window=8, q_offset=90,
                 logit_cap=50.0)
         compare("small", *inputs(2, 100, 100, 2, 1, 256, dtype), causal=False)
+        # the training path's shape: one row of LM_TRAIN_S tokens per microbatch
+        compare("training B 1", *inputs(1, LM_TRAIN_S, LM_TRAIN_S, 8, 4, 256, dtype),
+                logit_cap=50.0)
 
     timing = {}
     for tag, (b, s_, h, kv, d), kw in [
@@ -933,6 +981,184 @@ def flash_phase() -> dict:
     torch.cuda.empty_cache()
     return dict(max_abs_err=max(errs.values()), errs=errs, timing=timing)
 
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward (K10): kernel vs plain version
+# ---------------------------------------------------------------------------
+
+def flash_bwd_bound(b, sq, skv, h, kv, d, itemsize, causal, window, q_offset) -> tuple:
+    """(ms, "bytes" or "operations", bytes, flops at the bf16 rate, flops at
+    the fp32 rate): q, k, v, dO, lse and D read once, dq, dk, dv written
+    once; 10 D flops per unmasked (query, key) pair, five D-long products
+    (s, dp, dv, dq, dk). With bf16 inputs q k^T and dO v^T multiply bf16
+    values (exact in fp32) and run at the bf16 tensor-core rate, the
+    other three (p and ds are fp32) at the fp32 rate; with fp32 inputs all
+    five at the fp32 rate. The bound is the larger of the two times."""
+    nbytes = (3 * b * sq * h * d + 4 * b * skv * kv * d) * itemsize + 2 * b * h * sq * 4
+    pairs = b * h * live_pairs(sq, skv, causal, window, q_offset)
+    at_bf16 = 4 * d * pairs if itemsize == 2 else 0
+    at_fp32 = 10 * d * pairs - at_bf16
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = (at_bf16 / BF16_FLOPS + at_fp32 / FP32_FLOPS) * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, at_bf16, at_fp32
+
+
+def flex_fwd_bwd_yardstick(sets: list, kw: dict, plain_grads) -> dict:
+    """The library call beside K9 + K10: torch's `flex_attention`,
+    compiled, forward and backward in bf16 (soft-cap as a score_mod, the
+    causal mask and window as a block mask, enable_gqa; a yardstick only:
+    the port never calls it), [B, H, S, D] layout. Its gradients are held
+    to the plain versions' within relative L2 2e-2 (flex rounds p and ds
+    to bf16 for its tensor-core products). Timed with CUDA events around
+    eager calls, as is the port's own forward + backward beside it.
+    Returns {"ms": ms or None, "port_ms": ms, "note": str}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fo
+
+    def port(q, k, v, do):
+        q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+        fo.flash_attention(q, k, v, **kw).backward(do)
+        return q.grad, k.grad, v.grad
+
+    port_ms = time_ms(port, sets, 6)
+    res = {"ms": None, "port_ms": port_ms}
+    try:
+        flex, score_mod, block_mask = flex_setup(kw, sets[0][0])
+
+        def call(q, k, v, do):
+            q, k, v = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            out = flex(q, k, v, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+            out.backward(do.transpose(1, 2))
+            return tuple(x.grad.transpose(1, 2) for x in (q, k, v))
+
+        got = call(*sets[0])
+        rels = [rel_l2(a, b) for a, b in zip(got, plain_grads)]
+        del got
+        ok = max(rels) <= 2e-2
+        t = time_ms(call, sets, 6)
+        res["ms"] = t if ok else None
+        res["note"] = (f"flex_attention (compiled) forward + backward {t:.4f} ms per call "
+                       f"(eager, CUDA events); dq, dk, dv relative L2 from the plain versions "
+                       f"{', '.join(f'{r:.3g}' for r in rels)}: "
+                       f"{'agrees' if ok else 'DISAGREES (not used)'}")
+    except Exception as e:  # noqa: BLE001 — a yardstick, not a check of the port
+        res["note"] = ("flex_attention forward + backward did not run: "
+                       f"{type(e).__name__}: {str(e).splitlines()[0][:300] if str(e) else ''}")
+    log(f"  library: {res['note']}; the port's K9 + K10 forward + backward {port_ms:.4f} ms "
+        "per call (eager, CUDA events)")
+    torch.cuda.empty_cache()
+    return res
+
+
+def flash_bwd_phase(dev=None) -> dict:
+    """K10 against its plain version on the card, fp32 and bf16, dq, dk and
+    dv, with lse and D from K9's plain version: small shapes, the
+    training shape (B 4 and the main path's microbatch of B 1) and S 8192
+    at batch 1 with window 4096; times and bounds, and the library
+    yardstick at the training shape."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+
+    dev = torch.device(dev or "cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs = {"fp32": 0.0, "bf16": 0.0}
+
+    def fold(x, r):
+        b, s_, n, d = x.shape
+        return x.transpose(1, 2).repeat_interleave(r, 1).reshape(b * n * r, s_, d)
+
+    def inputs(b, sq, skv, h, kv, d, dtype, **kw):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype) for shape in (
+            (b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d), (b, sq, h, d)))
+        out, lse = fr.flash_attention_ref(fold(q, 1), fold(k, h // kv), fold(v, h // kv), **kw)
+        out = out.reshape(b, h, sq, d).transpose(1, 2)
+        dsum = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        return q, k, v, do, lse.reshape(b, h, sq), dsum
+
+    def plain(q, k, v, do, lse, dsum, **kw):
+        """The plain version on the inputs' fp32 values, the GQA group
+        summed in fp32 and each output rounded once to the inputs' dtype:
+        the function the kernel computes."""
+        b, sq, h, d = q.shape
+        skv, kv = k.shape[1], k.shape[2]
+        n = h // kv
+        dq, dk, dv = fr.flash_attention_bwd_ref(
+            fold(q.float(), 1), fold(k.float(), n), fold(v.float(), n), fold(do.float(), 1),
+            lse.reshape(b * h, sq), dsum.reshape(b * h, sq), **kw)
+        def group(x):  # the GQA group sum, in fp32, rounded once
+            return x.reshape(b, kv, n, skv, d).sum(2).transpose(1, 2).to(q.dtype)
+
+        return dq.reshape(b, h, sq, d).transpose(1, 2).to(q.dtype), group(dk), group(dv)
+
+    def compare(tag, args, **kw):
+        got = fk.flash_attention_bwd_cuda(*args, **kw)
+        want = plain(*args, **kw)
+        bf16 = args[0].dtype == torch.bfloat16
+        es = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if bf16:  # one bf16 ulp, atol for fp32 sums of both signs in another order
+                scale = float(w.float().abs().max())
+                es.append(close_err(g, w, f"{tag} {name}", rtol=BF16_RTOL,
+                                    atol=ATOL + RTOL * scale))
+            else:
+                es.append(close_err(g, w, f"{tag} {name}", sums=True))
+        key = "bf16" if bf16 else "fp32"
+        errs[key] = max(errs[key], *es)
+        q, k = args[0], args[1]
+        log(f"  {tag}: B={q.shape[0]} Sq={q.shape[1]} Skv={k.shape[1]} H={q.shape[2]} "
+            f"KV={k.shape[2]} D={q.shape[3]} {key} {kw}: max_abs_err dq {es[0]:.3g}, dk "
+            f"{es[1]:.3g}, dv {es[2]:.3g} ok")
+        del got, want
+        return args
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in fk.HEAD_DIMS:
+            compare("small", inputs(2, 77, 77, 4, 2, d, dtype, logit_cap=50.0), logit_cap=50.0)
+        compare("small", inputs(1, 300, 300, 2, 2, 64, dtype, window=64), window=64)
+        compare("small", inputs(1, 130, 130, 4, 2, 16, dtype, window=8, logit_cap=50.0),
+                window=8, logit_cap=50.0)
+        kw = dict(window=8, q_offset=90, logit_cap=50.0)
+        compare("small", inputs(1, 40, 130, 4, 2, 128, dtype, **kw), **kw)
+        compare("small", inputs(2, 100, 100, 2, 1, 256, dtype, causal=False), causal=False)
+
+    timing = {}
+    gemma = dict(logit_cap=50.0)
+    for tag, (b, s_, h, kv, d), kw, dtypes in [
+        ("training B 4", (4, LM_PROMPT, 8, 4, 256), gemma, (torch.bfloat16, torch.float32)),
+        ("training B 4 local", (4, LM_PROMPT, 8, 4, 256), dict(gemma, window=4096),
+         (torch.bfloat16,)),
+        ("main path B 1", (1, LM_PROMPT, 8, 4, 256), gemma, (torch.float32, torch.bfloat16)),
+        ("S 8192 window 4096", (1, 8192, 8, 4, 256), dict(gemma, window=4096),
+         (torch.bfloat16, torch.float32)),
+    ]:
+        for dtype in dtypes:
+            sets = [inputs(b, s_, s_, h, kv, d, dtype, **kw) for _ in range(2)]
+            compare(tag, sets[0], **kw)
+            kern = lambda *a: fk.flash_attention_bwd_cuda(*a, **kw)  # noqa: E731
+            ref_ = lambda *a: plain(*a, **kw)  # noqa: E731
+            t_k = device_ms(kern, sets, calls=6, replays=4)
+            t_p = device_ms(ref_, sets, calls=2, replays=3)
+            item = 2 if dtype == torch.bfloat16 else 4
+            b_ms, b_by, nbytes, f16, f32 = flash_bwd_bound(b, s_, s_, h, kv, d, item, True,
+                                                           kw.get("window"), 0)
+            key = f"{tag} {'bf16' if item == 2 else 'fp32'}"
+            timing[key] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+            log(f"  time {key} (B={b} S={s_} H={h} KV={kv} D={d} {kw}): device ms per call "
+                f"(CUDA graph) kernel {t_k:.4f}, plain {t_p:.4f}; bound {b_ms:.4f} ms ({b_by}: "
+                f"{f16 / 1e9:.2f} GFLOP at the bf16 tensor-core rate + {f32 / 1e9:.2f} GFLOP at "
+                f"the fp32 rate; {nbytes / 1e6:.2f} MB, {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+                f"kernel at {100 * b_ms / t_k:.1f}% of the bound")
+            if key == "training B 4 bf16":
+                grads = plain(*sets[0], **kw)
+                lib = flex_fwd_bwd_yardstick([st[:4] for st in sets], kw, grads)
+                del grads
+                timing[key]["library"] = lib
+            del sets
+            torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs.values()), errs=errs, timing=timing)
 
 
 # ---------------------------------------------------------------------------
@@ -1196,6 +1422,193 @@ def lm_phase(cfg=None, dev=None) -> dict:
                 idle=idle)
 
 
+# ---------------------------------------------------------------------------
+# the LM training path (Gemma-2 2B at full width)
+# ---------------------------------------------------------------------------
+
+def _dtypes(tree) -> set:
+    from repro_torch.optim.optimizers import tree_leaves
+
+    return {str(t.dtype).replace("torch.", "") for t in tree_leaves(tree)}
+
+
+def lm_train_gate(cfg, batch, dev) -> dict:
+    """One step each on the kernel path and on the plain chunked attention
+    (use_flash_kernel=False), from the same parameters and tokens, at
+    LM_GATE_LAYERS layers of the full width: step 1 in bf16, then step 2
+    from the kernel path's fp32 parameters and Adam state. Losses and the
+    microbatch-averaged gradients the optimizer receives are held to
+    GATE_BF16 and GATE_FP32, and the dtypes to the reference's Adam."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.optim import Optimizer, adam
+    from repro_torch.optim.optimizers import tree_leaves
+
+    gcfg = dataclasses.replace(cfg, num_layers=LM_GATE_LAYERS)
+    opt = adam(1e-3)
+    params = lm.init_params(gcfg, torch.Generator(device=dev).manual_seed(1), dev)
+    state = opt.init(params)
+    x, y = batch[:, :-1], batch[:, 1:]
+    names = ["embed", "final_norm", *(f"layers.{n}" for n in params["layers"])]
+    out = {}
+    for step, (loss_tol, grad_tol) in ((1, GATE_BF16), (2, GATE_FP32)):
+        res = {}
+        for path, flash in (("kernel", True), ("plain", False)):
+            seen = []
+
+            def update(g, s_, p_, seen=seen):
+                seen.append(g)
+                return opt.update(g, s_, p_)
+
+            train_step = lm.make_train_step(dataclasses.replace(gcfg, use_flash_kernel=flash),
+                                            Optimizer(init=opt.init, update=update))
+            p_new, s_new, loss = train_step(params, state, x, y)
+            res[path] = (p_new, s_new, float(loss), seen[0])
+        (pk, sk, lk, gk), (_, _, lp, gp) = res["kernel"], res["plain"]
+        check(math.isfinite(lk) and math.isfinite(lp),
+              f"gate step {step}: loss not finite ({lk}, {lp})")
+        rel_loss = abs(lk - lp) / abs(lp)
+        rels = [rel_l2(a, b) for a, b in zip(tree_leaves(gk), tree_leaves(gp))]
+        worst = max(range(len(rels)), key=rels.__getitem__)
+        grad_dtype = _dtypes(gk)
+        check(rel_loss <= loss_tol, f"gate step {step}: loss {lk} vs plain {lp} "
+              f"(relative {rel_loss:.3g} > {loss_tol})")
+        check(max(rels) <= grad_tol, f"gate step {step}: gradient {names[worst]} relative L2 "
+              f"{rels[worst]:.3g} > {grad_tol}")
+        want = ({"float32"}, {"bfloat16"}) if step == 1 else ({"float32"}, {"float32"})
+        got = (_dtypes(pk), _dtypes(sk["m"]) | _dtypes(sk["v"]))
+        check(got == want, f"gate step {step}: params / moments dtypes {got}, expected {want}")
+        log(f"[lm-train gate] step {step} ({'/'.join(sorted(grad_dtype))} gradients, "
+            f"{LM_GATE_LAYERS} layers at full width, {LM_TRAIN_B} x {LM_TRAIN_S} tokens): loss "
+            f"kernel {lk:.6f}, plain {lp:.6f}, relative {rel_loss:.3g} (held <= {loss_tol}); "
+            f"gradients relative L2 max {rels[worst]:.3g} at {names[worst]} (held <= {grad_tol}); "
+            f"params {got[0]}, moments {got[1]} after the step, as the reference's Adam")
+        out[step] = dict(loss_rel=rel_loss, grad_rel=rels[worst])
+        params, state = pk, sk
+        del res, gk, gp
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_phase(cfg=None, dev=None) -> dict:
+    """Gemma-2 2B training at full width on the card, through K9 and K10:
+    LM_TRAIN_STEPS Adam steps of a global batch of LM_TRAIN_B x LM_TRAIN_S
+    tokens in microbatches of LM_TRAIN_MICRO rows, remat on; launch counts
+    per step, step times, tokens/s, peak memory, one profiled step; then
+    the gate against the plain chunked attention. (``cfg`` and ``dev``
+    default to the full CONFIG and the card.)"""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.models import lm
+    from repro_torch.optim import adam
+    from repro_torch.optim.optimizers import tree_leaves
+
+    dev = resolve_device(dev or "cuda")  # pins TF32 off
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg or get_arch("gemma2-2b").CONFIG, use_flash_kernel=True,
+                              microbatch=LM_TRAIN_MICRO)
+    check(cfg.remat, "the training config runs with remat")
+    n_micro = LM_TRAIN_B // LM_TRAIN_MICRO
+    log(f"[lm-train] device memory at the start: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = adam(1e-3)
+    state = opt.init(params)
+    train_step = lm.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[lm-train] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e9:.3f} B parameters in {cfg.dtype} (random from seed "
+        f"0) and Adam(1e-3) state in {time.perf_counter() - t0:.2f} s; global batch "
+        f"{LM_TRAIN_B} x {LM_TRAIN_S} tokens in {n_micro} microbatches of {LM_TRAIN_MICRO} "
+        f"row(s) (strided), remat on, use_flash_kernel=True")
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_TRAIN_B, LM_TRAIN_S + 1)))
+               .to(dev) for _ in range(LM_TRAIN_STEPS + 1)]
+    counters = [(fk.flash_attention_fwd_cuda, "launches"),
+                (fk.flash_attention_bwd_cuda, "launches"),
+                (fr.flash_attention_ref, "calls"), (fr.flash_attention_bwd_ref, "calls")]
+    per_step = (2 * cfg.num_layers * n_micro, cfg.num_layers * n_micro)  # K9 (remat), K10
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    for i in range(LM_TRAIN_STEPS):
+        before = (fk.flash_attention_fwd_cuda.launches, fk.flash_attention_bwd_cuda.launches)
+        toks = batches[i]
+        t = time.perf_counter()
+        params, state, loss = train_step(params, state, toks[:, :-1], toks[:, 1:])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(loss))
+        got = (fk.flash_attention_fwd_cuda.launches - before[0],
+               fk.flash_attention_bwd_cuda.launches - before[1])
+        check(got == per_step, f"step {i + 1}: K9 / K10 launched {got}, expected {per_step}")
+        check(np.isfinite(losses[-1]), f"step {i + 1}: loss {losses[-1]}")
+        dts = (_dtypes(params), _dtypes(state["m"]) | _dtypes(state["v"]))
+        want = ({"float32"}, {"bfloat16"}) if i == 0 else ({"float32"}, {"float32"})
+        check(dts == want, f"step {i + 1}: params / moments dtypes {dts}, expected {want}")
+        log(f"[lm-train] step {i + 1}{' (bf16 parameters)' if i == 0 else ''}: loss "
+            f"{losses[-1]:.4f}, {times[-1] * 1e3:.1f} ms; K9 {got[0]} and K10 {got[1]} "
+            f"launches; params {dts[0]}, moments {dts[1]} after it")
+    counts = {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counters}
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["flash_attention_ref.calls"] == 0 and counts["flash_attention_bwd_ref.calls"] == 0,
+          f"a plain version ran on the card: {counts}")
+    fp32_ms = [t * 1e3 for t in times[1:]]
+    p50 = percentile(fp32_ms, 50)
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+    log(f"[lm-train] {LM_TRAIN_STEPS} steps: step 1 (bf16) {times[0] * 1e3:.1f} ms; fp32 steps "
+        f"p50 {p50:.1f} ms, p99 {percentile(fp32_ms, 99):.1f} ms over {len(fp32_ms)}; "
+        f"{tokens / (p50 / 1e3):.1f} tokens/s at the fp32 p50 ({tokens / times[0]:.1f} at step "
+        f"1); peak device memory {peak / 1e9:.2f} GB allocated; counts {counts} "
+        f"({per_step[0]} K9 and {per_step[1]} K10 launches per step)")
+
+    # where a step's device time goes: one more step, profiled
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = batches[-1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, loss = train_step(params, state, toks[:, :-1], toks[:, 1:])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def device_us(ev) -> float:
+        return getattr(ev, "self_device_time_total", None) or getattr(ev, "device_time_total", 0.0)
+
+    evs = [(device_us(e) / 1e3, e.key) for e in prof.key_averages() if device_us(e) > 0]
+    busy = sum(t for t, _ in evs)
+    idle = None
+    if busy > 0:
+        idle = 100 * (1 - busy / wall)
+        k9 = sum(t for t, n in evs if "flash_fwd" in n)
+        k10 = sum(t for t, n in evs if "flash_bwd" in n)
+        log(f"[lm-train] profiled fp32 step: device busy {busy:.1f} of {wall:.1f} ms wall "
+            f"(profiled), idle {idle:.1f}%; K9 {k9:.1f} ms ({per_step[0]} launches), K10 "
+            f"{k10:.1f} ms ({per_step[1]} launches)")
+        log("[lm-train] top device entries (ms per step): " + "; ".join(
+            f"{n[:48]} {t:.1f}" for t, n in sorted(evs, reverse=True)[:10]))
+    else:
+        log("[lm-train] the profiler reported no device time on this machine")
+    del params, state, loss, prof
+    torch.cuda.empty_cache()
+
+    gate = lm_train_gate(cfg, batches[0], dev)
+    return dict(counts=counts, step1_ms=times[0] * 1e3, p50_ms=p50,
+                p99_ms=percentile(fp32_ms, 99), tokens_per_s=tokens / (p50 / 1e3), peak=peak,
+                idle=idle, gate=gate)
+
+
 def percentile(values: list[float], p: float) -> float:
     vs = sorted(values)
     return vs[min(len(vs) - 1, max(0, round(p / 100.0 * (len(vs) - 1))))]
@@ -1231,11 +1644,12 @@ def main() -> int:
     from repro_torch.kernels.mips_topk import kernel as mk
     from repro_torch.kernels.snis_covgrad import kernel as sk
 
-    sources = [kernel.SOURCE, mk.SOURCE, fk.SOURCE, sk.FWD_SOURCE, sk.BWD_SOURCE, flk.SOURCE]
+    sources = [kernel.SOURCE, mk.SOURCE, fk.SOURCE, sk.FWD_SOURCE, sk.BWD_SOURCE, flk.SOURCE,
+               flk.BWD_SOURCE]
     t0 = time.perf_counter()
     _build.build(sources)
     for lib in (kernel.library, mk.library, fk.library, sk.fwd_library, sk.bwd_library,
-                flk.library):
+                flk.library, flk.bwd_library):
         lib()
     log(f"[build] {', '.join(str(x.relative_to(ROOT)) for x in sources)} built and "
         f"loaded in {time.perf_counter() - t0:.2f} s")
@@ -1341,10 +1755,20 @@ def main() -> int:
     with torch.inference_mode():
         fres = flash_phase()
 
-    # 7. the Gemma-2 2B generation path at full width, and its gate
+    # 7. the flash-attention backward (K10) against its plain version
+    log("[kernels] flash_attention_bwd (K10) vs its plain version, on the card, dq, dk, dv "
+        f"(fp32: rtol {RTOL}, atol {ATOL} scaled by max |grad| (sums of terms of both signs); "
+        f"bf16: rtol 2^-7 (one bf16 ulp), atol {ATOL} + {RTOL} max |grad|; the plain version "
+        "sums the GQA group in fp32 and rounds once, as the kernel)")
+    bres = flash_bwd_phase()
+
+    # 8. the Gemma-2 2B generation path at full width, and its gate
     lres = lm_phase()
 
-    # 8. the kernels line, the card, the result
+    # 9. the Gemma-2 2B training path at full width, and its gate
+    tlm = lm_train_phase()
+
+    # 10. the kernels line, the card, the result
     t = kres["timing"]["main K=10"]
     entries = [{
         "name": "ivf_topk",
@@ -1389,13 +1813,43 @@ def main() -> int:
         "route": "cuda",
         "source": str(flk.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/flash_attention/kernel.py:104",
-        "launches": lres["counts"]["flash_attention_fwd_cuda.launches"],
+        "launches": (lres["counts"]["flash_attention_fwd_cuda.launches"]
+                     + tlm["counts"]["flash_attention_fwd_cuda.launches"]),
         "max_abs_err": fres["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
+    })
+    # K10's headline is the main path's shape: one 2048-token row per
+    # microbatch, fp32 parameters in 5 of the 6 steps
+    bt = bres["timing"]
+    t, t4 = bt["main path B 1 fp32"], bt["training B 4 bf16"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    entries.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": str(flk.BWD_SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/flash_attention/backward.py:136",
+        "launches": tlm["counts"]["flash_attention_bwd_cuda.launches"],
+        "max_abs_err": bres["max_abs_err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        # no single PyTorch call computes the attention backward alone
+        "library_ms": None,
+        "shape": "B 1, S 2048, H 8, KV 4, D 256, causal, cap 50, fp32 (the main path's "
+                 "microbatch)",
+        "main_path_b1_bf16": {k: bt["main path B 1 bf16"][k] for k in keys},
+        "b4_bf16": {k: t4[k] for k in keys},
+        "b4_fp32": {k: bt["training B 4 fp32"][k] for k in keys},
+        "b4_bf16_fwd_bwd": {
+            "flex_attention_ms": t4["library"]["ms"],
+            "port_k9_k10_ms": t4["library"]["port_ms"],
+            "note": "forward + backward at B 4 bf16, each eager and timed with CUDA events",
+        },
     })
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -101,14 +101,15 @@ def linear_tower_params_from_numpy(tree: dict) -> dict:
 def adam_state_from_numpy(state: dict) -> dict:
     """The reference's `adam` state ({"step", "m", "v"}, the moments
     trees shaped like the parameters) as the port's, so that both
-    optimizers continue from the same point."""
+    optimizers continue from the same point. Moments keep their dtype
+    (bf16 ones bit for bit)."""
 
     def tree(x):
         if isinstance(x, dict):
             return {k: tree(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return [tree(v) for v in x]
-        return _t(np.asarray(x))
+        return _leaf(x)
 
     return {
         "step": _t(np.asarray(state["step"], dtype=np.int32)),

@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
 Each kernel is one `.cu` file under its package's `csrc/`, with a plain C
-interface (no PyTorch headers, so `nvcc` takes seconds). It is compiled
-for Hopper (`sm_90a`) at first use into ``BUILD_DIR``, one shared library
-per source, named by the hash of the source: an edited source builds
-anew, an unchanged one is loaded from the cache. `build` starts one `nvcc`
+interface (no PyTorch headers, so `nvcc` takes seconds); sources of one
+package may share `.cuh` headers beside them. It is compiled for Hopper
+(`sm_90a`) at first use into ``BUILD_DIR``, one shared library per
+source, named by the hash of the source and of the headers in its
+directory: an edited source or header builds anew, an unchanged one is
+loaded from the cache. `build` starts one `nvcc`
 per source, all at once, and waits for them all.
 
 Nothing here runs when a module is imported: the CPU tests import every
@@ -45,8 +47,10 @@ def _nvcc() -> str:
 
 
 def _target(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{digest}.so"
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(sources: list[Path]) -> dict[Path, Path]:

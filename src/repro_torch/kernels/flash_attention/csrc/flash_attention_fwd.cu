@@ -55,92 +55,15 @@
 //     BK = 32 keys per tile for D >= 128 (142 KB at D 256) and 64 below;
 //     above 48 KB it is opted in, once per kernel.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -2.0e38f;  // the reference kernel's own NEG_INF
-constexpr int kBQ = 64;              // query rows per block
-constexpr int kThreads = 256;        // 16 x 16
-
 template <int D>
-struct Tiles {
-  static constexpr int BK = D >= 128 ? 32 : 64;  // keys per tile
-  static constexpr int SD = D + 4;               // row stride of Q, K, V (floats)
-  static constexpr int SP = BK + 4;              // row stride of P
-  static constexpr int KC = BK / 16;             // score columns per thread
-  static constexpr int OC = D / 16;              // output columns per thread
-  static constexpr int VEC = OC >= 4 ? 4 : OC;   // output columns per shared read
-  static constexpr size_t kSmem = (size_t)(kBQ * SD + 2 * BK * SD + kBQ * SP) * sizeof(float);
-};
-
-// 16-byte words of the input type, upcast to fp32
-__device__ __forceinline__ void unpack(const uint4& w, float* f, float) {
-  f[0] = __uint_as_float(w.x);
-  f[1] = __uint_as_float(w.y);
-  f[2] = __uint_as_float(w.z);
-  f[3] = __uint_as_float(w.w);
-}
-
-__device__ __forceinline__ void unpack(const uint4& w, float* f, __nv_bfloat16) {
-  const unsigned x[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(x[i] << 16);          // the lower address
-    f[2 * i + 1] = __uint_as_float(x[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ float to_out(float x, float) { return x; }
-__device__ __forceinline__ __nv_bfloat16 to_out(float x, __nv_bfloat16) {
-  return __float2bfloat16_rn(x);
-}
-
-// One R-row tile of D columns held in registers as 16-byte words: loaded
-// from device memory (row r at base + r * stride elements; rows >= valid
-// read as zeros), then stored to shared memory as fp32 rows of stride SD.
-template <typename T, int D, int R>
-struct TileRegs {
-  static constexpr int EPW = 16 / (int)sizeof(T);  // elements per word
-  static constexpr int WPR = D / EPW;              // words per row
-  static constexpr int NW = R * WPR;
-  static constexpr int PER = (NW + kThreads - 1) / kThreads;
-  uint4 w[PER];
-
-  __device__ __forceinline__ void load(const T* base, long stride, int valid) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      if (e < NW) {
-        const int r = e / WPR;
-        const int c = e - r * WPR;
-        w[i] = r < valid ? *reinterpret_cast<const uint4*>(base + r * stride + c * EPW)
-                         : make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* s, float mul) const {
-    constexpr int SD = Tiles<D>::SD;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      if (e < NW) {
-        const int r = e / WPR;
-        const int c = e - r * WPR;
-        float f[EPW];
-        unpack(w[i], f, T());
-        float* dst = s + r * SD + c * EPW;
-#pragma unroll
-        for (int q = 0; q < EPW; q += 4) {
-          *reinterpret_cast<float4*>(dst + q) =
-              make_float4(f[q] * mul, f[q + 1] * mul, f[q + 2] * mul, f[q + 3] * mul);
-        }
-      }
-    }
-  }
+struct Tiles : TileShape<D> {
+  using S = TileShape<D>;
+  static constexpr size_t kSmem =
+      (size_t)(kBQ * S::SD + 2 * S::BK * S::SD + kBQ * S::SP) * sizeof(float);
 };
 
 __device__ __forceinline__ float row_max16(float x) {
@@ -333,19 +256,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
                    int B, int H, int KV, int Sq, int Skv, int seq_kv, int causal,
                    int window, float cap, float scale, int q_offset, cudaStream_t st) {
   const size_t smem = Tiles<D>::kSmem;
-  // raise the kernel's dynamic shared-memory limit once per device (the
-  // call costs host time), after which the flag is set
   static bool opted[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = opt_in(flash_fwd_kernel<T, D>, smem, opted);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (!opted[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    opted[dev] = true;
-  }
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -364,11 +277,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
     return launch<T, DD>(q, k, v, o, lse, B, H, KV, Sq, Skv, seq_kv, causal, window, cap, \
                          scale, q_offset, st);
   switch (D) {
-    FLASH_CASE(16)
-    FLASH_CASE(32)
-    FLASH_CASE(64)
-    FLASH_CASE(128)
-    FLASH_CASE(256)
+    FLASH_HEAD_DIMS(FLASH_CASE)
     default:
       return cudaErrorInvalidValue;
   }
@@ -399,14 +308,15 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void*
 // Dynamic shared memory of the kernel for head width D, in bytes (0 for a
 // width without a kernel).
 size_t flash_fwd_smem_bytes(int D) {
+#define FLASH_SMEM(DD) \
+  case DD:               \
+    return Tiles<DD>::kSmem;
   switch (D) {
-    case 16: return Tiles<16>::kSmem;
-    case 32: return Tiles<32>::kSmem;
-    case 64: return Tiles<64>::kSmem;
-    case 128: return Tiles<128>::kSmem;
-    case 256: return Tiles<256>::kSmem;
-    default: return 0;
+    FLASH_HEAD_DIMS(FLASH_SMEM)
+    default:
+      return 0;
   }
+#undef FLASH_SMEM
 }
 
 const char* flash_fwd_error_string(int err) {

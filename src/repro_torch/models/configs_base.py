@@ -9,10 +9,11 @@ from typing import Literal
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The reference's `LMConfig`, every field kept. The port reads the
-    model fields, `use_flash_kernel` and `decode_gqa_einsum`; the sharding
-    and scan knobs (`flash_axes`, `pair_scan`, `remat`, `scan_layers`)
-    and the training ones have no effect in a port whose layers run in a
-    Python loop with a static window each."""
+    model fields, `use_flash_kernel`, `decode_gqa_einsum`, `remat` (a
+    checkpoint per layer in training) and `microbatch`; the sharding and
+    scan knobs (`flash_axes`, `pair_scan`, `scan_layers`) and
+    `moments_dtype` have no effect in a port whose layers run in a Python
+    loop with a static window each."""
 
     name: str
     num_layers: int

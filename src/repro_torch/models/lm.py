@@ -1,5 +1,6 @@
-"""The transformer LM family, serving half: parameters, the KV cache,
-prefill and one decode step (the reference's `repro/models/lm.py`).
+"""The transformer LM family (the reference's `repro/models/lm.py`):
+parameters, the KV cache, prefill and one decode step for serving;
+`forward`, `loss_fn` and `make_train_step` for training.
 
 Parameters keep the reference's layout: a dict with `embed` [V, d],
 `final_norm` [d], optional `unembed` [V, d], and `layers`, whose leaves
@@ -20,8 +21,15 @@ keys and values into the tensors of the cache they are given and return
 it with its length advanced (the reference returns an updated copy).
 `length` is a Python int: positions are known on the host.
 
-Not ported yet: the MoE layers (`moe_ffn`), `forward`, `loss_fn` and
-`make_train_step` (the LM training slice).
+Training: `forward` runs the same layer loop with autograd on;
+``cfg.remat`` checkpoints each layer (`torch.utils.checkpoint`,
+non-reentrant), recomputing its forward in the backward with no effect
+on the numbers. `make_train_step` takes gradients with
+`torch.autograd.grad` over the parameter leaves and, with several
+microbatches, splits the batch the reference's strided way and adds the
+microbatches' gradients in place, in the parameters' dtype.
+
+Not ported yet: the MoE layers (`moe_ffn`).
 """
 from __future__ import annotations
 
@@ -29,12 +37,17 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.configs_base import LMConfig
 from repro_torch.models.layers import gated_mlp, rms_norm, rope, softcap
+from repro_torch.optim.optimizers import tree_leaves, tree_map
 
-__all__ = ["KVCache", "decode_step", "init_cache", "init_params", "prefill"]
+__all__ = [
+    "KVCache", "decode_step", "forward", "init_cache", "init_params", "loss_and_grads",
+    "loss_fn", "make_train_step", "prefill",
+]
 
 
 class KVCache(NamedTuple):
@@ -135,15 +148,38 @@ def _embed(cfg: LMConfig, params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _head(cfg: LMConfig, params, x: torch.Tensor, return_hidden: bool) -> torch.Tensor:
-    """x [B, d] after the final norm -> hidden, or soft-capped logits."""
+    """x [..., d] after the final norm -> hidden, or soft-capped logits."""
     if return_hidden:
         return x
     unembed = params.get("unembed", params["embed"])
     return softcap(x @ unembed.T, cfg.final_logit_softcap)
 
 
-def _layer(params, i: int) -> dict:
-    return {name: w[i] for name, w in params["layers"].items()}
+def _layers(params) -> list[dict]:
+    """Per-layer views of the stacked [n_layers, ...] leaves. `unbind`
+    makes them in one op, whose backward stacks the layers' gradients once
+    (a view per `w[i]` would add a zero-filled full-size gradient per
+    layer)."""
+    per_name = {name: w.unbind(0) for name, w in params["layers"].items()}
+    n = len(next(iter(per_name.values())))
+    return [{name: ws[i] for name, ws in per_name.items()} for i in range(n)]
+
+
+def _block(cfg: LMConfig, x: torch.Tensor, layer: dict, positions: torch.Tensor,
+           window: int | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One transformer block over x [B, S, d]: (x out, this layer's k, v
+    [B, S, KV, Dh])."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.dh
+    y = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+    q = rope((y @ layer["wq"]).reshape(b, s, h, dh), positions, cfg.rope_theta)
+    k_ = rope((y @ layer["wk"]).reshape(b, s, kv, dh), positions, cfg.rope_theta)
+    v_ = (y @ layer["wv"]).reshape(b, s, kv, dh)
+    att = _self_attention(cfg, q, k_, v_, window=window)
+    x = x + att.reshape(b, s, h * dh) @ layer["wo"]
+    y = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
+    x = x + gated_mlp(y, layer["w_gate"], layer["w_up"], layer["w_down"], cfg.gated_act)
+    return x, k_, v_
 
 
 @torch.inference_mode()
@@ -156,19 +192,10 @@ def prefill(cfg: LMConfig, params, tokens: torch.Tensor, cache: KVCache,
     rows; the soft-cap is monotonic, so the argmax is the same)."""
     _check_dense(cfg)
     b, s = tokens.shape
-    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.dh
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    for i in range(cfg.num_layers):
-        layer = _layer(params, i)
-        y = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-        q = rope((y @ layer["wq"]).reshape(b, s, h, dh), positions, cfg.rope_theta)
-        k_ = rope((y @ layer["wk"]).reshape(b, s, kv, dh), positions, cfg.rope_theta)
-        v_ = (y @ layer["wv"]).reshape(b, s, kv, dh)
-        att = _self_attention(cfg, q, k_, v_, window=layer_window(cfg, i))
-        x = x + att.reshape(b, s, h * dh) @ layer["wo"]
-        y = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
-        x = x + gated_mlp(y, layer["w_gate"], layer["w_up"], layer["w_down"], cfg.gated_act)
+    for i, layer in enumerate(_layers(params)):
+        x, k_, v_ = _block(cfg, x, layer, positions, layer_window(cfg, i))
         cache.k[i, :, :s] = k_.to(cache.k.dtype)
         cache.v[i, :, :s] = v_.to(cache.v.dtype)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -187,8 +214,7 @@ def decode_step(cfg: LMConfig, params, token: torch.Tensor, cache: KVCache,
     pos_i = cache.length
     x = _embed(cfg, params, token[:, None])  # [B, 1, d]
     pos = torch.full((b, 1), pos_i, device=x.device)
-    for i in range(cfg.num_layers):
-        layer = _layer(params, i)
+    for i, layer in enumerate(_layers(params)):
         y = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
         q = rope((y @ layer["wq"]).reshape(b, 1, h, dh), pos, cfg.rope_theta)
         k_new = rope((y @ layer["wk"]).reshape(b, 1, kv, dh), pos, cfg.rope_theta)
@@ -204,3 +230,88 @@ def decode_step(cfg: LMConfig, params, token: torch.Tensor, cache: KVCache,
         x = x + gated_mlp(y, layer["w_gate"], layer["w_up"], layer["w_down"], cfg.gated_act)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _head(cfg, params, x[:, 0], return_hidden), cache._replace(length=pos_i + 1)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def forward(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (soft-capped logits [B, S, V], the MoE aux loss: a
+    0-dim fp32 zero, the port's models being dense)."""
+    _check_dense(cfg)
+    b, s = tokens.shape
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    for i, layer in enumerate(_layers(params)):
+        def fn(x_, layer=layer, window=layer_window(cfg, i)):
+            return _block(cfg, x_, layer, positions, window)[0]
+
+        if cfg.remat and torch.is_grad_enabled():
+            # the layer draws no random numbers: no RNG state to keep
+            x = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = fn(x)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _head(cfg, params, x, False), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: LMConfig, params, tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy over B x S, on the logits in fp32,
+    plus 0.01 times the aux loss."""
+    logits, aux = forward(cfg, params, tokens)
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)  # [B, S]
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold) + 0.01 * aux
+
+
+def loss_and_grads(cfg: LMConfig, params, tokens: torch.Tensor,
+                   labels: torch.Tensor) -> tuple[torch.Tensor, Any]:
+    """(loss, gradients shaped and typed like ``params``), by
+    `torch.autograd.grad` over the parameter leaves (detached views, so
+    the caller's tensors are not touched)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(leaves)
+    tree = tree_map(lambda _: next(it), params)
+    with torch.enable_grad():
+        loss = loss_fn(cfg, tree, tokens, labels)
+        grads = iter(torch.autograd.grad(loss, leaves))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+def make_train_step(cfg: LMConfig, optimizer):
+    """(params, opt_state, tokens, labels) -> (params, opt_state, loss).
+    With ``cfg.microbatch`` giving n_micro > 1 microbatches, micro j takes
+    rows {j, n_micro + j, ...} (the reference's strided split); their
+    gradients are added in place in the parameters' dtype and divided by
+    n_micro, their losses summed in fp32 and divided likewise."""
+
+    def train_step(params, opt_state, tokens, labels):
+        b = tokens.shape[0]
+        mb = cfg.microbatch or b
+        n_micro = max(1, b // mb)
+        if n_micro == 1:
+            loss, grads = loss_and_grads(cfg, params, tokens, labels)
+        else:
+            if b != mb * n_micro:
+                raise ValueError(f"batch {b} is not a multiple of microbatch {mb}")
+            loss, grads = loss_and_grads(cfg, params, tokens[0::n_micro], labels[0::n_micro])
+            for j in range(1, n_micro):
+                l_j, g_j = loss_and_grads(cfg, params, tokens[j::n_micro], labels[j::n_micro])
+                for acc, g in zip(tree_leaves(grads), tree_leaves(g_j)):
+                    acc.add_(g)
+                loss = loss + l_j
+                del g_j
+            for acc in tree_leaves(grads):
+                acc.div_(n_micro)
+            loss = loss / n_micro
+        # hand the update the only reference to the gradients, so that it
+        # frees each leaf once that leaf's moments are formed
+        box = [grads]
+        del grads
+        params, opt_state = optimizer.update(box.pop(), opt_state, params)
+        return params, opt_state, loss
+
+    return train_step
+

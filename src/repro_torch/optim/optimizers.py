@@ -7,6 +7,18 @@ vhat) + eps) with mhat, vhat the bias-correction scales;
 
 Updates are pure (new tensors, no in-place change), so a caller may keep
 the old parameters; nothing here reads a device value on the host.
+`adam` lets go of each gradient leaf once it has formed that leaf's
+moments: a caller that hands over its only reference to the gradient
+tree (as `repro_torch.models.lm.make_train_step` does) gets each leaf's
+memory back during the update.
+
+Dtypes follow the reference's. Its lr and bias-correction scales (and
+the clip scale) are fp32 0-dim arrays, and JAX promotes a bf16 leaf
+multiplied by one to fp32; torch keeps ``bf16 * fp32-0-dim`` in bf16. So
+every leaf is brought to ``promote_types(dtype, float32)`` (`_f32`)
+before it meets such a scale: a bf16 parameter comes out of its first
+update in fp32, with its moments still bf16, and from then on the
+gradients, and so the moments, are fp32 too.
 """
 from __future__ import annotations
 
@@ -71,11 +83,17 @@ def cosine_schedule(lr: float, total_steps: int, warmup: int = 0, floor: float =
     return sched
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype JAX gives it against an fp32 array: bf16 (and
+    fp16) go to fp32, fp32 and fp64 stay."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def clip_by_global_norm(grads: Grads, max_norm: float) -> Grads:
     leaves = tree_leaves(grads)
     gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-    return tree_map(lambda g: g * scale, grads)
+    return tree_map(lambda g: _f32(g) * scale, grads)
 
 
 def _step0(params) -> torch.Tensor:
@@ -96,9 +114,9 @@ def sgd(lr: float | Callable = 1e-2, momentum: float = 0.0) -> Optimizer:
         lr_t = sched(step)
         if momentum:
             mu = tree_map(lambda m, g: momentum * m + g, state["mu"], grads)
-            new_p = tree_map(lambda p, m: p - lr_t * m, params, mu)
+            new_p = tree_map(lambda p, m: p - lr_t * _f32(m), params, mu)
             return new_p, {"step": step, "mu": mu}
-        new_p = tree_map(lambda p, g: p - lr_t * g, params, grads)
+        new_p = tree_map(lambda p, g: p - lr_t * _f32(g), params, grads)
         return new_p, {"step": step, "mu": None}
 
     return Optimizer(init=init, update=update)
@@ -129,20 +147,40 @@ def adam(
     def update(grads, state, params):
         step = state["step"] + 1
         lr_t = sched(step)
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], grads)
         t = step.to(torch.float32)
         mhat_scale = 1.0 / (1.0 - torch.pow(torch.full((), b1, device=t.device), t))
         vhat_scale = 1.0 / (1.0 - torch.pow(torch.full((), b2, device=t.device), t))
 
-        def upd(p, m_, v_):
-            u = (m_ * mhat_scale) / (torch.sqrt(v_ * vhat_scale) + eps)
+        # [p, g, m, v] per leaf, matched by key; from here ``rows`` holds
+        # this frame's only references to the gradients
+        rows = []
+        tree_map(lambda *x: rows.append(list(x)), params, grads, state["m"], state["v"])
+        del grads
+        new_p, new_m, new_v = [], [], []
+        # one leaf at a time (p, m, v together), so the temporaries are one leaf's
+        for row in rows:
+            p, g, m_, v_ = row
+            row[1] = None
+            m = b1 * m_ + (1 - b1) * g
+            v = b2 * v_ + (1 - b2) * g * g
+            del g
+            # u = (m mhat) / (sqrt(v vhat) + eps); the in-place steps act on
+            # this leaf's own temporaries (the same values, fewer live copies)
+            denom = torch.sqrt(_f32(v) * vhat_scale).add_(eps)
+            u = (_f32(m) * mhat_scale).div_(denom)
+            del denom
             if weight_decay:
                 u = u + weight_decay * p
-            return p - lr_t * u
+            new_p.append(p - u.mul_(lr_t))
+            new_m.append(m)
+            new_v.append(v)
+            del u
 
-        new_p = tree_map(upd, params, m, v)
-        return new_p, {"step": step, "m": m, "v": v}
+        def unflatten(leaves):
+            it = iter(leaves)
+            return tree_map(lambda _: next(it), params)
+
+        return unflatten(new_p), {"step": step, "m": unflatten(new_m), "v": unflatten(new_v)}
 
     return Optimizer(init=init, update=update)
 

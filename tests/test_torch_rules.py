@@ -162,7 +162,8 @@ def test_kernel_build_failure_raises(monkeypatch, tmp_path):
 
 
 def test_build_is_cached_by_source_hash(monkeypatch, tmp_path):
-    """A library built for a source is reused; an edited source builds anew."""
+    """A library built for a source is reused; an edited source, or a
+    header beside it, builds anew."""
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     src = tmp_path / "k.cu"
     src.write_text("// v1\n")
@@ -171,7 +172,10 @@ def test_build_is_cached_by_source_hash(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("rebuilt a cached source"))
     assert _build.build([src]) == {src: first}
     src.write_text("// v2\n")
-    assert _build._target(src) != first
+    second = _build._target(src)
+    assert second != first
+    (tmp_path / "common.cuh").write_text("// a header beside the source\n")
+    assert _build._target(src) not in (first, second)
 
 
 def test_kernel_wrapper_splits_lists_to_fill_the_card():
@@ -200,6 +204,22 @@ def test_flash_attention_never_takes_the_plain_version_on_cuda(monkeypatch):
     assert flash_ops._ref.flash_attention_ref.calls == calls
 
 
+def test_flash_backward_never_takes_the_plain_version_on_cuda(monkeypatch):
+    """K10's wrapper: the autograd backward of a tensor taken for CUDA
+    reaches the backward kernel's wrapper, which raises here; the plain
+    backward is not called."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    q = torch.zeros((1, 8, 2, 16), requires_grad=True)
+    k = torch.zeros((1, 8, 1, 16), requires_grad=True)
+    out = flash_ops.flash_attention(q, k, k)  # the forward on the CPU
+    monkeypatch.setattr(flash_ops, "_on_cuda", lambda t: True)
+    calls = flash_ops._ref.flash_attention_bwd_ref.calls
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        out.sum().backward()
+    assert flash_ops._ref.flash_attention_bwd_ref.calls == calls
+
+
 def test_lm_entry_points_refuse_cuda_without_cuda(monkeypatch):
     from repro_torch.models import lm
     from repro_torch.serve import LMGenerateRoute
@@ -211,6 +231,8 @@ def test_lm_entry_points_refuse_cuda_without_cuda(monkeypatch):
         LMGenerateRoute(cfg, params, prompt_len=4, gen_len=2, max_batch=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_cli.main(["--arch", "gemma2-2b", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--arch", "gemma2-2b", "--steps", "1"])
 
 
 @pytest.mark.parametrize(

@@ -13,6 +13,17 @@ split, folded by `key_to_seed`). Tolerances: loss and diagnostics rtol
 normalises each gradient entry, so an fp32 difference in the gradient
 moves the update by far less than the 3e-3 step itself). Data and
 loader are bit for bit.
+
+The optimizers run on fp32 and on bf16 trees. Each leaf's dtype after
+every step equals the reference's (JAX promotes a bf16 leaf met by an
+fp32 0-dim scale to fp32). fp32 values: parameters rtol 1e-6 / atol
+1e-7, moments rtol 1e-6 with no absolute term (both sides form them in
+the same order). bf16 values: the reference rounds its
+Python-float constants (b1, momentum) to bf16 first, torch keeps them in
+fp32, so a bf16 moment may land one or two bf16 ulps apart: moments rtol
+2^-6 / atol 2^-6 times the leaf's max |value|; parameters within 2^-5 lr
+per step times the size of the update direction (1 for Adam, max |mu|
+for momentum SGD), which one such ulp moves.
 """
 import dataclasses
 
@@ -20,8 +31,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import re  # noqa: E402
+import weakref  # noqa: E402
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import ml_dtypes  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro import optim as joptim  # noqa: E402
@@ -76,46 +91,139 @@ def _reference_seeds(seed: int, n: int) -> list[int]:
 
 # -- optimizers -----------------------------------------------------------------
 
+DTYPES = {"fp32": np.float32, "bf16": ml_dtypes.bfloat16}
+
+
+def _dtype_names(tree) -> list[str]:
+    return [str(x.dtype).replace("torch.", "") for x in optim.optimizers.tree_leaves(tree)]
+
+
+def _close_leaves(tp, jp, dtype: str, lr: float, steps: int, direction: float = 1.0,
+                  moment: bool = False):
+    """The file's optimizer tolerances (see the module docstring)."""
+    for t, j in zip(optim.optimizers.tree_leaves(tp), jax.tree.leaves(jp)):
+        got, want = t.float().numpy(), np.asarray(j, np.float32)
+        if dtype == "fp32":
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=0.0 if moment else 1e-7)
+        elif moment:
+            np.testing.assert_allclose(got, want, rtol=2.0**-6,
+                                       atol=2.0**-6 * float(np.abs(want).max()))
+        else:
+            assert np.abs(got - want).max() <= 2.0**-5 * lr * steps * direction
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("clip", [0.0, 0.05])
-def test_adam_matches_reference_step_for_step(clip):
+def test_adam_matches_reference_step_for_step(clip, dtype):
     rng = np.random.default_rng(0)
-    params = {"w": rng.standard_normal((6, 5)).astype(np.float32),
-              "layers": [{"b": rng.standard_normal(5).astype(np.float32)}]}
+    # keys in sorted order: the port's tree_leaves keeps insertion order,
+    # jax.tree.leaves sorts
+    params = {"layers": [{"b": rng.standard_normal(5).astype(DTYPES[dtype])}],
+              "w": rng.standard_normal((6, 5)).astype(DTYPES[dtype])}
     jopt, topt = joptim.adam(3e-3), optim.adam(3e-3)
     jp = jax.tree.map(jnp.asarray, params)
-    tp = optim.optimizers.tree_map(torch.from_numpy, params)
+    tp = optim.optimizers.tree_map(convert._leaf, params)
     js, ts = jopt.init(jp), topt.init(tp)
     for step in range(5):
-        g = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(np.float32), params)
+        # gradients in the parameters' current dtype, as autograd gives them
+        g = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(a.dtype), jp)
         jg = jax.tree.map(jnp.asarray, g)
-        tg = optim.optimizers.tree_map(torch.from_numpy, g)
+        tg = optim.optimizers.tree_map(lambda a: convert._leaf(np.asarray(a)), g)
         if clip:
             jg, tg = joptim.clip_by_global_norm(jg, clip), optim.clip_by_global_norm(tg, clip)
+            assert _dtype_names(tg) == [str(a.dtype) for a in jax.tree.leaves(jg)]
         jp, js = jopt.update(jg, js, jp)
         tp, ts = topt.update(tg, ts, tp)
-        np.testing.assert_allclose(tp["w"].numpy(), np.asarray(jp["w"]), rtol=1e-6, atol=1e-7)
-        np.testing.assert_allclose(tp["layers"][0]["b"].numpy(), np.asarray(jp["layers"][0]["b"]),
-                                   rtol=1e-6, atol=1e-7)
-        np.testing.assert_allclose(ts["v"]["w"].numpy(), np.asarray(js["v"]["w"]), rtol=1e-6)
+        for tree_t, tree_j in ((tp, jp), (ts["m"], js["m"]), (ts["v"], js["v"])):
+            assert _dtype_names(tree_t) == [str(a.dtype) for a in jax.tree.leaves(tree_j)]
+        _close_leaves(tp, jp, dtype, 3e-3, step + 1)
+        _close_leaves(ts["v"], js["v"], dtype, 3e-3, step + 1, moment=True)
+        _close_leaves(ts["m"], js["m"], dtype, 3e-3, step + 1, moment=True)
     assert int(ts["step"]) == int(js["step"]) == 5
+    # a bf16 tree: parameters fp32 from the first update on
+    assert _dtype_names(tp) == ["float32", "float32"]
 
 
-def test_sgd_adamw_and_schedules_match_reference():
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_sgd_adamw_and_schedules_match_reference(dtype):
     rng = np.random.default_rng(1)
-    w = rng.standard_normal((4, 3)).astype(np.float32)
+    w = rng.standard_normal((4, 3)).astype(DTYPES[dtype])
     sched = (optim.cosine_schedule(0.1, 10, warmup=2), joptim.cosine_schedule(0.1, 10, warmup=2))
-    for topt, jopt in [
-        (optim.sgd(0.1, momentum=0.9), joptim.sgd(0.1, momentum=0.9)),
-        (optim.sgd(sched[0]), joptim.sgd(sched[1])),
-        (optim.adamw(1e-2, weight_decay=0.1), joptim.adamw(1e-2, weight_decay=0.1)),
+    for topt, jopt, lr, momentum in [
+        (optim.sgd(0.1, momentum=0.9), joptim.sgd(0.1, momentum=0.9), 0.1, True),
+        (optim.sgd(sched[0]), joptim.sgd(sched[1]), 0.1, False),
+        (optim.adamw(1e-2, weight_decay=0.1), joptim.adamw(1e-2, weight_decay=0.1), 1e-2, False),
     ]:
-        tp, jp = {"w": torch.from_numpy(w)}, {"w": jnp.asarray(w)}
+        tp, jp = {"w": convert._leaf(w)}, {"w": jnp.asarray(w)}
         ts, js = topt.init(tp), jopt.init(jp)
-        for _ in range(4):
-            g = rng.standard_normal(w.shape).astype(np.float32)
-            tp, ts = topt.update({"w": torch.from_numpy(g)}, ts, tp)
+        for step in range(4):
+            g = rng.standard_normal(w.shape).astype(jp["w"].dtype)
+            tp, ts = topt.update({"w": convert._leaf(g)}, ts, tp)
             jp, js = jopt.update({"w": jnp.asarray(g)}, js, jp)
-        np.testing.assert_allclose(tp["w"].numpy(), np.asarray(jp["w"]), rtol=1e-6, atol=1e-7)
+            assert _dtype_names(tp) == [str(jp["w"].dtype)]
+            direction = float(np.abs(np.asarray(js["mu"]["w"], np.float32)).max()) if momentum \
+                else 1.0
+            _close_leaves(tp, jp, dtype, lr, step + 1, direction=direction)
+            if momentum:
+                assert _dtype_names(ts["mu"]) == [str(js["mu"]["w"].dtype)]
+                _close_leaves(ts["mu"], js["mu"], dtype, lr, step + 1, moment=True)
+
+
+def test_adam_frees_each_gradient_leaf_once_its_moments_are_formed(monkeypatch):
+    """Handed the only reference to the gradients (as the LM train step
+    hands them), the update drops each leaf before it works on the next:
+    the peak of a full-width step holds no whole gradient tree beside the
+    new parameters and moments. Values as a caller that keeps them gets."""
+    rng = np.random.default_rng(3)
+    params = {"b": torch.randn(3), "a": {"x": torch.randn(2, 2), "y": torch.randn(4)}}
+
+    def grads():
+        return optim.optimizers.tree_map(
+            lambda p: torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32)), params)
+
+    opt = optim.adam(1e-3)
+    kept = grads()
+    want_p, want_s = opt.update(kept, opt.init(params), params)
+    g = optim.optimizers.tree_map(torch.clone, kept)
+    refs = [weakref.ref(x) for x in optim.optimizers.tree_leaves(g)]
+    freed = []
+    f32 = optim.optimizers._f32
+
+    def spy(x):
+        if len(freed) < 2 * len(refs):
+            freed.append(sum(r() is None for r in refs))
+        return f32(x)
+
+    monkeypatch.setattr(optim.optimizers, "_f32", spy)
+    box = [g]
+    del g
+    got_p, got_s = opt.update(box.pop(), opt.init(params), params)
+    assert freed[0::2] == [1, 2, 3]  # leaf i gone when its moments meet _f32
+    for a, b in zip(optim.optimizers.tree_leaves((got_p, got_s)),
+                    optim.optimizers.tree_leaves((want_p, want_s))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_adam_state_from_numpy_carries_moments_bit_for_bit(dtype):
+    """An LM-shaped Adam state (nested dicts) after one reference update:
+    bf16 moments come across as torch.bfloat16, fp32 as float32."""
+    rng = np.random.default_rng(2)
+    tree = {"embed": rng.standard_normal((8, 4)).astype(DTYPES[dtype]),
+            "layers": {"wq": rng.standard_normal((2, 4, 4)).astype(DTYPES[dtype])}}
+    jopt = joptim.adam(1e-3)
+    jp = jax.tree.map(jnp.asarray, tree)
+    js = jopt.init(jp)
+    _, js = jopt.update(jax.tree.map(lambda a: jnp.ones_like(a) * 0.3, jp), js, jp)
+    ts = convert.adam_state_from_numpy(jax.tree.map(np.asarray, js))
+    assert int(ts["step"]) == 1 and ts["step"].dtype == torch.int32
+    for mom in ("m", "v"):
+        want = jax.tree.leaves(js[mom])
+        got = optim.optimizers.tree_leaves(ts[mom])
+        assert _dtype_names(ts[mom]) == [str(a.dtype) for a in want]
+        assert _dtype_names(ts[mom]) == ["bfloat16" if dtype == "bf16" else "float32"] * 2
+        for t, j in zip(got, want):
+            np.testing.assert_array_equal(t.float().numpy(), np.asarray(j, np.float32))
 
 
 # -- data -------------------------------------------------------------------------
@@ -277,6 +385,19 @@ def test_cli_trains_on_the_cpu(capsys):
     train_cli.main(["--arch", "fopo-paper", "--steps", "2", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "R_test before" in out and "step 2: loss=" in out and "R_test after" in out
+
+
+def test_cli_trains_the_lm_on_the_cpu(capsys):
+    """``--arch gemma2-2b`` runs the reference's `_train_lm` recipe and
+    prints its step lines."""
+    train_cli.main(["--arch", "gemma2-2b", "--steps", "2", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    assert len(steps) == 2
+    for i, ln in enumerate(steps):
+        m = re.fullmatch(rf"step {i}: loss=(\d+\.\d{{4}}) \(\d+ ms\)", ln)
+        assert m, ln
+        assert 5.0 < float(m.group(1)) < 8.0  # ~log(512) for random weights
 
 
 def test_cli_refuses_cuda_without_cuda_and_other_arches(monkeypatch):
