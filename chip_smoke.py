@@ -47,7 +47,29 @@ more each:
                   per context drawn from its exact top-64 under the
                   initial tower (`generate_sessions` cannot make a
                   750,000-item catalog in a smoke run)
-  6. flash        the flash-attention kernel (K9) against its plain
+  6. embedding    the embedding-bag kernel (K8) against its plain version,
+                  bit for bit: small shapes (D 1, 18, 32, 128, 130; T 1, 7,
+                  100; fp32 and bf16; sum and mean; all-padding bags, ids
+                  >= V, a table whose rows do not start on a 16-byte word),
+                  then the DLRM shape (one table at the MLPerf DLRM-DCNv2
+                  row cap, 40,000,000 x 128, in fp32 (20.48 GB), then bf16;
+                  B 4096 bags of T 100, ragged (lengths 1-100) and full;
+                  random ids and table from a seed), where the main path,
+                  `ops.embedding_bag` sum and mean, runs with the counts set
+                  to 0 just before and read just after; times of the
+                  kernel, its plain version and F.embedding_bag, and the
+                  byte bound. The tables are freed before the LM phases
+  7. recsys       DIN, DIEN and Wide&Deep serving at their full CONFIG widths
+                  (random weights from a seed): a `ServingEngine` with
+                  max_batch 8 answers 32 requests with K 10; DIEN through
+                  `RecsysMIPSRoute` (its GRU tower, then `ivf_topk` at L
+                  18, launches counted), DIN and Wide&Deep through
+                  `DenseCandidateRoute` over 500 candidates; the answers
+                  held to the plain path on the CPU (ids as sets but for
+                  boundary ties, scores within rtol 1e-5 / atol 1e-6;
+                  DIEN's tower on the CPU, its retrieval on the card's user
+                  vectors); latency p50 / p99 and stage times
+  8. flash        the flash-attention kernel (K9) against its plain
                   version in fp32 and bf16, out and lse: small shapes
                   (ragged S, windows 8 / 64, cap 50, q_offset > 0, GQA
                   n_rep 1 and 2, every head width), the training path's
@@ -57,7 +79,7 @@ more each:
                   bounds (at the prefill and S 8192 shapes), and at
                   the prefill shape torch's flex_attention, compiled, as
                   the library yardstick (in bf16 and on the fp32 upcast)
-  7. flash bwd    the flash-attention backward kernel (K10) against its
+  9. flash bwd    the flash-attention backward kernel (K10) against its
                   plain version in fp32 and bf16, dq, dk and dv, with lse
                   and D from K9's plain version: small shapes (ragged S,
                   windows 8 / 64, cap 50, q_offset > 0, GQA n_rep 1 and 2,
@@ -67,7 +89,7 @@ more each:
                   times and bounds, and at the training shape torch's
                   flex_attention forward + backward, compiled, as the
                   library yardstick beside K9 + K10
-  8. lm           the Gemma-2 2B generation path at full width (26 layers,
+ 10. lm           the Gemma-2 2B generation path at full width (26 layers,
                   d_model 2304, vocab 256,000, bf16; random weights from a
                   seed; use_flash_kernel=True): `LMGenerateRoute` builds
                   its IVF index over the unembed rows, a `ServingEngine`
@@ -81,7 +103,7 @@ more each:
                   states in bf16, a teacher-forced decode step by step
                   (token disagreements only at near ties), and one prefill
                   batch in fp32 within rtol 1e-4
-  9. lm-train     Gemma-2 2B training at full width (26 layers, d_model
+ 11. lm-train     Gemma-2 2B training at full width (26 layers, d_model
                   2304, vocab 256,000; bf16 parameters from a seed, remat
                   on, use_flash_kernel=True): `lm.make_train_step` with
                   Adam(1e-3) takes 6 steps of a global batch of 4 x 2048
@@ -97,7 +119,7 @@ more each:
                   same parameters and tokens, in bf16 (loss within 1e-2
                   relative, every gradient leaf within 5e-2 relative L2)
                   and in fp32 (1e-5, 1e-4)
- 10. a JSON line of the kernels, then the card's name and power limit,
+ 12. a JSON line of the kernels, then the card's name and power limit,
      then the last line {"ok": true, "device": {...}}
 
 Any failed check raises, and the script exits non-zero without the last
@@ -121,7 +143,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 RTOL, ATOL = 1e-5, 1e-6  # the CPU parity tests' score tolerances
-N_PROBE, K_SERVE, MAX_BATCH, REQUESTS = 8, 10, 8, 64
+N_PROBE, K_SERVE, MAX_BATCH, REQUESTS, RECSYS_REQUESTS = 8, 10, 8, 64, 32
 TRAIN_STEPS, REPLAY_STEPS, PROFILED_STEPS, TS = 20, 3, 3, 8
 LM_PROMPT, LM_GEN, LM_BATCH, LM_REQUESTS, LM_TOP_K = 2048, 16, 8, 16, 4
 BF16_RTOL = 2.0**-7  # one bf16 ulp at the bottom of a binade
@@ -374,14 +396,17 @@ def kernel_phase(index, state, users) -> dict:
 # the serving path
 # ---------------------------------------------------------------------------
 
-def stage_times(route, payloads, records) -> None:
+def stage_times(route, payloads, records, tag: str = "serve") -> None:
     """One more pass over the served batches, each stage ended by a
-    synchronize: where a batch's service time goes (host and device)."""
+    synchronize: where a batch's service time goes (host and device). A
+    MIPS route splits into tower and retrieval, a dense-candidate route
+    has one scoring stage (the model over the pool, then its top-K)."""
     import numpy as np
     import torch
 
-    planner = route.planner
-    stages = {"prepare": [], "tower": [], "retrieval": [], "finalize": []}
+    planner = getattr(route, "planner", None)
+    model = ("tower", "retrieval") if planner is not None else ("score",)
+    stages = {name: [] for name in ("prepare", *model, "finalize")}
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -393,13 +418,16 @@ def stage_times(route, payloads, records) -> None:
     with torch.inference_mode():
         for i in range(0, len(payloads), MAX_BATCH):
             x = timed("prepare", lambda: route.prepare(payloads[i:i + MAX_BATCH]))
-            h = timed("tower", lambda: planner.policy.user_embedding(planner.params, x))
-            top = timed("retrieval", lambda: planner.plan.retrieve(
-                h, planner.beta, planner.index_state))
+            if planner is not None:
+                h = timed("tower", lambda: planner.policy.user_embedding(planner.params, x))
+                top = timed("retrieval", lambda: planner.plan.retrieve(
+                    h, planner.beta, planner.index_state))
+            else:
+                top = timed("score", lambda: route.run(x))
             timed("finalize", lambda: route.finalize(top, MAX_BATCH))
     service = sorted({(r.launch, r.finish) for r in records})
     med = {k: float(np.median(v)) for k, v in stages.items()}
-    log(f"[serve] batch service (engine) median "
+    log(f"[{tag}] batch service (engine) median "
         f"{float(np.median([f - s for s, f in service])) * 1e3:.3f} ms; stages, "
         "median ms over the batches: "
         + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
@@ -790,6 +818,309 @@ def train_phase(ds, theta0) -> dict:
         f"{top_same}); the CPU's own draws: kappa-arm agreement {kappa_agree} (held >= "
         f"0.99), uniform arm exact")
     return dict(counts=counts, p50_ms=p50, p99_ms=p99, kappa_agreement=min(kappa_agree))
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag (K8): kernel vs plain version, and its path at a DLRM shape
+# ---------------------------------------------------------------------------
+
+def eb_bound(table, idx) -> tuple[float, str, float]:
+    """The least time for one sum over these bags: each distinct live row
+    read once (an id >= V reads row V - 1), the ids read, the output
+    written; one add per element of a live row. (ms, "bytes" or
+    "operations", bytes)."""
+    import torch
+
+    v, d = table.shape
+    es = table.element_size()
+    live = idx[idx >= 0].clamp(max=v - 1)
+    rows = torch.unique(live).numel()
+    nbytes = rows * d * es + idx.numel() * 4 + idx.shape[0] * d * es
+    return (*roof(nbytes, live.numel() * d), nbytes)
+
+
+def eb_mean_plain(table, idx):
+    """The mean as `ops.embedding_bag` takes it, on the plain version."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ref
+
+    counts = (idx >= 0).to(table.dtype).sum(dim=1, keepdim=True)
+    return ref.embedding_bag_ref(table, idx) / torch.clamp(counts, min=1e-9)
+
+
+def eb_same(got, want, tag: str) -> float:
+    """Bit for bit (the kernel adds in t order in the table's dtype, as its
+    plain version); returns the max |difference| (0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape, f"{tag}: dtype/shape")
+    check(bool(torch.isfinite(got.float()).all()), f"{tag}: non-finite output")
+    diff = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    check(torch.equal(got, want), f"{tag}: differs from the plain version, max {diff}")
+    return diff
+
+
+def dlrm_bags(b: int, t: int, v: int, gen, full: bool):
+    """[B, T] int32 bags over V rows, uniform ids: full (every slot live)
+    or ragged (lengths uniform in 1..T, the rest -1)."""
+    import torch
+
+    dev = gen.device
+    idx = torch.randint(0, v, (b, t), generator=gen, device=dev, dtype=torch.int32)
+    if full:
+        return idx
+    lens = torch.randint(1, t + 1, (b, 1), generator=gen, device=dev)
+    return torch.where(torch.arange(t, device=dev)[None, :] < lens, idx, -1)
+
+
+def eb_library_args(table, idx) -> tuple:
+    """(the live ids, flat in bag order, their bags' offsets, table): the
+    library call's inputs for the same bags."""
+    import torch
+
+    live = idx >= 0
+    counts = live.sum(dim=1)
+    return idx[live], torch.cumsum(counts, 0) - counts, table
+
+
+def eb_library(flat, offsets, table):
+    """`torch.nn.functional.embedding_bag` in sum mode over the live ids
+    with offsets: one PyTorch call computing the same sum (in its own
+    order; in bf16 it rounds once, the kernel after every add)."""
+    import torch.nn.functional as F
+
+    return F.embedding_bag(flat, table, offsets, mode="sum")
+
+
+def embedding_bag_phase() -> dict:
+    """K8 against its plain version: small shapes (D 1, 18, 32, 128, 130;
+    T 1, 7, 100; all-padding bags, ids >= V; a misaligned table), then the
+    DLRM shape (40,000,000 x 128, B 4096, T 100, ragged and full bags) in
+    fp32, then bf16; the main path (`ops.embedding_bag`, sum and mean)
+    driven there with the counts set to 0 just before and read just after;
+    times of the kernel, its plain version and F.embedding_bag, and the
+    bound. The tables are freed at the end."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import kernel, ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    torch.cuda.reset_peak_memory_stats()
+    max_err = 0.0
+    n_small = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (1, 18, 32, 128, 130):
+            table = (torch.randn((1000, d), generator=gen, device=dev) * 10).to(dtype)
+            for t in (1, 7, 100):
+                idx = torch.randint(-1, 1000, (37, t), generator=gen, device=dev,
+                                    dtype=torch.int32)
+                idx[torch.rand((37, t), generator=gen, device=dev) < 0.3] = -1
+                idx[0] = -1  # an all-padding bag: 0
+                idx[1:5, 0] = 1000 + torch.arange(4, device=dev, dtype=torch.int32)  # >= V
+                out = ops.embedding_bag(table, idx, "sum")
+                max_err = max(max_err, eb_same(out, ref.embedding_bag_ref(table, idx),
+                                               f"D={d} T={t} {dtype} sum"))
+                check(not bool(out[0].any()), f"D={d} T={t}: an all-padding bag is not 0")
+                eb_same(ops.embedding_bag(table, idx, "mean"), eb_mean_plain(table, idx),
+                        f"D={d} T={t} {dtype} mean")
+                n_small += 2
+        # a table whose rows do not start on a word: the scalar path at D 128
+        buf = torch.randn((1000 * 128 + 1,), generator=gen, device=dev).to(dtype)
+        table = buf[1:].view(1000, 128)
+        idx = torch.randint(-1, 1000, (37, 7), generator=gen, device=dev, dtype=torch.int32)
+        check(kernel.vec_width(table) == 1, "the misaligned table took the word path")
+        eb_same(ops.embedding_bag(table, idx), ref.embedding_bag_ref(table, idx),
+                f"misaligned {dtype}")
+        n_small += 1
+    log(f"  small shapes: {n_small} cases (D 1 / 18 / 32 / 128 / 130, T 1 / 7 / 100, "
+        "fp32 and bf16, sum and mean, all-padding bags, ids >= V, a misaligned table): "
+        "bit for bit")
+
+    # the DLRM shape: one table at the MLPerf DLRM-DCNv2 row cap, B 4096
+    v, d, b, t = 40_000_000, 128, 4096, 100
+    launches = plain_calls = 0
+    timing = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        t0 = time.perf_counter()
+        table = torch.randn((v, d), generator=gen, device=dev, dtype=dtype)
+        sets = {kind: [dlrm_bags(b, t, v, gen, full=kind == "full") for _ in range(3)]
+                for kind in ("ragged", "full")}
+        torch.cuda.synchronize()
+        log(f"  DLRM table {v} x {d} {name} ({table.numel() * table.element_size() / 1e9:.2f} "
+            f"GB) made in {time.perf_counter() - t0:.2f} s")
+        # the main path, counts set to 0 just before and read just after
+        kernel.embedding_bag_cuda.launches = 0
+        ref.embedding_bag_ref.calls = 0
+        outs = [ops.embedding_bag(table, sets["ragged"][0], "sum"),
+                ops.embedding_bag(table, sets["ragged"][0], "mean"),
+                ops.embedding_bag(table, sets["full"][0], "sum")]
+        torch.cuda.synchronize()
+        n, p = kernel.embedding_bag_cuda.launches, ref.embedding_bag_ref.calls
+        check(n == 3 and p == 0, f"DLRM {name}: {n} kernel launches, {p} plain calls "
+              "(expected 3 and 0)")
+        launches += n
+        plain_calls += p
+        max_err = max(max_err, eb_same(outs[0], ref.embedding_bag_ref(table, sets["ragged"][0]),
+                                       f"DLRM {name} ragged sum"))
+        eb_same(outs[1], eb_mean_plain(table, sets["ragged"][0]), f"DLRM {name} ragged mean")
+        eb_same(outs[2], ref.embedding_bag_ref(table, sets["full"][0]), f"DLRM {name} full sum")
+        for kind, out in (("ragged", outs[0]), ("full", outs[2])):
+            args = [(table, idx) for idx in sets[kind]]
+            lib_sets = [eb_library_args(table, idx) for idx in sets[kind]]
+            # the yardstick computes the same sums: fp32 to rounding; bf16
+            # within the rounding of up to 100 adds
+            scale = float(out.float().abs().max())
+            lib_err = float((eb_library(*lib_sets[0]).float() - out.float()).abs().max())
+            check(lib_err <= (1e-5 if dtype == torch.float32 else 2.0**-4) * scale,
+                  f"DLRM {name} {kind}: F.embedding_bag differs by {lib_err} (max |out| {scale})")
+            t_k = device_ms(kernel.embedding_bag_cuda, args)
+            t_p = device_ms(ref.embedding_bag_ref, args, calls=6, replays=4)
+            try:
+                t_l, how = device_ms(eb_library, lib_sets), "CUDA graph"
+            except RuntimeError as exc:  # a yardstick, not a check of the port
+                log(f"  F.embedding_bag could not be captured in a CUDA graph ({exc}); "
+                    "timed eagerly with CUDA events")
+                t_l, how = time_ms(eb_library, lib_sets, 50), "eager"
+            e_k = time_ms(kernel.embedding_bag_cuda, args, 50)
+            b_ms, b_by, nbytes = eb_bound(table, sets[kind][0])
+            live = int((sets[kind][0] >= 0).sum())
+            timing[f"{kind} {name}"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                                            library_ms=t_l)
+            log(f"  time DLRM {kind} {name} (B {b}, T {t}, {live} live ids): device ms per call "
+                f"(CUDA graph) kernel {t_k:.4f}, plain {t_p:.4f}, F.embedding_bag (live ids "
+                f"with offsets, {how}) {t_l:.4f} (its max |diff| {lib_err:.3g}); eager kernel "
+                f"{e_k:.4f}; bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB); kernel "
+                f"device time at {100 * b_ms / t_k:.1f}% of the bound")
+            del args, lib_sets
+        del table, sets, outs
+        torch.cuda.empty_cache()
+    log(f"  peak device memory in this phase {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"allocated; main-path launches {launches}, plain-version calls {plain_calls}")
+    return dict(max_abs_err=max_err, launches=launches, plain_calls=plain_calls, timing=timing)
+
+
+# ---------------------------------------------------------------------------
+# DIN, DIEN and Wide&Deep serving at full width
+# ---------------------------------------------------------------------------
+
+def recsys_payloads(cfg, n: int, rng) -> list:
+    """The serving CLI's payloads: a history of ids in [-1, item_vocab)
+    (din, dien), or 40 sparse ids in [0, 10^6) and normal dense features
+    (wide_deep)."""
+    import numpy as np
+
+    if cfg.kind == "wide_deep":
+        return [(rng.integers(0, 10**6, (cfg.n_sparse,)).astype(np.int32),
+                 rng.normal(size=(cfg.n_dense,)).astype(np.float32)) for _ in range(n)]
+    return [rng.integers(-1, cfg.item_vocab, (cfg.seq_len,)).astype(np.int32)
+            for _ in range(n)]
+
+
+def recsys_phase(arch: str) -> dict:
+    """One recsys arch at its full CONFIG width, random weights from a
+    seed: a `ServingEngine` (max_batch 8, K 10) answers 32 requests; DIEN
+    through `RecsysMIPSRoute` (its stage-1 GRU tower, then `ivf_topk` at L
+    18), DIN and Wide&Deep through `DenseCandidateRoute` over 500
+    candidates. The answers are held to the plain path on the CPU (ids
+    as sets but for boundary ties, scores within rtol 1e-5 / atol 1e-6);
+    stage times and latency p50 / p99."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ivf_topk import kernel as ivk
+    from repro_torch.kernels.ivf_topk import ops as ivops
+    from repro_torch.kernels.ivf_topk import ref as ivref
+    from repro_torch.mips.refresh import RefreshState
+    from repro_torch.models import recsys
+    from repro_torch.serve import (
+        CoalescePolicy,
+        DenseCandidateRoute,
+        RecsysMIPSRoute,
+        ServingEngine,
+    )
+    from repro_torch.serve.routes import _tree_to
+
+    dev = torch.device("cuda")
+    cfg = get_arch(arch).CONFIG
+    params = recsys.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if cfg.kind == "dien":
+        route = RecsysMIPSRoute(cfg, params, k=K_SERVE, n_probe=N_PROBE, device=dev)
+    else:
+        route = DenseCandidateRoute(cfg, params, candidates=np.arange(500, dtype=np.int32),
+                                    k=K_SERVE, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    payloads = recsys_payloads(cfg, RECSYS_REQUESTS, np.random.default_rng(0))
+    engine = ServingEngine(route, CoalescePolicy(max_batch=MAX_BATCH, max_wait_s=0.002))
+    engine.warmup()
+    # the main path, counts set to 0 just before and read just after
+    ivk.ivf_probe_topk_cuda.launches = 0
+    ivref.ivf_probe_topk_ref.calls = 0
+    for p in payloads:
+        engine.submit(p, arrival=0.0)
+    records = engine.drain()
+    ivf_launches, ivf_plain = ivk.ivf_probe_topk_cuda.launches, ivref.ivf_probe_topk_ref.calls
+    check(len(records) == RECSYS_REQUESTS, f"{arch}: answered {len(records)}/{RECSYS_REQUESTS}")
+    check(ivf_plain == 0, f"{arch}: the ivf plain version ran {ivf_plain} times on the card")
+    if cfg.kind == "dien":
+        check(ivf_launches == 2 * engine.batches,
+              f"dien: ivf_topk launched {ivf_launches} times for {engine.batches} batches "
+              "(expected main + delta per batch)")
+        check(not route.degraded, "dien: the serving path fell back to exact search")
+    lats = [r.latency for r in records]
+
+    # the plain path on the CPU, batch by batch, from the same weights
+    got_ids = np.stack([r.result[0] for r in records])
+    got_scores = np.stack([r.result[1] for r in records])
+    t0 = time.perf_counter()
+    tower_err = 0.0
+    with torch.inference_mode():
+        if cfg.kind == "dien":
+            planner = route.planner
+            cpu_params = _tree_to(planner.params, "cpu")
+            cpu_state = RefreshState(*(x.cpu() for x in planner.index_state))
+        else:
+            cpu_route = DenseCandidateRoute(cfg, route.params,
+                                            candidates=np.arange(500, dtype=np.int32),
+                                            k=K_SERVE, device="cpu")
+        for i in range(0, RECSYS_REQUESTS, MAX_BATCH):
+            rows = slice(i, i + MAX_BATCH)
+            if cfg.kind == "dien":
+                hist = torch.from_numpy(np.stack(payloads[rows]))
+                h_card = recsys.dien_user_vector(cfg, planner.params, hist.to(dev))
+                h_cpu = recsys.dien_user_vector(cfg, cpu_params, hist)
+                tower_err = max(tower_err, close_err(h_card, h_cpu, f"dien tower batch {i}",
+                                                     sums=True))
+                # retrieval on the card's user vectors (a near-tied centroid
+                # score must not pick other lists)
+                exp = ivops.ivf_topk(h_card.cpu(), cpu_state.as_index(cfg.item_vocab), K_SERVE,
+                                     n_probe=planner.n_probe, delta=cpu_state.delta())
+                exp = (exp.scores, exp.indices)
+            else:
+                exp = cpu_route.run(cpu_route.prepare(payloads[rows]))
+            served = (torch.from_numpy(got_scores[rows]).cuda(),
+                      torch.from_numpy(got_ids[rows]).cuda())
+            topk_err(served, (exp[0].cuda(), exp[1].cuda()), f"{arch} batch {i // MAX_BATCH}")
+    cpu_s = time.perf_counter() - t0
+    tower = (f", tower max |diff| {tower_err:.3g} (atol scaled by max |h|)"
+             if cfg.kind == "dien" else "")
+    log(f"[recsys] {arch}: {RECSYS_REQUESTS}/{RECSYS_REQUESTS} answered in {engine.batches} "
+        f"batches (route set up in {setup_s:.2f} s); latency p50 "
+        f"{percentile(lats, 50) * 1e3:.3f} ms, p99 {percentile(lats, 99) * 1e3:.3f} ms; "
+        f"ivf_topk launches {ivf_launches}"
+        + (f" (L {cfg.embed_dim})" if cfg.kind == "dien" else "")
+        + f", plain calls {ivf_plain}; answers match the plain "
+        f"path on the CPU ({cpu_s:.1f} s){tower}")
+    stage_times(route, payloads, records, f"recsys {arch}")
+    return dict(p50_ms=percentile(lats, 50) * 1e3, p99_ms=percentile(lats, 99) * 1e3,
+                ivf_launches=ivf_launches, batches=engine.batches)
 
 
 # ---------------------------------------------------------------------------
@@ -1639,17 +1970,18 @@ def main() -> int:
     log(f"[env] card: {card}")
 
     # 2. build: every kernel's source, one nvcc each, all started together
+    from repro_torch.kernels.embedding_bag import kernel as ek
     from repro_torch.kernels.flash_attention import kernel as flk
     from repro_torch.kernels.fused_sampler import kernel as fk
     from repro_torch.kernels.mips_topk import kernel as mk
     from repro_torch.kernels.snis_covgrad import kernel as sk
 
     sources = [kernel.SOURCE, mk.SOURCE, fk.SOURCE, sk.FWD_SOURCE, sk.BWD_SOURCE, flk.SOURCE,
-               flk.BWD_SOURCE]
+               flk.BWD_SOURCE, ek.SOURCE]
     t0 = time.perf_counter()
     _build.build(sources)
     for lib in (kernel.library, mk.library, fk.library, sk.fwd_library, sk.bwd_library,
-                flk.library, flk.bwd_library):
+                flk.library, flk.bwd_library, ek.library):
         lib()
     log(f"[build] {', '.join(str(x.relative_to(ROOT)) for x in sources)} built and "
         f"loaded in {time.perf_counter() - t0:.2f} s")
@@ -1748,34 +2080,49 @@ def main() -> int:
     del ds, theta0, route, planner, state, index, users, engine
     torch.cuda.empty_cache()
 
-    # 6. flash attention (K9) against its plain version
+    # 6. embedding_bag (K8) against its plain version, and its path at the
+    # DLRM shape; the tables are freed before the LM phases
+    log("[kernels] embedding_bag (K8) vs its plain version, on the card (bit for bit: both "
+        "add the live rows in t order in the table's dtype)")
+    with torch.inference_mode():
+        eres = embedding_bag_phase()
+    torch.cuda.empty_cache()
+
+    # 7. DIN, DIEN and Wide&Deep serving at full width
+    rres = {}
+    for arch in ("din", "dien", "wide-deep"):
+        rres[arch] = recsys_phase(arch)
+        torch.cuda.empty_cache()
+
+    # 8. flash attention (K9) against its plain version
     log("[kernels] flash_attention (K9) vs its plain version, on the card (fp32 out: rtol "
         f"{RTOL}, atol {ATOL} scaled by max |out| (sums of terms of both signs); bf16 out: rtol "
         f"2^-7 (one bf16 ulp), atol {ATOL}; lse: rtol {RTOL}, atol 1e-5)")
     with torch.inference_mode():
         fres = flash_phase()
 
-    # 7. the flash-attention backward (K10) against its plain version
+    # 9. the flash-attention backward (K10) against its plain version
     log("[kernels] flash_attention_bwd (K10) vs its plain version, on the card, dq, dk, dv "
         f"(fp32: rtol {RTOL}, atol {ATOL} scaled by max |grad| (sums of terms of both signs); "
         f"bf16: rtol 2^-7 (one bf16 ulp), atol {ATOL} + {RTOL} max |grad|; the plain version "
         "sums the GQA group in fp32 and rounds once, as the kernel)")
     bres = flash_bwd_phase()
 
-    # 8. the Gemma-2 2B generation path at full width, and its gate
+    # 10. the Gemma-2 2B generation path at full width, and its gate
     lres = lm_phase()
 
-    # 9. the Gemma-2 2B training path at full width, and its gate
+    # 11. the Gemma-2 2B training path at full width, and its gate
     tlm = lm_train_phase()
 
-    # 10. the kernels line, the card, the result
+    # 12. the kernels line, the card, the result
     t = kres["timing"]["main K=10"]
     entries = [{
         "name": "ivf_topk",
         "route": "cuda",
         "source": str(kernel.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ivf_topk/kernel.py:86",
-        "launches": launches + lres["counts"]["ivf_probe_topk_cuda.launches"],
+        "launches": (launches + lres["counts"]["ivf_probe_topk_cuda.launches"]
+                     + sum(r["ivf_launches"] for r in rres.values())),
         "max_abs_err": max(kres["max_abs_err"], lres["ivf_lm"]["max_abs_err"]),
         "ms": t["ms"],
         "kernel_ms": t["ms"],
@@ -1850,6 +2197,24 @@ def main() -> int:
             "port_k9_k10_ms": t4["library"]["port_ms"],
             "note": "forward + backward at B 4 bf16, each eager and timed with CUDA events",
         },
+    })
+    # K8's headline is the ragged fp32 DLRM bags; the other shapes beside it
+    et = eres["timing"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    entries.append({
+        "name": "embedding_bag",
+        "route": "cuda",
+        "source": str(ek.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:49",
+        "launches": eres["launches"],
+        "max_abs_err": eres["max_abs_err"],
+        **{k: et["ragged fp32"][k] for k in keys},
+        "shape": "table 40,000,000 x 128 fp32, B 4096, T 100, lengths uniform in 1-100 "
+                 "(-1 padded), ids uniform; library: F.embedding_bag over the live ids with "
+                 "offsets",
+        "full_fp32": {k: et["full fp32"][k] for k in keys},
+        "ragged_bf16": {k: et["ragged bf16"][k] for k in keys},
+        "full_bf16": {k: et["full bf16"][k] for k in keys},
     })
     log(json.dumps({"kernels": entries}))
     log(card)

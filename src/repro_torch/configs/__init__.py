@@ -22,7 +22,14 @@ ARCH_IDS = [
     "fopo-paper",
 ]
 
-PORTED = {"sasrec": "sasrec", "fopo-paper": "fopo_paper", "gemma2-2b": "gemma2_2b"}
+PORTED = {
+    "sasrec": "sasrec",
+    "fopo-paper": "fopo_paper",
+    "gemma2-2b": "gemma2_2b",
+    "din": "din",
+    "dien": "dien",
+    "wide-deep": "wide_deep",
+}
 
 
 def get_arch(arch_id: str) -> types.ModuleType:
@@ -31,6 +38,7 @@ def get_arch(arch_id: str) -> types.ModuleType:
     if arch_id not in PORTED:
         raise NotImplementedError(
             f"arch {arch_id!r} is not ported to repro_torch yet (ported: "
-            f"{sorted(PORTED)}); it comes with the models slice"
+            f"{sorted(PORTED)}); it comes with the models slice (ROADMAP Queue A "
+            "item 10)"
         )
     return importlib.import_module(f"repro_torch.configs.{PORTED[arch_id]}")

@@ -20,8 +20,8 @@ __all__ = [
     "kv_cache_from_numpy",
     "linear_tower_params_from_numpy",
     "lm_params_from_numpy",
+    "recsys_params_from_numpy",
     "refresh_state_from_numpy",
-    "sasrec_params_from_numpy",
 ]
 
 
@@ -38,25 +38,24 @@ def _leaf(a) -> torch.Tensor:
     return _t(a)
 
 
-def sasrec_params_from_numpy(tree: dict) -> dict:
-    """The reference's `sasrec_init` tree (leaves as numpy arrays) as the
-    port's SASRec parameters: `items`, `pos`, and per block
-    `wq`/`wk`/`wv`/`ffn`/`ln1`/`ln2` (ffn a list of {"w", "b"})."""
-    return {
-        "items": _t(tree["items"]),
-        "pos": _t(tree["pos"]),
-        "blocks": [
-            {
-                "wq": _t(blk["wq"]),
-                "wk": _t(blk["wk"]),
-                "wv": _t(blk["wv"]),
-                "ffn": [{"w": _t(l["w"]), "b": _t(l["b"])} for l in blk["ffn"]],
-                "ln1": _t(blk["ln1"]),
-                "ln2": _t(blk["ln2"]),
-            }
-            for blk in tree["blocks"]
-        ],
-    }
+def _tree(x):
+    """A tree of dicts and lists of numpy leaves as the same tree of
+    tensors (bf16 leaves bit for bit)."""
+    if isinstance(x, dict):
+        return {k: _tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_tree(v) for v in x]
+    return _leaf(x)
+
+
+def recsys_params_from_numpy(tree: dict) -> dict:
+    """The reference's `recsys.init_params` tree of any kind (leaves as
+    numpy arrays) as the port's parameters, the same layout: DIN's
+    `items` / `attn_mlp` / `mlp`, DIEN's `items` / `gru1` / `augru` (GRU
+    dicts) / `attn_w` / `mlp`, Wide&Deep's `embed` / `wide` /
+    `dense_wide` / `deep`, SASRec's `items` / `pos` / `blocks`; an MLP is
+    a list of {"w", "b"} layers."""
+    return _tree(tree)
 
 
 def lm_params_from_numpy(tree: dict) -> dict:
@@ -103,16 +102,8 @@ def adam_state_from_numpy(state: dict) -> dict:
     trees shaped like the parameters) as the port's, so that both
     optimizers continue from the same point. Moments keep their dtype
     (bf16 ones bit for bit)."""
-
-    def tree(x):
-        if isinstance(x, dict):
-            return {k: tree(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return [tree(v) for v in x]
-        return _leaf(x)
-
     return {
         "step": _t(np.asarray(state["step"], dtype=np.int32)),
-        "m": tree(state["m"]),
-        "v": tree(state["v"]),
+        "m": _tree(state["m"]),
+        "v": _tree(state["v"]),
     }

@@ -1,24 +1,29 @@
 """Serving launcher of the port: the continuous-batching engine over the
-SASRec retrieval route (through the `ivf_topk` CUDA kernel) or the
-Gemma-2 generation route (prefill, then greedy decoding with every next
-token through the same `ivf_topk` plan path).
+SASRec or DIEN retrieval route (through the `ivf_topk` CUDA kernel), the
+DIN or Wide&Deep dense-candidate route (each request scores a fixed pool
+of 500 candidates, `np.arange(500)`) or the Gemma-2 generation route
+(prefill, then greedy decoding with every next token through the same
+`ivf_topk` plan path).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec --requests 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch din --requests 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --requests 8
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dien --device cpu
 
 Requests are enqueued on a virtual arrival clock (``--qps`` spaces them;
 0 = all at once, the closed-loop shape) and coalesced into padded
 micro-batches under ``--max-batch`` / ``--max-wait-ms``. The model is
-the arch's SMOKE_CONFIG with random weights from a fixed seed, as in the
-reference CLI; an LM request is a random prompt of ``--prompt-len``
-tokens answered with ``--gen-len`` generated ones. The run needs CUDA
-unless ``--device cpu`` is given.
+the arch's SMOKE_CONFIG with random weights from a fixed seed, and the
+payloads are the reference CLI's: a history of ids in [-1, item_vocab)
+(sasrec, dien, din), 40 sparse ids in [0, 10^6) and normal dense
+features (wide-deep), or a random prompt of ``--prompt-len`` tokens
+answered with ``--gen-len`` generated ones (gemma2-2b). The run needs
+CUDA unless ``--device cpu`` is given.
 
-Not ported yet, and refused with a message: ``--ladder`` (health slice),
-``--replicas`` / ``--chaos`` (cluster slice) and ``--obs-dir``
-(observability slice), and every arch but sasrec and gemma2-2b (models
-slice).
+Not ported yet, and refused with a message naming the slice (ROADMAP
+Queue A item): ``--ladder`` (health, item 6), ``--replicas`` /
+``--chaos`` (cluster serving, item 8) and ``--obs-dir`` (observability,
+item 7), and the arches that are not ported (models, item 10).
 """
 from __future__ import annotations
 
@@ -34,16 +39,17 @@ from repro_torch.obs.bus import MetricsBus
 from repro_torch.obs.sinks import HumanLogSink
 from repro_torch.serve import (
     CoalescePolicy,
+    DenseCandidateRoute,
     LMGenerateRoute,
     RecsysMIPSRoute,
     ServingEngine,
 )
 
 _NOT_PORTED = {
-    "ladder": "the health slice",
-    "replicas": "the cluster slice",
-    "chaos": "the cluster slice",
-    "obs_dir": "the observability slice",
+    "ladder": "the health slice (ROADMAP Queue A item 6)",
+    "replicas": "the cluster slice (ROADMAP Queue A item 8)",
+    "chaos": "the cluster slice (ROADMAP Queue A item 8)",
+    "obs_dir": "the observability slice (ROADMAP Queue A item 7)",
 }
 
 
@@ -98,10 +104,20 @@ def main(argv: list[str] | None = None) -> None:
             return rng.integers(0, cfg.vocab_size, (args.prompt_len,)).astype(np.int32)
     else:
         params = recsys.init_params(cfg, gen, device)
-        route = RecsysMIPSRoute(cfg, params, k=args.k, device=device)
-
-        def payload():
-            return rng.integers(-1, cfg.item_vocab, (cfg.seq_len,)).astype(np.int32)
+        if cfg.kind in ("sasrec", "dien"):
+            route = RecsysMIPSRoute(cfg, params, k=args.k, device=device)
+        else:
+            route = DenseCandidateRoute(
+                cfg, params, candidates=np.arange(500, dtype=np.int32), k=args.k,
+                device=device,
+            )
+        if cfg.kind == "wide_deep":
+            def payload():
+                return (rng.integers(0, 10**6, (cfg.n_sparse,)).astype(np.int32),
+                        rng.normal(size=(cfg.n_dense,)).astype(np.float32))
+        else:
+            def payload():
+                return rng.integers(-1, cfg.item_vocab, (cfg.seq_len,)).astype(np.int32)
     bus = MetricsBus(sinks=[HumanLogSink()])
     engine = ServingEngine(
         route,

@@ -58,7 +58,8 @@ def main(argv: list[str] | None = None) -> None:
     if args.arch not in ("fopo-paper", "gemma2-2b"):
         raise SystemExit(
             f"training --arch {args.arch} is not ported to repro_torch yet; it "
-            "comes with the models slice"
+            "comes with the models slice (ROADMAP Queue A item 10: recsys BCE and "
+            "FOPO training, then the other arches)"
         )
     mod = get_arch(args.arch)
     device = resolve_device(args.device)

@@ -8,10 +8,11 @@ prefill and greedy decoding whose next tokens go through it). See
 from repro_torch.serve.coalescer import CoalescePolicy, Request, next_batch, pad_payloads
 from repro_torch.serve.engine import DrainResult, RequestRecord, ServingEngine
 from repro_torch.serve.planner import QueryPlanner
-from repro_torch.serve.routes import LMGenerateRoute, RecsysMIPSRoute
+from repro_torch.serve.routes import DenseCandidateRoute, LMGenerateRoute, RecsysMIPSRoute
 
 __all__ = [
     "CoalescePolicy",
+    "DenseCandidateRoute",
     "DrainResult",
     "LMGenerateRoute",
     "QueryPlanner",

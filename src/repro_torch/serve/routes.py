@@ -10,12 +10,15 @@ A route is the engine's model adapter:
                          synchronising
     finalize(out, n)     device results -> the first n responses
 
-`RecsysMIPSRoute` serves SASRec retrieval: the user tower, then the
-plan's `execute_query` over the item table, through the `ivf_topk`
+`RecsysMIPSRoute` serves SASRec and DIEN retrieval: the user tower, then
+the plan's `execute_query` over the item table, through the `ivf_topk`
 kernel. `LMGenerateRoute` serves LM generation (Gemma-2): a batched
 prefill, then greedy decoding in which every next token is a query of
-the same plan path over the unembed rows. DIEN and the dense-candidate
-route come with the models slice.
+the same plan path over the unembed rows. `DenseCandidateRoute` serves
+DIN and Wide&Deep, which have no target-independent user vector (DIN
+re-attends per candidate): each request scores a fixed candidate pool
+densely (the Yahoo! front-page setting), batched across the requests of
+a micro-batch.
 """
 from __future__ import annotations
 
@@ -26,14 +29,16 @@ from repro_torch.core.policy import SoftmaxPolicy
 from repro_torch.device import resolve_device
 from repro_torch.serve.planner import QueryPlanner
 
-__all__ = ["LMGenerateRoute", "RecsysMIPSRoute"]
+__all__ = ["DenseCandidateRoute", "LMGenerateRoute", "RecsysMIPSRoute"]
 
 
 class RecsysMIPSRoute:
-    """sasrec retrieval: hist [T] -> top-k (ids, scores).
+    """sasrec / dien retrieval: hist [T] -> top-k (ids, scores).
 
-    ``params`` is the SASRec parameter tree (`repro_torch.models.recsys`);
-    it is moved to ``device`` (default "cuda"; see `repro_torch.device`)."""
+    ``params`` is the model's parameter tree (`repro_torch.models.recsys`);
+    it is moved to ``device`` (default "cuda"; see `repro_torch.device`).
+    The tower is SASRec's user vector or DIEN's stage-1 GRU state
+    projected into item space (`dien_user_vector`)."""
 
     def __init__(
         self, cfg, params, *, k: int = 10, n_probe: int | None = None,
@@ -41,18 +46,20 @@ class RecsysMIPSRoute:
     ):
         from repro_torch.models import recsys
 
-        if cfg.kind != "sasrec":
-            raise NotImplementedError(
-                f"{cfg.kind} is not ported yet: the serving slice ports the "
-                "sasrec route; the others come with the models slice"
+        towers = {"sasrec": recsys.sasrec_user_vector, "dien": recsys.dien_user_vector}
+        if cfg.kind not in towers:
+            raise ValueError(
+                f"{cfg.kind} has no target-independent user vector; serve it "
+                "through DenseCandidateRoute"
             )
+        user_vector = towers[cfg.kind]
         self.device = resolve_device(device)
         self.cfg = cfg
         self.pad_payload = np.full((cfg.seq_len,), -1, np.int32)
         params = _tree_to(params, self.device)
         self.planner = QueryPlanner(
             SoftmaxPolicy(
-                tower=lambda p, hist: recsys.sasrec_user_vector(cfg, p, hist),
+                tower=lambda p, hist: user_vector(cfg, p, hist),
                 item_dim=cfg.embed_dim,
             ),
             params, params["items"], top_k=k, n_probe=n_probe, seed=seed,
@@ -174,6 +181,60 @@ class LMGenerateRoute:
 
     def degrade(self) -> None:
         self.planner.degrade()
+
+
+class DenseCandidateRoute:
+    """din / wide_deep: score a fixed candidate pool per request,
+    densely, and return its top-k (ids, scores). A payload is a history
+    [T] (din) or (sparse [F], dense [n_dense]) (wide_deep).
+
+    The reference maps `retrieval_topk` over the micro-batch one request
+    at a time (`jax.vmap`); here `retrieval_topk` takes the whole batch at
+    once and gives each row the reference's answer. ``params`` is moved to
+    ``device`` (default "cuda")."""
+
+    def __init__(self, cfg, params, *, candidates, k: int = 10, device=None):
+        from repro_torch.models import recsys
+
+        if cfg.kind not in ("din", "wide_deep"):
+            raise ValueError(
+                f"{cfg.kind} serves through RecsysMIPSRoute, not DenseCandidateRoute"
+            )
+        self.device = resolve_device(device)
+        self.cfg, self.k = cfg, k
+        self._recsys = recsys
+        self.params = _tree_to(params, self.device)
+        self.candidates = torch.from_numpy(np.asarray(candidates, np.int32)).to(self.device)
+        if cfg.kind == "wide_deep":
+            self.pad_payload = (
+                np.zeros((cfg.n_sparse,), np.int32),
+                np.zeros((cfg.n_dense,), np.float32),
+            )
+        else:
+            self.pad_payload = np.full((cfg.seq_len,), -1, np.int32)
+
+    def prepare(self, payloads: list) -> dict:
+        if self.cfg.kind == "wide_deep":
+            return {
+                "sparse": torch.from_numpy(np.stack([p[0] for p in payloads])).to(self.device),
+                "dense": torch.from_numpy(np.stack([p[1] for p in payloads])).to(self.device),
+            }
+        return {"hist": torch.from_numpy(np.stack(payloads)).to(self.device)}
+
+    def run(self, batch: dict):
+        """(scores [B, K], ids [B, K]), launched without waiting."""
+        return self._recsys.retrieval_topk(
+            self.cfg, self.params, {**batch, "candidates": self.candidates}, k=self.k
+        )
+
+    def warmup(self, max_batch: int) -> None:
+        self.run(self.prepare([self.pad_payload] * max_batch))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def finalize(self, out, n: int) -> list:
+        vals, ids = out[0][:n].cpu().numpy(), out[1][:n].cpu().numpy()
+        return [(ids[i], vals[i]) for i in range(n)]
 
 
 def _tree_to(tree, device):

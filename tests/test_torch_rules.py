@@ -256,3 +256,71 @@ def test_planner_probe_waits_for_the_health_slice():
     for kw in (dict(probe_x=torch.zeros((2, 4))), dict(probe_k=8)):
         with pytest.raises(NotImplementedError, match="health slice"):
             QueryPlanner(None, params, params["items"], top_k=4, device="cpu", **kw)
+
+
+def test_embedding_bag_never_takes_the_plain_version_on_cuda(monkeypatch):
+    """K8's wrapper, as the others: sum and mean of a table taken for CUDA
+    reach the kernel's wrapper, which raises here, and the plain version
+    is not called."""
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+
+    monkeypatch.setattr(eb_ops, "_on_cuda", lambda t: True)
+    calls = eb_ops._ref.embedding_bag_ref.calls
+    for combiner in ("sum", "mean"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            eb_ops.embedding_bag(torch.zeros((10, 8)), torch.zeros((2, 3), dtype=torch.int32),
+                                 combiner)
+    assert eb_ops._ref.embedding_bag_ref.calls == calls
+
+
+@pytest.mark.parametrize("arch,module", [("din", "din"), ("dien", "dien"),
+                                         ("wide-deep", "wide_deep")])
+def test_recsys_archs_resolve_to_the_port(arch, module):
+    mod = get_arch(arch)
+    assert mod.__name__ == f"repro_torch.configs.{module}"
+    assert mod.FAMILY == "recsys" and mod.CONFIG.name == arch
+
+
+@pytest.mark.parametrize("arch", ["din", "dien", "wide-deep"])
+def test_recsys_entry_points_refuse_cuda_without_cuda(monkeypatch, arch):
+    from repro_torch.serve import DenseCandidateRoute
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch(arch).SMOKE_CONFIG
+    params = recsys.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if arch == "dien":
+            RecsysMIPSRoute(cfg, params)
+        else:
+            DenseCandidateRoute(cfg, params, candidates=np.arange(10))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_cli.main(["--arch", arch, "--requests", "1"])
+    with pytest.raises(SystemExit, match="models slice"):
+        train_cli.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
+
+
+_IMPORTS_SLICE = """
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("modules", [
+    ("repro_torch.embeddings", "repro_torch.embeddings.bag", "repro_torch.embeddings.table"),
+    ("repro_torch.kernels.embedding_bag.ops", "repro_torch.kernels.embedding_bag.kernel",
+     "repro_torch.kernels.embedding_bag.ref"),
+    ("repro_torch.configs.din", "repro_torch.configs.dien", "repro_torch.configs.wide_deep",
+     "repro_torch.models.recsys", "repro_torch.serve.routes", "repro_torch.convert"),
+], ids=["embeddings", "embedding_bag", "recsys"])
+def test_embedding_slice_modules_import_no_jax(modules):
+    """This slice's modules, each set alone in a fresh interpreter."""
+    res = subprocess.run(
+        [sys.executable, "-c", _IMPORTS_SLICE, *modules], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(PKG.parent)}, timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr

@@ -17,7 +17,7 @@ from repro.configs import get_arch as jax_get_arch  # noqa: E402
 from repro.models import layers as jax_layers  # noqa: E402
 from repro.models import recsys as jax_recsys  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.convert import sasrec_params_from_numpy  # noqa: E402
+from repro_torch.convert import recsys_params_from_numpy  # noqa: E402
 from repro_torch.models import layers, recsys  # noqa: E402
 
 CFG = get_arch("sasrec").SMOKE_CONFIG
@@ -26,7 +26,7 @@ JCFG = jax_get_arch("sasrec").SMOKE_CONFIG
 
 def _params(seed: int):
     jparams = jax_recsys.init_params(JCFG, jax.random.PRNGKey(seed))
-    return jparams, sasrec_params_from_numpy(jax.tree.map(np.asarray, jparams))
+    return jparams, recsys_params_from_numpy(jax.tree.map(np.asarray, jparams))
 
 
 def _hists(n: int, seed: int) -> np.ndarray:
@@ -89,7 +89,7 @@ def test_sasrec_init_has_reference_layout():
 
 
 def test_other_archs_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="dien"):
-        get_arch("dien")
+    with pytest.raises(NotImplementedError, match="graphcast"):
+        get_arch("graphcast")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")

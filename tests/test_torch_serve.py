@@ -23,7 +23,7 @@ from repro.serve import CoalescePolicy as JaxCoalescePolicy  # noqa: E402
 from repro.serve import RecsysMIPSRoute as JaxRoute  # noqa: E402
 from repro.serve import ServingEngine as JaxEngine  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.convert import ivf_index_from_numpy, sasrec_params_from_numpy  # noqa: E402
+from repro_torch.convert import ivf_index_from_numpy, recsys_params_from_numpy  # noqa: E402
 from repro_torch.kernels.ivf_topk import kernel as ivf_kernel  # noqa: E402
 from repro_torch.kernels.ivf_topk import ref as ivf_ref  # noqa: E402
 from repro_torch.mips.exact import topk_exact  # noqa: E402
@@ -65,7 +65,7 @@ def test_engine_matches_reference_engine(monkeypatch, max_batch, k):
     )
     monkeypatch.setattr(planner_mod, "build_ivf", lambda *a, **kw: index)
     route = RecsysMIPSRoute(
-        CFG, sasrec_params_from_numpy(jax.tree.map(np.asarray, jparams)), k=k,
+        CFG, recsys_params_from_numpy(jax.tree.map(np.asarray, jparams)), k=k,
         device="cpu",
     )
     payloads = _hists(11)
@@ -254,3 +254,93 @@ def test_serve_cli_gemma_on_cpu(capsys):
                     "--prompt-len", "6", "--gen-len", "3", "--max-batch", "2"])
     out = capsys.readouterr().out
     assert "gemma2-2b on cpu: 3 requests in 2 batches" in out
+
+
+# ---------------------------------------------------------------------------
+# DIEN through the MIPS route, DIN and Wide&Deep through the dense-candidate
+# route (SMOKE_CONFIGs)
+# ---------------------------------------------------------------------------
+
+
+def _recsys_payloads(cfg, n: int, seed: int) -> list:
+    """The serving CLI's payloads for ``cfg.kind``."""
+    rng = np.random.default_rng(seed)
+    if cfg.kind == "wide_deep":
+        return [(rng.integers(0, 10**6, (cfg.n_sparse,)).astype(np.int32),
+                 rng.normal(size=(cfg.n_dense,)).astype(np.float32)) for _ in range(n)]
+    return [rng.integers(-1, cfg.item_vocab, (cfg.seq_len,)).astype(np.int32)
+            for _ in range(n)]
+
+
+def _recsys_routes(monkeypatch, arch: str, k: int):
+    """The reference's and the port's route for ``arch`` over the same
+    weights (and, for DIEN, the reference's IVF index carried across)."""
+    from repro.serve import DenseCandidateRoute as JaxDenseRoute
+    from repro_torch.serve import DenseCandidateRoute
+
+    jcfg, cfg = jax_get_arch(arch).SMOKE_CONFIG, get_arch(arch).SMOKE_CONFIG
+    jparams = jax_recsys.init_params(jcfg, jax.random.PRNGKey(0))
+    params = recsys_params_from_numpy(jax.tree.map(np.asarray, jparams))
+    if arch == "dien":
+        jroute = JaxRoute(jcfg, jparams, k=k)
+        state = jroute.planner.index_state
+        index = ivf_index_from_numpy(
+            np.asarray(state.centroids), np.asarray(state.lists),
+            np.asarray(state.list_embs), jcfg.item_vocab,
+        )
+        monkeypatch.setattr(planner_mod, "build_ivf", lambda *a, **kw: index)
+        return cfg, jroute, RecsysMIPSRoute(cfg, params, k=k, device="cpu")
+    cands = np.arange(500, dtype=np.int32)
+    return (cfg, JaxDenseRoute(jcfg, jparams, candidates=cands, k=k),
+            DenseCandidateRoute(cfg, params, candidates=cands, k=k, device="cpu"))
+
+
+@pytest.mark.parametrize("arch", ["dien", "din", "wide-deep"])
+def test_recsys_routes_match_reference_engine(monkeypatch, arch):
+    """Both engines serve the same 7 payloads (max_batch 3, fixed service
+    time): the same virtual timeline, ids equal as sets and scores within
+    rtol 1e-5 / atol 1e-6 (fp32 sums taken in another order)."""
+    cfg, jroute, route = _recsys_routes(monkeypatch, arch, k=8)
+    payloads = _recsys_payloads(cfg, 7, seed=3)
+    fixed = lambda measured, batch_no: 0.001  # noqa: E731
+    jeng = JaxEngine(jroute, JaxCoalescePolicy(max_batch=3, max_wait_s=0.002),
+                     service_model=fixed)
+    eng = ServingEngine(route, CoalescePolicy(max_batch=3, max_wait_s=0.002),
+                        service_model=fixed)
+    jeng.warmup()
+    eng.warmup()
+    arrivals = [0.0005 * i for i in range(7)]
+    jrecs = _run_all(jeng, payloads, arrivals)
+    recs = _run_all(eng, payloads, arrivals)
+    assert len(recs) == len(jrecs) == 7 and eng.batches == jeng.batches
+    for r, jr in zip(recs, jrecs):
+        assert (r.rid, r.launch, r.finish, r.batch_size) == (
+            jr.rid, jr.launch, jr.finish, jr.batch_size
+        )
+        (ids, scores), (jids, jscores) = r.result, jr.result
+        assert ids.shape == scores.shape == (8,)
+        np.testing.assert_array_equal(np.sort(ids), np.sort(np.asarray(jids)))
+        np.testing.assert_allclose(np.sort(scores), np.sort(np.asarray(jscores)),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_dense_route_refuses_mips_archs_and_mips_route_refuses_dense_ones():
+    from repro_torch.serve import DenseCandidateRoute
+
+    for arch, route_cls in (("dien", DenseCandidateRoute), ("din", RecsysMIPSRoute)):
+        cfg = get_arch(arch).SMOKE_CONFIG
+        params = recsys.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(ValueError, match="Route"):
+            if route_cls is DenseCandidateRoute:
+                route_cls(cfg, params, candidates=np.arange(5), device="cpu")
+            else:
+                route_cls(cfg, params, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["din", "dien", "wide-deep"])
+def test_serve_cli_recsys_on_cpu(capsys, arch):
+    from repro_torch.launch import serve as serve_cli
+
+    serve_cli.main(["--arch", arch, "--device", "cpu", "--requests", "5", "--max-batch", "2"])
+    out = capsys.readouterr().out
+    assert f"{arch} on cpu: 5 requests in 3 batches" in out
