@@ -9,12 +9,15 @@ more each:
 
   1. environment  torch and CUDA versions, the card's name and power limit
   2. build        every hand-written kernel, from source (one nvcc per
-                  source, all started together), timed
+                  source, all started together), timed; the HMMA
+                  (tensor-core) instructions in the flash-attention
+                  libraries' SASS (cuobjdump)
   3. kernels      each kernel against its plain PyTorch version on the
                   card, at small shapes and at the shapes its path gives
                   it (ivf_topk also at the LM route's width, L 2304, and
-                  at widths not a multiple of 4), within the CPU parity
-                  tests' tolerances; times of
+                  at widths not a multiple of 4; the covgrad kernels also
+                  at L 18, 50 and 260, their wide path, checked and timed),
+                  within the CPU parity tests' tolerances; times of
                   the kernel and the plain version (device time per call
                   from a replayed CUDA graph, and time per eager call),
                   the library call where one computes the same function,
@@ -76,7 +79,8 @@ more each:
                   microbatch (B 1, H 8, KV 4, S 2048, D 256, fp32 and
                   bf16), the Gemma-2 prefill shape (B 8, same heads,
                   bf16) and S 8192 at batch 1 with window 4096; times and
-                  bounds (at the prefill and S 8192 shapes), and at
+                  bounds at those shapes (the bound counts each product
+                  at the tensor-core passes the kernel runs), and at
                   the prefill shape torch's flex_attention, compiled, as
                   the library yardstick (in bf16 and on the fp32 upcast)
   9. flash bwd    the flash-attention backward kernel (K10) against its
@@ -127,6 +131,7 @@ line; it also exits non-zero when CUDA is not available.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -142,6 +147,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS = 495e12  # H100 SXM tf32 tensor cores, dense
 RTOL, ATOL = 1e-5, 1e-6  # the CPU parity tests' score tolerances
 N_PROBE, K_SERVE, MAX_BATCH, REQUESTS, RECSYS_REQUESTS = 8, 10, 8, 64, 32
 TRAIN_STEPS, REPLAY_STEPS, PROFILED_STEPS, TS = 20, 3, 3, 8
@@ -527,7 +533,7 @@ def training_kernel_phase(beta, h0, positives) -> dict:
     """Each training kernel against its plain version on the card, at
     small shapes and at the training path's shapes (B 32, L 100,
     P 750,000, S 1000, K 256, TS 8; covgrad also at TS 1 and in both
-    modes); times at the training shapes."""
+    modes, and at L 18, 50 and 260); times at the training shapes."""
     import torch
 
     from repro_torch.constants import LOG_Q_PAD
@@ -604,7 +610,9 @@ def training_kernel_phase(beta, h0, positives) -> dict:
 
     # -- snis_covgrad forward and backward ------------------------------------
     ferr = berr = 0.0
-    for bb, ss, ll, pp in [(4, 24, 16, 300), (3, 40, 256, 500), (5, 1000, 100, 2000)]:
+    # L 18, 50 (not multiples of 4) and 260 (over 256) take the wide path
+    for bb, ss, ll, pp in [(4, 24, 16, 300), (3, 40, 256, 500), (5, 1000, 100, 2000),
+                           (4, 300, 18, 500), (4, 300, 50, 500), (3, 300, 260, 500)]:
         h = torch.randn((bb, ll), generator=gen, device=dev)
         bt = 0.3 * torch.randn((pp, ll), generator=gen, device=dev)
         a = torch.randint(0, pp, (bb, ss), generator=gen, device=dev).int()
@@ -647,6 +655,7 @@ def training_kernel_phase(beta, h0, positives) -> dict:
         log(f"  snis_covgrad full: B={b} S={s} L={l} TS={ts} (training draws), both modes "
             f"and the backward: ok")
     rows = b * s * l * 4
+    res["snis_covgrad_wide"] = covgrad_wide_times(steps, beta, gen)
     res["snis_covgrad_fwd"] = dict(max_abs_err=ferr, **timed(
         f"snis_covgrad_fwd scores-only B={b} S={s} L={l}",
         lambda h, a, lq, r, cf: sk.snis_fwd_cuda(h, beta, a, lq, r, covgrad=False),
@@ -665,6 +674,88 @@ def training_kernel_phase(beta, h0, positives) -> dict:
         library_fn=lambda h, a, lq, r, cf: torch.nn.functional.embedding_bag(
             a, beta, per_sample_weights=cf, mode="sum"),
         library_note="embedding_bag(actions, beta, per_sample_weights=coeff, mode='sum')"))
+    w = res["snis_covgrad_wide"][l]
+    log(f"  snis_covgrad at L={l}, device ms, wide path / register layout: scores-only "
+        f"{w['fwd']['ms']:.4f} / {res['snis_covgrad_fwd']['ms']:.4f}, covgrad mode "
+        f"{w['covgrad']['ms']:.4f} / {res['snis_covgrad_fwd_covgrad_mode']['ms']:.4f}, bwd "
+        f"{w['bwd']['ms']:.4f} / {res['snis_covgrad_bwd']['ms']:.4f}")
+    return res
+
+
+@contextlib.contextmanager
+def covgrad_wide_only():
+    """The covgrad wrappers launching the wide path at every L (each
+    library's `*_launch_wide` entry in place of `*_launch`), to time it
+    against the register layout at an L both take."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.snis_covgrad import kernel as sk
+
+    fl, bl = sk.fwd_library(), sk.bwd_library()
+    _launch.declare(fl, "snis_fwd_launch_wide", "pppppppp" + "iiiiii" + "p")
+    _launch.declare(bl, "snis_bwd_launch_wide", "ppppp" + "iiiii" + "p")
+    saved = fl.snis_fwd_launch, bl.snis_bwd_launch
+    fl.snis_fwd_launch, bl.snis_bwd_launch = fl.snis_fwd_launch_wide, bl.snis_bwd_launch_wide
+    try:
+        yield
+    finally:
+        fl.snis_fwd_launch, bl.snis_bwd_launch = saved
+
+
+def covgrad_wide_times(steps, beta, gen) -> dict:
+    """The covgrad kernels' wide path (L 18, 50, 260) timed at the training
+    draws' shape (B 32, S 1000) over a 100,000-row table of each width
+    (the draws' ids taken modulo 100,000); and at L 100 on the training
+    draws and table themselves, checked against the plain versions, to
+    set beside the register layout's times there. Bound by bytes as at
+    L 100."""
+    import torch
+
+    from repro_torch.kernels.snis_covgrad import kernel as sk, ref as sr
+
+    res = {}
+    for ll in (18, 50, 260, 100):
+        if ll == beta.shape[1]:
+            bt, sets, wide = beta, steps, covgrad_wide_only()
+        else:
+            bt = 0.3 * torch.randn((100_000, ll), generator=gen, device=steps[0][0].device)
+            sets = [(torch.randn((h.shape[0], ll), generator=gen, device=h.device),
+                     torch.where(a >= 0, a % 100_000, a), lq, r, cf)
+                    for h, a, lq, r, cf in steps]
+            wide = contextlib.nullcontext()
+        b, s = sets[0][1].shape
+        rows = b * s * ll * 4
+        with wide:
+            if ll == beta.shape[1]:
+                h, a, lq, r, cf = sets[0]
+                sref, gref = sr.snis_fwd_ref(h, bt, a, lq, r, covgrad=True)
+                sck, gk = sk.snis_fwd_cuda(h, bt, a, lq, r, covgrad=True)
+                close_err(sck, sref, "wide L 100 scores", sums=True)
+                close_err(gk, gref, "wide L 100 g", sums=True)
+                close_err(sk.snis_fwd_cuda(h, bt, a, lq, r, covgrad=False), sref,
+                          "wide L 100 scores only", sums=True)
+                close_err(sk.snis_bwd_cuda(cf, a, bt), sr.snis_bwd_ref(cf, a, bt),
+                          "wide L 100 bwd", sums=True)
+                log(f"  snis_covgrad wide path at L={ll} (training draws), both modes and the "
+                    "backward: ok")
+            res[ll] = {
+                "fwd": timed(f"snis_covgrad_fwd wide scores-only B={b} S={s} L={ll}",
+                             lambda h, a, lq, r, cf: sk.snis_fwd_cuda(h, bt, a, lq, r,
+                                                                      covgrad=False),
+                             lambda h, a, lq, r, cf: sr.snis_fwd_ref(h, bt, a, lq, r,
+                                                                     covgrad=False),
+                             sets, rows + b * s * 8 + b * ll * 4, 2 * b * s * ll),
+                "covgrad": timed(f"snis_covgrad_fwd wide covgrad mode B={b} S={s} L={ll}",
+                                 lambda h, a, lq, r, cf: sk.snis_fwd_cuda(h, bt, a, lq, r,
+                                                                          covgrad=True),
+                                 lambda h, a, lq, r, cf: sr.snis_fwd_ref(h, bt, a, lq, r,
+                                                                         covgrad=True),
+                                 sets, rows + b * s * 16 + b * ll * 8, 6 * b * s * ll),
+                "bwd": timed(f"snis_covgrad_bwd wide B={b} S={s} L={ll}",
+                             lambda h, a, lq, r, cf: sk.snis_bwd_cuda(cf, a, bt),
+                             lambda h, a, lq, r, cf: sr.snis_bwd_ref(cf, a, bt),
+                             sets, rows + b * s * 8 + b * ll * 4, 2 * b * s * ll),
+            }
+        del bt, sets
     return res
 
 
@@ -1138,18 +1229,31 @@ def live_pairs(sq: int, skv: int, causal: bool, window, q_offset: int) -> int:
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
+def tensor_core_ms(flops: float, passes: int, rate: float) -> float:
+    """The least time of one product that the kernels run on the tensor
+    cores in ``passes`` passes at ``rate``, or of the same product as fp32
+    FMAs where that is less (so no kernel can read over 100 % of it)."""
+    return min(passes * flops / rate, flops / FP32_FLOPS) * 1e3
+
+
 def flash_bound(b, sq, skv, h, kv, d, itemsize, causal, window, q_offset) -> tuple:
-    """(ms, "bytes" or "operations", bytes, qk flops, pv flops): q, k, v
-    read once, out and lse written once; 2 D flops per unmasked (query,
-    key) pair for each product. q k^T of bf16 inputs at the bf16
-    tensor-core rate (a product of two bf16 values is exact in fp32, so
-    the tensor cores give it to fp32 accuracy), of fp32 inputs at the
-    fp32 rate; p v at the fp32 rate (p is fp32). The two times add."""
+    """(ms, "bytes" or "operations", bytes, flops of each product, note):
+    q, k, v read once, out and lse written once; 2 D flops per unmasked
+    (query, key) pair for each of q k^T and p v, counted as K9 runs them
+    on the tensor cores: bf16 inputs q k^T in one pass (exact) and p v in
+    three (p in three bf16 terms) at 989 TFLOP/s; fp32 inputs three tf32
+    passes each (3xTF32) at 495. The two products' times add."""
     nbytes = (2 * b * sq * h * d + 2 * b * skv * kv * d) * itemsize + b * h * sq * 4
-    qk = pv = b * h * live_pairs(sq, skv, causal, window, q_offset) * 2 * d
+    flops = b * h * live_pairs(sq, skv, causal, window, q_offset) * 2 * d
+    if itemsize == 2:
+        t_o = tensor_core_ms(flops, 1, BF16_FLOPS) + tensor_core_ms(flops, 3, BF16_FLOPS)
+        note = (f"q k^T {flops / 1e9:.2f} GFLOP x 1 + p v {flops / 1e9:.2f} GFLOP x 3 "
+                "passes at the bf16 tensor-core rate")
+    else:
+        t_o = 2 * tensor_core_ms(flops, 3, TF32_FLOPS)
+        note = f"q k^T and p v {flops / 1e9:.2f} GFLOP each x 3 tf32 passes at 495 TFLOP/s"
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = (qk / (BF16_FLOPS if itemsize == 2 else FP32_FLOPS) + pv / FP32_FLOPS) * 1e3
-    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, qk, pv
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, flops, note
 
 
 def flex_setup(kw: dict, q):
@@ -1240,6 +1344,7 @@ def flash_phase() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     errs = {"out_fp32": 0.0, "out_bf16": 0.0, "lse": 0.0}
+    emulation = 0.0  # max |kernel - the CPU tests' emulation of its arithmetic|
 
     def inputs(b, sq, skv, h, kv, d, dtype):
         return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -1252,20 +1357,34 @@ def flash_phase() -> dict:
         out, lse = fr.flash_attention_ref(fold(q, 1), fold(k, n_rep), fold(v, n_rep), **kw)
         return out.reshape(b, h, sq, d).transpose(1, 2), lse.reshape(b, h, sq)
 
-    def compare(tag, q, k, v, **kw):
-        out, lse = fk.flash_attention_fwd_cuda(q, k, v, **kw)
-        ro, rl = plain(q, k, v, **kw)
-        if q.dtype == torch.bfloat16:
+    def emulated(q, k, v, **kw):
+        b, sq, h, d = q.shape
+        fold = lambda x: x.transpose(1, 2).reshape(-1, x.shape[1], d)  # noqa: E731
+        out, lse = fr.flash_attention_mma(fold(q), fold(k), fold(v), **kw)
+        return out.reshape(b, h, sq, d).transpose(1, 2), lse.reshape(b, h, sq)
+
+    def gate(tag, out, lse, ro, rl):
+        if out.dtype == torch.bfloat16:
             e = close_err(out, ro, tag + " out", rtol=BF16_RTOL, atol=ATOL)
-            errs["out_bf16"] = max(errs["out_bf16"], e)
         else:
             e = close_err(out, ro, tag + " out", sums=True)
-            errs["out_fp32"] = max(errs["out_fp32"], e)
-        el = close_err(lse, rl, tag + " lse", atol=1e-5)
+        return e, close_err(lse, rl, tag + " lse", atol=1e-5)
+
+    def compare(tag, q, k, v, **kw):
+        nonlocal emulation
+        out, lse = fk.flash_attention_fwd_cuda(q, k, v, **kw)
+        e, el = gate(tag, out, lse, *plain(q, k, v, **kw))
+        key = "out_bf16" if q.dtype == torch.bfloat16 else "out_fp32"
+        errs[key] = max(errs[key], e)
         errs["lse"] = max(errs["lse"], el)
+        em = ""
+        if tag == "small":
+            ee = gate(tag + " vs emulation", out, lse, *emulated(q, k, v, **kw))
+            emulation = max(emulation, *ee)
+            em = f"; against the emulation {ee[0]:.3g}, lse {ee[1]:.3g}"
         b, sq, h, d = q.shape
         log(f"  {tag}: B={b} Sq={sq} Skv={k.shape[1]} H={h} KV={k.shape[2]} D={d} "
-            f"{str(q.dtype)[6:]} {kw}: out max_abs_err {e:.3g}, lse {el:.3g} ok")
+            f"{str(q.dtype)[6:]} {kw}: out max_abs_err {e:.3g}, lse {el:.3g}{em} ok")
 
     for dtype in (torch.float32, torch.bfloat16):
         for d in fk.HEAD_DIMS:
@@ -1275,32 +1394,32 @@ def flash_phase() -> dict:
         compare("small", *inputs(1, 40, 130, 4, 2, 128, dtype), window=8, q_offset=90,
                 logit_cap=50.0)
         compare("small", *inputs(2, 100, 100, 2, 1, 256, dtype), causal=False)
-        # the training path's shape: one row of LM_TRAIN_S tokens per microbatch
-        compare("training B 1", *inputs(1, LM_TRAIN_S, LM_TRAIN_S, 8, 4, 256, dtype),
-                logit_cap=50.0)
 
     timing = {}
-    for tag, (b, s_, h, kv, d), kw in [
-        ("gemma prefill", (LM_BATCH, LM_PROMPT, 8, 4, 256), dict(logit_cap=50.0)),
+    for tag, (b, s_, h, kv, d), kw, dtype in [
+        ("gemma prefill", (LM_BATCH, LM_PROMPT, 8, 4, 256), dict(logit_cap=50.0),
+         torch.bfloat16),
         ("gemma prefill local", (LM_BATCH, LM_PROMPT, 8, 4, 256),
-         dict(logit_cap=50.0, window=4096)),
-        ("S 8192 window 4096", (1, 8192, 8, 4, 256), dict(logit_cap=50.0, window=4096)),
+         dict(logit_cap=50.0, window=4096), torch.bfloat16),
+        ("training B 1 fp32", (1, LM_TRAIN_S, 8, 4, 256), dict(logit_cap=50.0), torch.float32),
+        ("training B 1 bf16", (1, LM_TRAIN_S, 8, 4, 256), dict(logit_cap=50.0), torch.bfloat16),
+        ("S 8192 window 4096", (1, 8192, 8, 4, 256), dict(logit_cap=50.0, window=4096),
+         torch.bfloat16),
     ]:
-        sets = [inputs(b, s_, s_, h, kv, d, torch.bfloat16) for _ in range(2)]
+        sets = [inputs(b, s_, s_, h, kv, d, dtype) for _ in range(2)]
         compare(tag, *sets[0], **kw)
         kern = lambda q, k, v: fk.flash_attention_fwd_cuda(q, k, v, **kw)  # noqa: E731
         ref_ = lambda q, k, v: plain(q, k, v, **kw)  # noqa: E731
         t_k = device_ms(kern, sets, calls=8, replays=5)
         t_p = device_ms(ref_, sets, calls=2, replays=3)
         e_k = time_ms(kern, sets, 10)
-        b_ms, b_by, nbytes, qk, pv = flash_bound(b, s_, s_, h, kv, d, 2, True,
-                                                 kw.get("window"), 0)
+        item = 2 if dtype == torch.bfloat16 else 4
+        b_ms, b_by, nbytes, _, note = flash_bound(b, s_, s_, h, kv, d, item, True,
+                                                  kw.get("window"), 0)
         timing[tag] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        log(f"  time {tag} (B={b} S={s_} H={h} KV={kv} D={d} bf16 {kw}): device ms per call "
-            f"(CUDA graph) kernel {t_k:.4f}, plain {t_p:.4f}; eager kernel {e_k:.4f}; bound "
-            f"{b_ms:.4f} ms ({b_by}: q k^T {qk / 1e9:.2f} GFLOP at the bf16 tensor-core rate, "
-            f"{qk / BF16_FLOPS * 1e3:.4f} ms, + p v {pv / 1e9:.2f} GFLOP at the fp32 rate, "
-            f"{pv / FP32_FLOPS * 1e3:.4f} ms; {nbytes / 1e6:.2f} MB, "
+        log(f"  time {tag} (B={b} S={s_} H={h} KV={kv} D={d} {str(dtype)[6:]} {kw}): device ms "
+            f"per call (CUDA graph) kernel {t_k:.4f}, plain {t_p:.4f}; eager kernel {e_k:.4f}; "
+            f"bound {b_ms:.4f} ms ({b_by}: {note}; {nbytes / 1e6:.2f} MB, "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); kernel at {100 * b_ms / t_k:.1f}% of "
             "the bound")
         if tag == "gemma prefill":
@@ -1310,7 +1429,10 @@ def flash_phase() -> dict:
                 timing[tag]["library_ms"] = lib["bf16"]
         del sets
     torch.cuda.empty_cache()
-    return dict(max_abs_err=max(errs.values()), errs=errs, timing=timing)
+    log(f"  K9 against `ref.flash_attention_mma` (the CPU tests' emulation of its "
+        f"arithmetic) at the small shapes, by the same gates: max_abs_err {emulation:.3g}")
+    return dict(max_abs_err=max(errs.values()), errs=errs, timing=timing,
+                emulation_err=emulation)
 
 
 
@@ -1319,20 +1441,24 @@ def flash_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 def flash_bwd_bound(b, sq, skv, h, kv, d, itemsize, causal, window, q_offset) -> tuple:
-    """(ms, "bytes" or "operations", bytes, flops at the bf16 rate, flops at
-    the fp32 rate): q, k, v, dO, lse and D read once, dq, dk, dv written
-    once; 10 D flops per unmasked (query, key) pair, five D-long products
-    (s, dp, dv, dq, dk). With bf16 inputs q k^T and dO v^T multiply bf16
-    values (exact in fp32) and run at the bf16 tensor-core rate, the
-    other three (p and ds are fp32) at the fp32 rate; with fp32 inputs all
-    five at the fp32 rate. The bound is the larger of the two times."""
+    """(ms, "bytes" or "operations", bytes, flops of each product, note):
+    q, k, v, dO, lse and D read once, dq, dk, dv written once; 2 D flops
+    per unmasked (query, key) pair for each of the five products (s, dp,
+    dv, dq, dk), counted as K10 runs them on the tensor cores: bf16
+    inputs s and dp in one pass (exact), dv, dq and dk in two (p and ds in
+    two bf16 terms) at 989 TFLOP/s; fp32 inputs three tf32 passes each at
+    495. The five products' times add."""
     nbytes = (3 * b * sq * h * d + 4 * b * skv * kv * d) * itemsize + 2 * b * h * sq * 4
-    pairs = b * h * live_pairs(sq, skv, causal, window, q_offset)
-    at_bf16 = 4 * d * pairs if itemsize == 2 else 0
-    at_fp32 = 10 * d * pairs - at_bf16
+    flops = b * h * live_pairs(sq, skv, causal, window, q_offset) * 2 * d
+    if itemsize == 2:
+        t_o = 2 * tensor_core_ms(flops, 1, BF16_FLOPS) + 3 * tensor_core_ms(flops, 2, BF16_FLOPS)
+        note = (f"5 products of {flops / 1e9:.2f} GFLOP: s, dp x 1 and dv, dq, dk x 2 passes "
+                "at the bf16 tensor-core rate")
+    else:
+        t_o = 5 * tensor_core_ms(flops, 3, TF32_FLOPS)
+        note = f"5 products of {flops / 1e9:.2f} GFLOP x 3 tf32 passes at 495 TFLOP/s"
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = (at_bf16 / BF16_FLOPS + at_fp32 / FP32_FLOPS) * 1e3
-    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, at_bf16, at_fp32
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), nbytes, flops, note
 
 
 def flex_fwd_bwd_yardstick(sets: list, kw: dict, plain_grads) -> dict:
@@ -1396,6 +1522,7 @@ def flash_bwd_phase(dev=None) -> dict:
     dev = torch.device(dev or "cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
     errs = {"fp32": 0.0, "bf16": 0.0}
+    emulation = 0.0  # max |kernel - the CPU tests' emulation of its arithmetic|
 
     def fold(x, r):
         b, s_, n, d = x.shape
@@ -1424,25 +1551,44 @@ def flash_bwd_phase(dev=None) -> dict:
 
         return dq.reshape(b, h, sq, d).transpose(1, 2).to(q.dtype), group(dk), group(dv)
 
-    def compare(tag, args, **kw):
-        got = fk.flash_attention_bwd_cuda(*args, **kw)
-        want = plain(*args, **kw)
-        bf16 = args[0].dtype == torch.bfloat16
+    def emulated(q, k, v, do, lse, dsum, **kw):
+        """The CPU tests' emulation of the kernel's arithmetic, GQA read
+        as the kernel reads it."""
+        b, sq, h, d = q.shape
+        skv, kv = k.shape[1], k.shape[2]
+        dq, dk, dv = fr.flash_attention_bwd_mma(
+            fold(q, 1), fold(k, 1), fold(v, 1), fold(do, 1), lse.reshape(b * h, sq),
+            dsum.reshape(b * h, sq), **kw)
+        unfold = lambda x, n: x.reshape(b, n, -1, d).transpose(1, 2)  # noqa: E731
+        return unfold(dq, h), unfold(dk, kv), unfold(dv, kv)
+
+    def gate(tag, got, want):
         es = []
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            if bf16:  # one bf16 ulp, atol for fp32 sums of both signs in another order
+            if g.dtype == torch.bfloat16:  # one bf16 ulp, atol for fp32 sums in another order
                 scale = float(w.float().abs().max())
                 es.append(close_err(g, w, f"{tag} {name}", rtol=BF16_RTOL,
                                     atol=ATOL + RTOL * scale))
             else:
                 es.append(close_err(g, w, f"{tag} {name}", sums=True))
-        key = "bf16" if bf16 else "fp32"
+        return es
+
+    def compare(tag, args, **kw):
+        nonlocal emulation
+        got = fk.flash_attention_bwd_cuda(*args, **kw)
+        es = gate(tag, got, plain(*args, **kw))
+        key = "bf16" if args[0].dtype == torch.bfloat16 else "fp32"
         errs[key] = max(errs[key], *es)
+        em = ""
+        if tag == "small":
+            ee = gate(tag + " vs emulation", got, emulated(*args, **kw))
+            emulation = max(emulation, *ee)
+            em = f"; against the emulation {max(ee):.3g}"
         q, k = args[0], args[1]
         log(f"  {tag}: B={q.shape[0]} Sq={q.shape[1]} Skv={k.shape[1]} H={q.shape[2]} "
             f"KV={k.shape[2]} D={q.shape[3]} {key} {kw}: max_abs_err dq {es[0]:.3g}, dk "
-            f"{es[1]:.3g}, dv {es[2]:.3g} ok")
-        del got, want
+            f"{es[1]:.3g}, dv {es[2]:.3g}{em} ok")
+        del got
         return args
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -1473,14 +1619,13 @@ def flash_bwd_phase(dev=None) -> dict:
             t_k = device_ms(kern, sets, calls=6, replays=4)
             t_p = device_ms(ref_, sets, calls=2, replays=3)
             item = 2 if dtype == torch.bfloat16 else 4
-            b_ms, b_by, nbytes, f16, f32 = flash_bwd_bound(b, s_, s_, h, kv, d, item, True,
-                                                           kw.get("window"), 0)
+            b_ms, b_by, nbytes, _, note = flash_bwd_bound(b, s_, s_, h, kv, d, item, True,
+                                                          kw.get("window"), 0)
             key = f"{tag} {'bf16' if item == 2 else 'fp32'}"
             timing[key] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
             log(f"  time {key} (B={b} S={s_} H={h} KV={kv} D={d} {kw}): device ms per call "
                 f"(CUDA graph) kernel {t_k:.4f}, plain {t_p:.4f}; bound {b_ms:.4f} ms ({b_by}: "
-                f"{f16 / 1e9:.2f} GFLOP at the bf16 tensor-core rate + {f32 / 1e9:.2f} GFLOP at "
-                f"the fp32 rate; {nbytes / 1e6:.2f} MB, {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+                f"{note}; {nbytes / 1e6:.2f} MB, {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
                 f"kernel at {100 * b_ms / t_k:.1f}% of the bound")
             if key == "training B 4 bf16":
                 grads = plain(*sets[0], **kw)
@@ -1489,7 +1634,10 @@ def flash_bwd_phase(dev=None) -> dict:
                 timing[key]["library"] = lib
             del sets
             torch.cuda.empty_cache()
-    return dict(max_abs_err=max(errs.values()), errs=errs, timing=timing)
+    log(f"  K10 against `ref.flash_attention_bwd_mma` (the CPU tests' emulation of its "
+        f"arithmetic) at the small shapes, by the same gates: max_abs_err {emulation:.3g}")
+    return dict(max_abs_err=max(errs.values()), errs=errs, timing=timing,
+                emulation_err=emulation)
 
 
 # ---------------------------------------------------------------------------
@@ -1940,6 +2088,22 @@ def lm_train_phase(cfg=None, dev=None) -> dict:
                 idle=idle, gate=gate)
 
 
+def hmma_count(source) -> int:
+    """The tensor-core instructions (`HMMA`) in the SASS of a built
+    library (`cuobjdump -sass`): what shows that its products run on the
+    tensor cores."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build._target(source))], capture_output=True,
+                          text=True, check=True).stdout
+    return len(re.findall(r"\bHMMA\.", sass))
+
+
 def percentile(values: list[float], p: float) -> float:
     vs = sorted(values)
     return vs[min(len(vs) - 1, max(0, round(p / 100.0 * (len(vs) - 1))))]
@@ -1985,6 +2149,12 @@ def main() -> int:
         lib()
     log(f"[build] {', '.join(str(x.relative_to(ROOT)) for x in sources)} built and "
         f"loaded in {time.perf_counter() - t0:.2f} s")
+    sass = {}
+    for src in (flk.SOURCE, flk.BWD_SOURCE):
+        sass[src.name] = n = hmma_count(src)
+        check(n > 0, f"{src.name}: no HMMA instruction in its SASS")
+        log(f"[build] {src.name}: {n} HMMA (tensor-core) instructions in its SASS "
+            f"(cuobjdump -sass)")
 
     # the serving route at full width: weights, tower, IVF index
     dev = torch.device("cuda")
@@ -2154,7 +2324,15 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    t = fres["timing"]["gemma prefill"]
+        if name.startswith("snis_covgrad"):  # the wide path, B 32, S 1000
+            modes = ("fwd", "covgrad") if name.endswith("fwd") else ("bwd",)
+            entries[-1]["wide_l"] = {
+                f"L {ll} {mode}": {k: tk["snis_covgrad_wide"][ll][mode][k]
+                                   for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                for ll in tk["snis_covgrad_wide"] for mode in modes}
+    ft = fres["timing"]
+    t = ft["gemma prefill"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     entries.append({
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -2168,12 +2346,15 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
+        "shape": "B 8, S 2048, H 8, KV 4, D 256, causal, cap 50, bf16 (the Gemma-2 prefill)",
+        "training_b1_fp32": {k: ft["training B 1 fp32"][k] for k in keys},
+        "training_b1_bf16": {k: ft["training B 1 bf16"][k] for k in keys},
+        "hmma_in_sass": sass[flk.SOURCE.name],
     })
     # K10's headline is the main path's shape: one 2048-token row per
     # microbatch, fp32 parameters in 5 of the 6 steps
     bt = bres["timing"]
     t, t4 = bt["main path B 1 fp32"], bt["training B 4 bf16"]
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     entries.append({
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -2197,6 +2378,7 @@ def main() -> int:
             "port_k9_k10_ms": t4["library"]["port_ms"],
             "note": "forward + backward at B 4 bf16, each eager and timed with CUDA events",
         },
+        "hmma_in_sass": sass[flk.BWD_SOURCE.name],
     })
     # K8's headline is the ragged fp32 DLRM bags; the other shapes beside it
     et = eres["timing"]

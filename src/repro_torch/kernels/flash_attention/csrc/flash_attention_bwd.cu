@@ -8,144 +8,80 @@
 // (flash_attention_fwd.cu) from the saved per-row logsumexp lse and
 // D = rowsum(dO * O), both fp32 [B, H, Sq], for each live (query, key)
 // pair of query head h and its KV head g = h / (H / KV):
-//   s     = (q * scale) . k                   scale = 1 / sqrt(D), fp32
+//   s     = scale * (q . k)                    scale = 1 / sqrt(D), fp32
 //   t     = tanh(s / cap), s = cap * t         when a cap is set
 //   dcap  = 1 - t * t                          (on the uncapped s)
 //   s     = live ? s : -2e38                   (the reference's NEG_INF)
 //   p     = exp(s - lse)
 //   dp    = dO . v
 //   ds    = live ? p * (dp - D) * dcap : 0
-//   dq   += ds k          (times scale at the end)
-//   dk   += ds (q * scale)
-//   dv   += p dO
+//   dq    = scale * sum ds k                   (scaled once, at the end)
+//   dk    = scale * sum ds q
+//   dv    = sum p dO
 // with live = kpos < seq_kv, and kpos <= qpos when causal, and qpos - kpos
 // < window when a window is set (qpos = q_offset + row). Inputs fp32 or
-// bf16 in the model's [B, S, heads, D] layout, read in place; every
-// product and sum is an IEEE fp32 FMA on the inputs upcast, as the
-// reference computes them; dq, dk, dv are written in the inputs' type.
+// bf16 in the model's [B, S, heads, D] layout, read in place; dq, dk, dv
+// written in the inputs' type. All five products run on the tensor cores
+// with fp32 accumulation (flash_attention_common.cuh): s and dp exactly
+// in bf16 for bf16 inputs, the p and ds products with p and ds split into
+// two bf16 terms; for fp32 inputs all five as 3xTF32. Each tile's product
+// is summed in a fresh accumulator and added to the output's with an
+// IEEE fp32 add (the tensor cores' own accumulation cuts). The reference
+// scales q before its products; here the scale multiplies the fp32 sums
+// of s, dq and dk (one rounding apart; the same for D 16, 64 and 256).
 //
 // Bound. At the Gemma-2 training shape (B 4, H 8, KV 4, S 2048, D 256,
 // causal) the function does five D-long products per live pair (s, dp,
 // dv, dq, dk: 10 D flops), 172 GFLOP, and must move Q, K, V, dO, dQ, dK,
-// dV, lse and D once, about 100 MB: the kernels are bound by operations
-// (fp32 FMAs here), not by device memory.
+// dV, lse and D once, about 100 MB: bound by the tensor cores' operations
+// (in bf16 two products once and three twice for the split, at 989
+// TFLOP/s; in fp32 three tf32 products each at 495).
 //
 // What the design does about it:
 //   * The TPU kernels walk a sequential grid and carry dq (or dk, dv) in
 //     scratch across it; GPU blocks run in no order. Here each output
 //     tile has one block that loops over its inputs itself, with its fp32
-//     accumulator in registers, and writes the tile once: no atomics, and
-//     every sum is taken in a fixed order (the run-to-run result is bit
-//     for bit the same).
-//   * dq kernel: a block per (b, h, 64-row q tile) holds Q (scaled) and dO
-//     in shared memory and loops over the live K/V tiles (as the forward
-//     does), recomputing s, p, dp and ds; ds goes through shared memory to
-//     the ds K product. The next K/V tile is loaded into registers while
-//     the current one is used.
-//   * dk/dv kernel: a block per (b, KV head, key tile) holds K and V in
-//     shared memory and loops over the n_rep query heads of its group and,
-//     for each, over the live 64-row q tiles: the GQA group sum happens in
-//     the fp32 accumulators, and nothing is repeated, padded or
-//     transposed. p and ds go through shared memory to the p^T dO and
-//     ds^T Q products.
+//     accumulators in registers (mma fragments), and writes the tile
+//     once: no atomics, and every sum is taken in a fixed order (the
+//     run-to-run result is bit for bit the same).
+//   * dq kernel: a block per (b, h, 64-row q tile), four warps of 16 rows,
+//     holds Q and dO in shared memory and loops over the live K/V tiles
+//     (as the forward does), recomputing s, p, dp and ds on the warp's
+//     accumulator fragments; ds goes from them straight into the A
+//     operand of the ds K product. At D 256, where one block fills an
+//     SM's shared memory, a second group of four warps takes the other
+//     half of each tile's keys; the two dq sums are added at the end, in
+//     that order.
+//   * dk/dv kernel: a block per (b, KV head, key tile of BKV keys), eight
+//     warps, holds K and V in shared memory and loops over the n_rep query
+//     heads of its group and, for each, over the live 64-row q tiles: the
+//     GQA group sum happens in the fp32 accumulators, and nothing is
+//     repeated, padded or transposed. It computes s^T = k q^T and dp^T =
+//     v dO^T (keys as rows), so p^T and ds^T come out in the layout of the
+//     A operand of dv += p^T dO and dk += ds^T q; they pass through shared
+//     memory (split) because the second pair of products divides the warps
+//     over D columns: a warp owns 16 keys and D / WN columns of both dk and
+//     dv (WN = 4 from D 64; 32 keys a block there), which keeps its
+//     accumulators at 64 registers at D 256 and the main path's B 1,
+//     S 2048 at 256 key tiles, enough to fill the card. Its q tiles are 64
+//     rows (32 for fp32 at D 256).
+//   * Tiles stay in the inputs' type in shared memory, loaded by 16-byte
+//     `cp.async`, the streamed tiles (K/V in dq, Q/dO in dk/dv) in a ring
+//     of two stages (fp32 at D 256 takes 16-key tiles in dq and 32-row q
+//     tiles in dk/dv to fit them). Above 48 KB shared memory is opted in,
+//     once per kernel and device.
 //   * Tiles with no live pair are not visited (above the causal diagonal,
 //     behind the window, past seq_kv); a key tile with none writes zeros.
-//   * 256 threads as 16 x 16. Scores: thread (ty, tx) takes q rows 4 ty ..
-//     4 ty + 3 and keys tx + 16 j. dq: those four rows, D / 16 columns.
-//     dk, dv: key rows BK / 16 ty .. and D / 16 columns. Tiles are fp32
-//     rows padded by 4 floats in shared memory, so 16-byte reads along D
-//     fall on distinct bank groups.
-//   * Shared memory: dq (2 * 64 + 2 BK) (D + 4) + 64 (BK + 4) floats, dk/dv
-//     64 (BK + 4) floats more; BK = 32 keys for D >= 128 (204 KB and 213
-//     KB at D 256) and 64 below. Above 48 KB it is opted in, once per
-//     kernel and device.
+//     The longest blocks start first.
 
 #include "flash_attention_common.cuh"
 
 namespace {
 
-template <int D>
-struct Tiles : TileShape<D> {
-  using S = TileShape<D>;
-  static constexpr int RK = S::BK / 16;  // dk / dv rows per thread
-  static constexpr size_t kSmemDq =
-      (size_t)(2 * kBQ * S::SD + 2 * S::BK * S::SD + kBQ * S::SP) * sizeof(float);
-  static constexpr size_t kSmemDkv =
-      (size_t)(2 * kBQ * S::SD + 2 * S::BK * S::SD + 2 * kBQ * S::SP) * sizeof(float);
-};
+constexpr int kBQ = 64;  // query rows per tile
 
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_tile(float* s, const T* base, long stride, int valid,
-                                          float mul) {
-  TileRegs<T, D, R> r;
-  r.load(base, stride, valid);
-  r.store(s, mul);
-}
-
-// VEC consecutive floats of a shared row into v
-template <int VEC>
-__device__ __forceinline__ void read_vec(const float* src, float* v) {
-  if constexpr (VEC == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(src);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else if constexpr (VEC == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(src);
-    v[0] = x.x; v[1] = x.y;
-  } else {
-    v[0] = src[0];
-  }
-}
-
-// The thread's OC columns of a shared row: column g * 16 VEC + tx VEC + e.
-template <int D>
-__device__ __forceinline__ void read_cols(const float* row, int tx, float* v) {
-  constexpr int OC = Tiles<D>::OC, VEC = Tiles<D>::VEC;
-#pragma unroll
-  for (int g = 0; g < OC / VEC; ++g) read_vec<VEC>(row + g * 16 * VEC + tx * VEC, v + g * VEC);
-}
-
-// s = Q K^T and dp = dO V^T for q rows 4 ty + i, keys tx + 16 j of the
-// shared tiles (one pass over D).
-template <int D>
-__device__ __forceinline__ void scores(const float* sQ, const float* sDO, const float* sK,
-                                       const float* sV, int ty, int tx,
-                                       float (&s)[4][Tiles<D>::KC],
-                                       float (&dp)[4][Tiles<D>::KC]) {
-  constexpr int SD = Tiles<D>::SD, KC = Tiles<D>::KC;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < KC; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 qv[4], ov[4], kv[KC], vv[KC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = *reinterpret_cast<const float4*>(sQ + (ty * 4 + i) * SD + d);
-      ov[i] = *reinterpret_cast<const float4*>(sDO + (ty * 4 + i) * SD + d);
-    }
-#pragma unroll
-    for (int j = 0; j < KC; ++j) {
-      kv[j] = *reinterpret_cast<const float4*>(sK + (tx + 16 * j) * SD + d);
-      vv[j] = *reinterpret_cast<const float4*>(sV + (tx + 16 * j) * SD + d);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < KC; ++j) {
-        s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-        s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-        s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-        s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        dp[i][j] = fmaf(ov[i].x, vv[j].x, dp[i][j]);
-        dp[i][j] = fmaf(ov[i].y, vv[j].y, dp[i][j]);
-        dp[i][j] = fmaf(ov[i].z, vv[j].z, dp[i][j]);
-        dp[i][j] = fmaf(ov[i].w, vv[j].w, dp[i][j]);
-      }
-  }
-}
-
-// p and ds of one score in the reference's order; returns p, writes ds.
+// p and ds of one score (already scaled) in the reference's order; returns
+// p, writes ds.
 __device__ __forceinline__ float p_ds(float s, float dp, float lse, float dsum, bool live,
                                       float cap, float* ds) {
   float dcap = 1.f;
@@ -162,35 +98,50 @@ __device__ __forceinline__ float p_ds(float s, float dp, float lse, float dsum, 
   return p;
 }
 
-struct Mask {
-  int Sq, seq_kv, causal, window, q_offset;
-  __device__ __forceinline__ bool live(int r, int kpos) const {
-    const int qpos = q_offset + r;
-    return r < Sq && kpos < seq_kv && (!causal || kpos <= qpos) &&
-           (window <= 0 || qpos - kpos < window);
-  }
+// ---------------------------------------------------------------------------
+// dq: grid (ceil(Sq / 64), H, B), 128 threads (256 with KSPLIT 2)
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+struct DqTiles {
+  using M = typename MmaOf<T>::type;
+  // keys per tile: fp32 at D 256 takes 16, so two stages fit beside Q, dO
+  static constexpr int BK =
+      sizeof(T) == 4 && D == 256 ? 16 : (D == 256 || (sizeof(T) == 4 && D >= 128)) ? 32 : 64;
+  static constexpr int LD = D + M::EPC;
+  static constexpr int STAGES =
+      (size_t)(2 * kBQ + 4 * BK) * LD * sizeof(T) <= kMaxSmem ? 2 : 1;
+  static constexpr size_t kSmem = (size_t)(2 * kBQ + 2 * STAGES * BK) * LD * sizeof(T);
+  // Where one block fills an SM's shared memory (D 256), two groups of
+  // four warps split each tile's keys, their dq sums added at the end
+  static constexpr int KSPLIT = kSmem > kMaxSmem / 2 ? 2 : 1;
+  static constexpr int kThreads = 128 * KSPLIT;
+  static constexpr int BKG = BK / KSPLIT;  // a warp group's keys of each tile
+  static_assert(kSmem <= kMaxSmem, "shared memory");
+  static_assert(KSPLIT == 1 || (size_t)kBQ * D * 4 <= (size_t)2 * STAGES * BK * LD * sizeof(T),
+                "the groups' sum fits the K/V stages");
 };
 
-// grid (ceil(Sq / 64), H, B), 256 threads. q, dout, dq [B, Sq, H, D]; k, v
-// [B, Skv, KV, D]; lse, dsum [B, H, Sq]. window <= 0: none; cap <= 0: none.
+// q, dout, dq [B, Sq, H, D]; k, v [B, Skv, KV, D]; lse, dsum [B, H, Sq].
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(DqTiles<T, D>::kThreads, 1) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ dsum, T* __restrict__ dq, int H, int KV, int Sq, int Skv,
     int seq_kv, int causal, int window, float cap, float scale, int q_offset) {
-  using Tl = Tiles<D>;
-  constexpr int BK = Tl::BK, SD = Tl::SD, SP = Tl::SP, KC = Tl::KC, OC = Tl::OC,
-                VEC = Tl::VEC;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;             // [64][SD], scaled
-  float* sDO = sQ + kBQ * SD;   // [64][SD]
-  float* sK = sDO + kBQ * SD;   // [BK][SD]
-  float* sV = sK + BK * SD;     // [BK][SD]
-  float* sDS = sV + BK * SD;    // [64][SP]
+  using Tl = DqTiles<T, D>;
+  using M = typename Tl::M;
+  constexpr int BK = Tl::BK, BKG = Tl::BKG, LD = Tl::LD, STAGES = Tl::STAGES, NT = BKG / 8,
+                DT = D / 8, kDqThreads = Tl::kThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [64][LD]
+  T* sDO = sQ + kBQ * LD;                  // [64][LD]
+  T* sKV = sDO + kBQ * LD;                 // STAGES x ([BK][LD] K, [BK][LD] V)
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int warp = (threadIdx.x >> 5) & 3;  // row warp: rows warp * 16 ..
+  const int grp = threadIdx.x >> 7;         // warp group: keys grp * BKG .. of each tile
+  const int ko = grp * BKG;
   const int qt = gridDim.x - 1 - blockIdx.x;  // the longest rows first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -211,201 +162,362 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int t_beg = kbeg / BK;
   const int t_end = kend > kbeg ? (kend + BK - 1) / BK : t_beg;
 
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = t * BK;
+    T* sK = sKV + stage * 2 * BK * LD;
+    load_tile<T, BK, D, LD, kDqThreads>(sK, kb + k0 * kstride, kstride, min(BK, Skv - k0));
+    load_tile<T, BK, D, LD, kDqThreads>(sK + BK * LD, vb + k0 * kstride, kstride,
+                                        min(BK, Skv - k0));
+  };
   const int valid_q = min(kBQ, Sq - q0);
-  load_tile<T, D, kBQ>(sQ, q + qoff, qstride, valid_q, scale);
-  load_tile<T, D, kBQ>(sDO, dout + qoff, qstride, valid_q, 1.f);
-  float lse_r[4], dsum_r[4];
+  load_tile<T, kBQ, D, LD, kDqThreads>(sQ, q + qoff, qstride, valid_q);
+  load_tile<T, kBQ, D, LD, kDqThreads>(sDO, dout + qoff, qstride, valid_q);
+  if (STAGES == 2 && t_beg < t_end) load_kv(t_beg, 0);
+  cp_async_commit();
+
+  float lse_r[2], dsum_r[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + warp * 16 + g + 8 * i;
     const long at = ((long)b * H + h) * Sq + r;
     lse_r[i] = r < Sq ? lse[at] : 0.f;
     dsum_r[i] = r < Sq ? dsum[at] : 0.f;
   }
-  TileRegs<T, D, BK> kr, vr;
-  if (t_beg < t_end) {
-    const int k0 = t_beg * BK;
-    kr.load(kb + k0 * kstride, kstride, min(BK, Skv - k0));
-    vr.load(vb + k0 * kstride, kstride, min(BK, Skv - k0));
-  }
-
-  float acc[4][OC];
+  float acc[DT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
+  for (int n = 0; n < DT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int t = t_beg; t < t_end; ++t) {
-    __syncthreads();  // the previous tile's reads of sK, sV, sDS are done
-    kr.store(sK, 1.f);
-    vr.store(sV, 1.f);
-    __syncthreads();
-    const int k0 = t * BK;
-    if (t + 1 < t_end) {  // in flight while this tile is used
-      const int k1 = k0 + BK;
-      kr.load(kb + k1 * kstride, kstride, min(BK, Skv - k1));
-      vr.load(vb + k1 * kstride, kstride, min(BK, Skv - k1));
+    const int stage = STAGES == 2 ? (t - t_beg) & 1 : 0;
+    if (STAGES == 2) {
+      if (t + 1 < t_end) load_kv(t + 1, stage ^ 1);  // in flight while this tile is used
+    } else {
+      load_kv(t, 0);
     }
-
-    float s[4][KC], dp[4][KC];
-    scores<D>(sQ, sDO, sK, sV, ty, tx, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < KC; ++j) {
-        const int r = q0 + ty * 4 + i;
-        const int kpos = k0 + tx + 16 * j;
-        float ds;
-        p_ds(s[i][j], dp[i][j], lse_r[i], dsum_r[i], mask.live(r, kpos), cap, &ds);
-        sDS[(ty * 4 + i) * SP + tx + 16 * j] = ds;
-      }
+    cp_async_commit();
+    if (STAGES == 2) cp_async_wait<1>();
+    else cp_async_wait<0>();
     __syncthreads();
+    const T* sK = sKV + stage * 2 * BK * LD;
+    const T* sV = sK + BK * LD;
 
-    // acc += dS K over this tile's keys, in key order
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 dv4[4];
+    // s = q k^T and dp = dO v^T for the warp's 16 rows (ss, dps: the small
+    // terms of 3xTF32)
+    float s[NT][4], ss[NT][4], dp[NT][4], dps[NT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dv4[i] = *reinterpret_cast<const float4*>(sDS + (ty * 4 + i) * SP + c);
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = ss[n][e] = dp[n][e] = dps[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += M::KS) {
+      typename M::A aq, ao;
+      M::load_a(aq, sQ, LD, warp * 16, kk);
+      M::load_a(ao, sDO, LD, warp * 16, kk);
+#pragma unroll
+      for (int n = 0; n + 1 < NT; n += 2) {
+        typename M::B b0, b1;
+        M::load_b_nk(b0, b1, sK, LD, ko + n * 8, kk);
+        M::mma(s[n], ss[n], aq, b0);
+        M::mma(s[n + 1], ss[n + 1], aq, b1);
+        M::load_b_nk(b0, b1, sV, LD, ko + n * 8, kk);
+        M::mma(dp[n], dps[n], ao, b0);
+        M::mma(dp[n + 1], dps[n + 1], ao, b1);
+      }
+      if constexpr (NT % 2) {
+        typename M::B b0;
+        M::load_b_nk1(b0, sK, LD, ko + (NT - 1) * 8, kk);
+        M::mma(s[NT - 1], ss[NT - 1], aq, b0);
+        M::load_b_nk1(b0, sV, LD, ko + (NT - 1) * 8, kk);
+        M::mma(dp[NT - 1], dps[NT - 1], ao, b0);
+      }
+    }
+    // ds, in place of s
+    const int k0 = t * BK;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float kk[OC];
-        read_cols<D>(sK + (c + e) * SD, tx, kk);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float w = e == 0 ? dv4[i].x : e == 1 ? dv4[i].y : e == 2 ? dv4[i].z : dv4[i].w;
-#pragma unroll
-          for (int cc = 0; cc < OC; ++cc) acc[i][cc] = fmaf(w, kk[cc], acc[i][cc]);
-        }
+        const int i = e >> 1;
+        const int r = q0 + warp * 16 + g + 8 * i;
+        const int kpos = k0 + ko + n * 8 + 2 * tq + (e & 1);
+        float ds;
+        const float sv = M::kSplitInputs ? s[n][e] + ss[n][e] : s[n][e];
+        const float dpv = M::kSplitInputs ? dp[n][e] + dps[n][e] : dp[n][e];
+        p_ds(sv * scale, dpv, lse_r[i], dsum_r[i], mask.live(r, kpos), cap, &ds);
+        s[n][e] = ds;
       }
+    // acc += ds k over this tile's keys: ds split, the tile's product in
+    // fresh accumulators, then added to acc
+    typename M::template SA<2> da[BKG / M::KS];
+#pragma unroll
+    for (int kk = 0; kk < BKG / M::KS; ++kk) M::template from_acc<2>(da[kk], s, kk);
+#pragma unroll
+    for (int n = 0; n < DT; n += 2) {
+      float tm[2][4] = {}, ts[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < BKG / M::KS; ++kk) {
+        typename M::B b0, b1;
+        M::template load_b_kn<true>(b0, b1, sK, LD, ko + kk * M::KS, n * 8);
+        M::mma(tm[0], ts[0], da[kk], b0);
+        M::mma(tm[1], ts[1], da[kk], b1);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n + j][e] += tm[j][e] + ts[j][e];
     }
+    __syncthreads();  // every read of this stage is done before it is refilled
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  if constexpr (Tl::KSPLIT == 2) {
+    // group 1's dq sum into group 0's, through the free K/V stages
+    float* xa = reinterpret_cast<float*>(sKV);  // [64][D]
+    __syncthreads();
+    if (grp == 1) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < DT; ++n)
+          store2(xa + (warp * 16 + g + 8 * i) * D + n * 8 + 2 * tq, acc[n][2 * i],
+                 acc[n][2 * i + 1]);
+    }
+    __syncthreads();
+    if (grp == 1) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(xa + (warp * 16 + g + 8 * i) * D + n * 8 + 2 * tq);
+        acc[n][2 * i] += x.x;
+        acc[n][2 * i + 1] += x.y;
+      }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + warp * 16 + g + 8 * i;
     if (r >= Sq) continue;
     T* row = dq + ((long)b * Sq + r) * qstride + (long)h * D;
 #pragma unroll
-    for (int g = 0; g < OC / VEC; ++g)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        row[g * 16 * VEC + tx * VEC + e] = to_out(acc[i][g * VEC + e] * scale, T());
+    for (int n = 0; n < DT; ++n)
+      store2(row + n * 8 + 2 * tq, acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
   }
 }
 
-// grid (ceil(Skv / BK), KV, B), 256 threads. Layouts as the dq kernel;
-// dk, dv [B, Skv, KV, D].
+// ---------------------------------------------------------------------------
+// dk, dv: grid (ceil(Skv / BKV), KV, B), 256 threads
+// ---------------------------------------------------------------------------
+
+constexpr int kDkvWarps = 8;
+constexpr int kDkvThreads = 32 * kDkvWarps;
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
+struct DkvTiles {
+  using M = typename MmaOf<T>::type;
+  // q rows per tile: fp32 at D 256 takes 32, so two stages of Q, dO fit
+  static constexpr int BQ = sizeof(T) == 4 && D == 256 ? 32 : 64;
+  static constexpr int WN = D >= 64 ? 4 : D / 16;  // warps across D (and across q)
+  static constexpr int WK = kDkvWarps / WN;        // warps across keys, 16 keys each
+  static constexpr int BKV = 16 * WK;              // keys per block
+  static constexpr int QW = BQ / WN;               // q columns of a warp's s^T
+  static constexpr int DW = D / WN;                // d columns of a warp's dk, dv
+  static constexpr int LD = D + M::EPC;
+  static constexpr int LDP = BQ + M::EPC;  // row stride of the p^T, ds^T planes
+  static constexpr int PLANE = BKV * LDP;
+  static constexpr size_t kFixed =  // K, V, then p^T's and ds^T's planes
+      (size_t)(2 * BKV * LD + 2 * M::kPlanes * PLANE) * sizeof(T);
+  static constexpr size_t kStage =  // Q, dO, then lse, D
+      (size_t)2 * BQ * LD * sizeof(T) + 2 * BQ * sizeof(float);
+  static constexpr int STAGES = kFixed + 2 * kStage <= kMaxSmem ? 2 : 1;
+  static constexpr size_t kSmem = kFixed + STAGES * kStage;
+  static_assert(kSmem <= kMaxSmem, "shared memory");
+  static_assert(QW % 8 == 0 && DW % 16 == 0, "whole n-tiles; pairs across D");
+};
+
+// Layouts as the dq kernel; dk, dv [B, Skv, KV, D].
+template <typename T, int D>
+__global__ void __launch_bounds__(kDkvThreads, 1) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ dsum, T* __restrict__ dk, T* __restrict__ dv, int H, int KV,
     int Sq, int Skv, int seq_kv, int causal, int window, float cap, float scale,
     int q_offset) {
-  using Tl = Tiles<D>;
-  constexpr int BK = Tl::BK, SD = Tl::SD, SP = Tl::SP, KC = Tl::KC, OC = Tl::OC,
-                VEC = Tl::VEC, RK = Tl::RK;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;             // [64][SD], scaled
-  float* sDO = sQ + kBQ * SD;   // [64][SD]
-  float* sK = sDO + kBQ * SD;   // [BK][SD]
-  float* sV = sK + BK * SD;     // [BK][SD]
-  float* sP = sV + BK * SD;     // [64][SP]
-  float* sDS = sP + kBQ * SP;   // [64][SP]
+  using Tl = DkvTiles<T, D>;
+  using M = typename Tl::M;
+  constexpr int BQ = Tl::BQ, BKV = Tl::BKV, WN = Tl::WN, QW = Tl::QW, DW = Tl::DW,
+                LD = Tl::LD, LDP = Tl::LDP, PLANE = Tl::PLANE, STAGES = Tl::STAGES;
+  constexpr int NQ = QW / 8, DN = DW / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);  // [BKV][LD]
+  T* sV = sK + BKV * LD;                   // [BKV][LD]
+  T* sP = sV + BKV * LD;                   // p^T, kPlanes x [BKV][LDP]
+  T* sDS = sP + M::kPlanes * PLANE;        // ds^T, the same
+  unsigned char* stage0 = smem_raw + Tl::kFixed;
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * BK;  // the first key tiles see the most rows: first
-  const int g = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wk = warp / WN, wn = warp % WN;
+  const int k0 = blockIdx.x * BKV;  // the first key tiles see the most rows: first
+  const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int n_rep = H / KV;
   const long qstride = (long)H * D;
   const long kstride = (long)KV * D;
-  const long kvoff = ((long)b * Skv + k0) * kstride + (long)g * D;
+  const long kvoff = ((long)b * Skv + k0) * kstride + (long)kvh * D;
   const Mask mask{Sq, seq_kv, causal, window, q_offset};
 
   // the q rows holding a live pair with some key of this tile
-  const int khi = min(k0 + BK, seq_kv) - 1;
-  int r_lo = causal ? max(0, k0 - q_offset) : 0;
+  const int khi = min(k0 + BKV, seq_kv) - 1;
+  const int r_lo = causal ? max(0, k0 - q_offset) : 0;
   int r_hi = window > 0 ? min(Sq - 1, khi + window - 1 - q_offset) : Sq - 1;
   if (khi < k0) r_hi = -1;  // no live key in this tile
-  const int qt_beg = r_lo / kBQ;
-  const int qt_end = r_lo <= r_hi ? r_hi / kBQ + 1 : qt_beg;
+  const int qt_beg = r_lo / BQ;
+  const int nqt = r_lo <= r_hi ? r_hi / BQ + 1 - qt_beg : 0;
+  const int items = n_rep * nqt;  // (head, q tile) pairs, head-major
 
-  float adk[RK][OC], adv[RK][OC];
-#pragma unroll
-  for (int r = 0; r < RK; ++r)
-#pragma unroll
-    for (int c = 0; c < OC; ++c) adk[r][c] = adv[r][c] = 0.f;
+  auto stage_ptr = [&](int st) { return stage0 + st * Tl::kStage; };
+  auto load_q = [&](int item, int st) {
+    const int h = kvh * n_rep + item / nqt;
+    const int q0 = (qt_beg + item % nqt) * BQ;
+    T* sQ = reinterpret_cast<T*>(stage_ptr(st));
+    T* sDO = sQ + BQ * LD;
+    float* sL = reinterpret_cast<float*>(sDO + BQ * LD);
+    const long qoff = ((long)b * Sq + q0) * qstride + (long)h * D;
+    const int valid = min(BQ, Sq - q0);
+    load_tile<T, BQ, D, LD, kDkvThreads>(sQ, q + qoff, qstride, valid);
+    load_tile<T, BQ, D, LD, kDkvThreads>(sDO, dout + qoff, qstride, valid);
+    const long at = ((long)b * H + h) * Sq + q0;
+    for (int c = threadIdx.x; c < 2 * BQ; c += kDkvThreads) {
+      const int r = c % BQ;
+      const float* src = (c < BQ ? lse : dsum) + at + r;
+      cp_async4(sL + c, r < valid ? src : lse, r < valid);
+    }
+  };
 
-  if (qt_beg < qt_end) {
-    const int valid_k = min(BK, Skv - k0);
-    load_tile<T, D, BK>(sK, k + kvoff, kstride, valid_k, 1.f);
-    load_tile<T, D, BK>(sV, v + kvoff, kstride, valid_k, 1.f);
+  if (nqt > 0) {
+    const int valid_k = min(BKV, Skv - k0);
+    load_tile<T, BKV, D, LD, kDkvThreads>(sK, k + kvoff, kstride, valid_k);
+    load_tile<T, BKV, D, LD, kDkvThreads>(sV, v + kvoff, kstride, valid_k);
+    if (STAGES == 2) load_q(0, 0);
   }
-  for (int hh = 0; hh < n_rep; ++hh) {
-    const int h = g * n_rep + hh;
-    for (int qt = qt_beg; qt < qt_end; ++qt) {
-      const int q0 = qt * kBQ;
-      const long qoff = ((long)b * Sq + q0) * qstride + (long)h * D;
-      const int valid_q = min(kBQ, Sq - q0);
-      __syncthreads();  // the previous tile's reads of sQ, sDO, sP, sDS are done
-      load_tile<T, D, kBQ>(sQ, q + qoff, qstride, valid_q, scale);
-      load_tile<T, D, kBQ>(sDO, dout + qoff, qstride, valid_q, 1.f);
-      __syncthreads();
+  cp_async_commit();
 
-      float s[4][KC], dp[4][KC];
-      scores<D>(sQ, sDO, sK, sV, ty, tx, s, dp);
+  float adk[DN][4], adv[DN][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = q0 + ty * 4 + i;
-        const long at = ((long)b * H + h) * Sq + r;
-        const float l = r < Sq ? lse[at] : 0.f;
-        const float dd = r < Sq ? dsum[at] : 0.f;
+  for (int n = 0; n < DN; ++n)
 #pragma unroll
-        for (int j = 0; j < KC; ++j) {
-          const int kpos = k0 + tx + 16 * j;
-          float ds;
-          const float p = p_ds(s[i][j], dp[i][j], l, dd, mask.live(r, kpos), cap, &ds);
-          sP[(ty * 4 + i) * SP + tx + 16 * j] = p;
-          sDS[(ty * 4 + i) * SP + tx + 16 * j] = ds;
-        }
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int item = 0; item < items; ++item) {
+    const int st = STAGES == 2 ? item & 1 : 0;
+    if (STAGES == 2) {
+      if (item + 1 < items) load_q(item + 1, st ^ 1);
+    } else {
+      load_q(item, 0);
+    }
+    cp_async_commit();
+    if (STAGES == 2) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();
+    const T* sQ = reinterpret_cast<const T*>(stage_ptr(st));
+    const T* sDO = sQ + BQ * LD;
+    const float* sLse = reinterpret_cast<const float*>(sDO + BQ * LD);
+    const float* sDsum = sLse + BQ;
+    const int q0 = (qt_beg + item % nqt) * BQ;
+
+    // s^T = k q^T and dp^T = v dO^T: the warp's 16 keys x QW q columns
+    float s[NQ][4], ss[NQ][4], dp[NQ][4], dps[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = ss[n][e] = dp[n][e] = dps[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += M::KS) {
+      typename M::A ak, av;
+      M::load_a(ak, sK, LD, wk * 16, kk);
+      M::load_a(av, sV, LD, wk * 16, kk);
+#pragma unroll
+      for (int n = 0; n + 1 < NQ; n += 2) {
+        typename M::B b0, b1;
+        M::load_b_nk(b0, b1, sQ, LD, wn * QW + n * 8, kk);
+        M::mma(s[n], ss[n], ak, b0);
+        M::mma(s[n + 1], ss[n + 1], ak, b1);
+        M::load_b_nk(b0, b1, sDO, LD, wn * QW + n * 8, kk);
+        M::mma(dp[n], dps[n], av, b0);
+        M::mma(dp[n + 1], dps[n + 1], av, b1);
       }
-      __syncthreads();
-
-      // dv += P^T dO, dk += dS^T Q over this tile's rows, in row order
-#pragma unroll 4
-      for (int rr = 0; rr < kBQ; ++rr) {
-        float pr[RK], dsr[RK], ov[OC], qv[OC];
-        read_vec<RK>(sP + rr * SP + ty * RK, pr);
-        read_vec<RK>(sDS + rr * SP + ty * RK, dsr);
-        read_cols<D>(sDO + rr * SD, tx, ov);
-        read_cols<D>(sQ + rr * SD, tx, qv);
-#pragma unroll
-        for (int r = 0; r < RK; ++r)
-#pragma unroll
-          for (int c = 0; c < OC; ++c) {
-            adv[r][c] = fmaf(pr[r], ov[c], adv[r][c]);
-            adk[r][c] = fmaf(dsr[r], qv[c], adk[r][c]);
-          }
+      if constexpr (NQ % 2) {
+        typename M::B b0;
+        M::load_b_nk1(b0, sQ, LD, wn * QW + (NQ - 1) * 8, kk);
+        M::mma(s[NQ - 1], ss[NQ - 1], ak, b0);
+        M::load_b_nk1(b0, sDO, LD, wn * QW + (NQ - 1) * 8, kk);
+        M::mma(dp[NQ - 1], dps[NQ - 1], av, b0);
       }
     }
+    // p^T and ds^T into shared memory
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int krow = wk * 16 + g + 8 * i;
+        float p2[2], ds2[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * i + j;
+          const int col = wn * QW + n * 8 + 2 * tq + j;
+          const bool live = mask.live(q0 + col, k0 + krow);
+          const float sv = M::kSplitInputs ? s[n][e] + ss[n][e] : s[n][e];
+          const float dpv = M::kSplitInputs ? dp[n][e] + dps[n][e] : dp[n][e];
+          p2[j] = p_ds(sv * scale, dpv, sLse[col], sDsum[col], live, cap, &ds2[j]);
+        }
+        const int at = krow * LDP + wn * QW + n * 8 + 2 * tq;
+        M::store_split(sP + at, PLANE, p2[0], p2[1]);
+        M::store_split(sDS + at, PLANE, ds2[0], ds2[1]);
+      }
+    __syncthreads();
+
+    // dv += p^T dO and dk += ds^T q: the warp's 16 keys x DW columns, each
+    // q tile's product in fresh accumulators, then added
+#pragma unroll
+    for (int n = 0; n < DN; n += 2) {
+      float vm[2][4] = {}, vs[2][4] = {}, km[2][4] = {}, ks[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < BQ; kk += M::KS) {
+        typename M::template SA<2> ap, ads;
+        M::load_sa(ap, sP, PLANE, LDP, wk * 16, kk);
+        M::load_sa(ads, sDS, PLANE, LDP, wk * 16, kk);
+        typename M::B b0, b1;
+        M::template load_b_kn<false>(b0, b1, sDO, LD, kk, wn * DW + n * 8);
+        M::mma(vm[0], vs[0], ap, b0);
+        M::mma(vm[1], vs[1], ap, b1);
+        M::template load_b_kn<false>(b0, b1, sQ, LD, kk, wn * DW + n * 8);
+        M::mma(km[0], ks[0], ads, b0);
+        M::mma(km[1], ks[1], ads, b1);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          adv[n + j][e] += vm[j][e] + vs[j][e];
+          adk[n + j][e] += km[j][e] + ks[j][e];
+        }
+    }
+    __syncthreads();  // every read of this stage and of p^T, ds^T is done
   }
+  cp_async_wait<0>();  // no copy outlives the block
 
 #pragma unroll
-  for (int r = 0; r < RK; ++r) {
-    const int kr = k0 + ty * RK + r;
+  for (int i = 0; i < 2; ++i) {
+    const int kr = k0 + wk * 16 + g + 8 * i;
     if (kr >= Skv) continue;
-    const long at = ((long)b * Skv + kr) * kstride + (long)g * D;
+    const long at = ((long)b * Skv + kr) * kstride + (long)kvh * D + wn * DW + 2 * tq;
 #pragma unroll
-    for (int gg = 0; gg < OC / VEC; ++gg)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const int c = gg * 16 * VEC + tx * VEC + e;
-        dk[at + c] = to_out(adk[r][gg * VEC + e], T());
-        dv[at + c] = to_out(adv[r][gg * VEC + e], T());
-      }
+    for (int n = 0; n < DN; ++n) {
+      store2(dk + at + n * 8, adk[n][2 * i] * scale, adk[n][2 * i + 1] * scale);
+      store2(dv + at + n * 8, adv[n][2 * i], adv[n][2 * i + 1]);
+    }
   }
 }
 
@@ -414,11 +526,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                    const void* lse, const void* dsum, void* dq, void* dk, void* dv, int B,
                    int H, int KV, int Sq, int Skv, int seq_kv, int causal, int window,
                    float cap, float scale, int q_offset, cudaStream_t st) {
-  using Tl = Tiles<D>;
+  using Dq = DqTiles<T, D>;
+  using Dkv = DkvTiles<T, D>;
   static bool opted_dq[64] = {}, opted_dkv[64] = {};
-  cudaError_t err = opt_in(flash_bwd_dq_kernel<T, D>, Tl::kSmemDq, opted_dq);
+  cudaError_t err = opt_in(flash_bwd_dq_kernel<T, D>, Dq::kSmem, opted_dq);
   if (err != cudaSuccess) return err;
-  err = opt_in(flash_bwd_dkv_kernel<T, D>, Tl::kSmemDkv, opted_dkv);
+  err = opt_in(flash_bwd_dkv_kernel<T, D>, Dkv::kSmem, opted_dkv);
   if (err != cudaSuccess) return err;
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
@@ -426,13 +539,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   const T* do_ = static_cast<const T*>(dout);
   const float* lse_ = static_cast<const float*>(lse);
   const float* dsum_ = static_cast<const float*>(dsum);
-  flash_bwd_dq_kernel<T, D><<<dim3((Sq + kBQ - 1) / kBQ, H, B), kThreads, Tl::kSmemDq, st>>>(
+  flash_bwd_dq_kernel<T, D><<<dim3((Sq + kBQ - 1) / kBQ, H, B), Dq::kThreads, Dq::kSmem, st>>>(
       q_, k_, v_, do_, lse_, dsum_, static_cast<T*>(dq), H, KV, Sq, Skv, seq_kv, causal,
       window, cap, scale, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dkv_kernel<T, D>
-      <<<dim3((Skv + Tl::BK - 1) / Tl::BK, KV, B), kThreads, Tl::kSmemDkv, st>>>(
+      <<<dim3((Skv + Dkv::BKV - 1) / Dkv::BKV, KV, B), kDkvThreads, Dkv::kSmem, st>>>(
           q_, k_, v_, do_, lse_, dsum_, static_cast<T*>(dk), static_cast<T*>(dv), H, KV,
           Sq, Skv, seq_kv, causal, window, cap, scale, q_offset);
   return cudaGetLastError();

@@ -42,7 +42,6 @@ def library() -> ctypes.CDLL:
     signatures declared."""
     lib = _build.load(SOURCE)
     _launch.declare(lib, "flash_fwd_launch", "ppppp" + "i" * 10 + "ff" + "i" + "p")
-    _launch.declare(lib, "flash_fwd_smem_bytes", "i", ctypes.c_size_t)
     _launch.declare(lib, "flash_fwd_error_string", "i", ctypes.c_char_p)
     return lib
 

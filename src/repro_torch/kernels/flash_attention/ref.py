@@ -15,12 +15,27 @@ Both keep the reference kernels' own ``NEG_INF = -2e38`` (not
 ``exp`` to 0 against any live one. The CPU path and the tests use them;
 on the card they are only the yardsticks the kernels are held to. They
 count their calls in ``.calls``.
+
+`flash_attention_mma` and `flash_attention_bwd_mma` emulate, in plain
+fp32 torch, the arithmetic of the tensor-core kernels: products of the
+kernels' operand terms summed in fp32 (bf16 inputs exact; the forward's
+p split into three bf16 terms, the backward's p and ds into two; fp32
+inputs split into tf32 terms, 3xTF32), the scale applied after the sum,
+the forward's p unnormalised until the end. The tensor cores' own
+accumulation, which is not IEEE, is not emulated: the kernels keep its
+chains to one tile. The tests (`tests/test_torch_flash_mma.py`) hold
+them to the reference by the chip gates' tolerances, and
+`chip_smoke.py` holds the kernels to them on the card at the same
+gates; nothing on the main path calls them.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "flash_attention_bwd_ref", "flash_attention_ref"]
+__all__ = [
+    "NEG_INF", "flash_attention_bwd_mma", "flash_attention_bwd_ref",
+    "flash_attention_mma", "flash_attention_ref",
+]
 
 NEG_INF = -2.0e38
 
@@ -118,3 +133,121 @@ def flash_attention_bwd_ref(
 
 
 flash_attention_bwd_ref.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernels' arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+def _tf32(x: torch.Tensor, *, truncate: bool = False) -> torch.Tensor:
+    """x as tf32 (10 fraction bits): rounded to nearest with ties away
+    from zero (add half of the dropped 13 bits to the magnitude, then
+    clear them), or with ``truncate`` cut, as an mma reads an fp32
+    register."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits if truncate else bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _bf16_terms(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """x (fp32) as n bf16 terms, each the bf16 rounding of what the
+    earlier ones leave; an exact bf16 x is its first term."""
+    terms, rest = [], x.float()
+    for _ in range(n):
+        t = rest.to(torch.bfloat16).float()
+        terms.append(t)
+        rest = rest - t
+    return terms
+
+
+def _product(eq: str, a: torch.Tensor, b: torch.Tensor, fp32: bool, terms: int = 2):
+    """The kernels' product of operands a and b, summed in fp32.
+    bf16 inputs: b exact in bf16 and a split into ``terms`` bf16 terms
+    (exact when a is bf16; two terms keep ~16 bits of p or ds, three
+    ~24). fp32 inputs (3xTF32): both split into big = tf32(x) + small =
+    x - big, which the mma cuts to tf32; the three products but small *
+    small."""
+    if not fp32:
+        return torch.einsum(eq, sum(_bf16_terms(a, terms)), b.float())  # the sum is exact
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32(a.float() - ab, truncate=True), _tf32(b.float() - bb, truncate=True)
+    return (torch.einsum(eq, as_, bb) + torch.einsum(eq, ab, bs)) + torch.einsum(eq, ab, bb)
+
+
+def flash_attention_mma(
+    q: torch.Tensor,  # [BH, Sq, D]
+    k: torch.Tensor,  # [BKV, Skv, D], BH a multiple of BKV (GQA)
+    v: torch.Tensor,  # [BKV, Skv, D]
+    *,
+    seq_kv: int | None = None,
+    causal: bool = True,
+    window: int | None = None,
+    logit_cap: float | None = None,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out [BH, Sq, D] in q's dtype, lse [BH, Sq] float32) as K9's
+    tensor-core arithmetic computes them: s = scale * (q k^T), p =
+    exp(s - max) unnormalised (three bf16 terms for bf16 inputs), out =
+    (p v) / sum p. q's row i reads k's and v's row i // (BH / BKV)."""
+    n_rep = q.shape[0] // k.shape[0]
+    k, v = k.repeat_interleave(n_rep, 0), v.repeat_interleave(n_rep, 0)
+    sq, dh = q.shape[1], q.shape[2]
+    skv = k.shape[1]
+    seq_kv = skv if seq_kv is None else seq_kv
+    fp32 = q.dtype == torch.float32
+    scale = 1.0 / float(dh) ** 0.5
+    s = _product("bqd,bkd->bqk", q, k, fp32) * scale
+    if logit_cap is not None:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    mask = _live(sq, skv, seq_kv, causal, window, q_offset, q.device)
+    s = torch.where(mask[None], s, NEG_INF)
+    m = s.max(dim=-1, keepdim=True).values
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    out = _product("bqk,bkd->bqd", p, v, fp32, terms=3) / l
+    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_bwd_mma(
+    q: torch.Tensor,  # [BH, Sq, D]
+    k: torch.Tensor,  # [BKV, Skv, D], BH a multiple of BKV (GQA)
+    v: torch.Tensor,  # [BKV, Skv, D]
+    do: torch.Tensor,  # [BH, Sq, D]
+    lse: torch.Tensor,  # [BH, Sq] float32
+    dsum: torch.Tensor,  # [BH, Sq] float32
+    *,
+    seq_kv: int | None = None,
+    causal: bool = True,
+    window: int | None = None,
+    logit_cap: float | None = None,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the inputs' dtypes as K10's tensor-core arithmetic
+    computes them: s and dp as products of the inputs, p and ds split
+    for dv = p^T dO, dq = scale * (ds k) and dk = scale * (ds^T q); dk
+    and dv of a GQA group summed in fp32 and rounded once."""
+    n_rep = q.shape[0] // k.shape[0]
+    k, v = k.repeat_interleave(n_rep, 0), v.repeat_interleave(n_rep, 0)
+    sq, dh = q.shape[1], q.shape[2]
+    skv = k.shape[1]
+    seq_kv = skv if seq_kv is None else seq_kv
+    fp32 = q.dtype == torch.float32
+    scale = 1.0 / float(dh) ** 0.5
+    s = _product("bqd,bkd->bqk", q, k, fp32) * scale
+    dcap = None
+    if logit_cap is not None:
+        t = torch.tanh(s / logit_cap)
+        s = logit_cap * t
+        dcap = 1.0 - t * t
+    mask = _live(sq, skv, seq_kv, causal, window, q_offset, q.device)[None]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = _product("bqd,bkd->bqk", do, v, fp32)
+    ds = p * (dp - dsum[..., None])
+    if dcap is not None:
+        ds = ds * dcap
+    ds = torch.where(mask, ds, 0.0)
+    dv = _product("bqk,bqd->bkd", p, do, fp32)
+    dq = _product("bqk,bkd->bqd", ds, k, fp32) * scale
+    dk = _product("bqk,bqd->bkd", ds, q, fp32) * scale
+    group = lambda x: x.reshape(-1, n_rep, *x.shape[1:]).sum(1)  # noqa: E731
+    return dq.to(q.dtype), group(dk).to(k.dtype), group(dv).to(v.dtype)

@@ -25,9 +25,22 @@
 //     fixed order and writes one partial per (row, split);
 //     `snis_bwd_finalize` adds the splits in order. The result does not
 //     depend on scheduling.
+//   * That register layout (8 lanes x at most 8 words) takes L a multiple
+//     of 4 up to 256. Any other L takes the wide path, `snis_bwd_wide`:
+//     one warp per sample, a row read in 32-word chunks (16-byte words
+//     where L is a multiple of 4, else 4-byte words), the warp's sum in
+//     shared memory ([warps][L], each lane touching only its own words),
+//     the warps added in order. Shared memory bounds L there: 8 warps up
+//     to L 7,200, one warp up to about 58,000.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "snis_covgrad_wide.cuh"
+
+using snis_wide::Word;
+using snis_wide::wide_warps;
+using snis_wide::zero_word;
 
 namespace {
 
@@ -94,6 +107,47 @@ __global__ void __launch_bounds__(kThreads) snis_bwd_finalize(
   }
 }
 
+__device__ __forceinline__ float fmaw(float c, float x, float acc) { return fmaf(c, x, acc); }
+__device__ __forceinline__ float4 fmaw(float c, float4 x, float4 acc) {
+  return make_float4(fmaf(c, x.x, acc.x), fmaf(c, x.y, acc.y), fmaf(c, x.z, acc.z),
+                     fmaf(c, x.w, acc.w));
+}
+
+// grid (splits, B), block 32 * warps. Any L: warp w of block (j, b) adds
+// the live samples lo + w, lo + w + warps, ... of row b; lane owns the
+// words lane + 32 k of the warp's sum in shared memory.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads) snis_bwd_wide(
+    const float* __restrict__ coeff, const int* __restrict__ actions,
+    const float* __restrict__ beta, float* __restrict__ part, int S, int L,
+    int chunk) {
+  using W = typename Word<VEC>::T;
+  extern __shared__ __align__(16) float smem[];  // [warps][L]
+  const int warps = blockDim.x >> 5;
+  const int b = blockIdx.y, split = blockIdx.x;
+  const int lo = split * chunk, hi = min(S, lo + chunk);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int LW = L / VEC;
+  const W* bw = reinterpret_cast<const W*>(beta);
+  W* acc = reinterpret_cast<W*>(smem + (size_t)warp * L);
+  for (int f = lane; f < LW; f += 32) acc[f] = zero_word<W>();
+  for (int s = lo + warp; s < hi; s += warps) {
+    const size_t at = (size_t)b * S + s;
+    const int a = actions[at];
+    if (a < 0) continue;  // select: a dead lane adds nothing
+    const float c = coeff[at];
+    const W* row = bw + (size_t)a * LW;
+    for (int f = lane; f < LW; f += 32) acc[f] = fmaw(c, __ldg(row + f), acc[f]);
+  }
+  __syncthreads();
+  float* out = part + ((size_t)b * gridDim.x + split) * L;
+  for (int l = tid; l < L; l += blockDim.x) {
+    float sum = 0.f;
+    for (int g = 0; g < warps; ++g) sum += smem[(size_t)g * L + l];
+    out[l] = sum;
+  }
+}
+
 template <int NV>
 cudaError_t launch_nv(const float* coeff, const int* actions, const float* beta,
                       float* part, float* grad, int B, int S, int L, int splits,
@@ -113,18 +167,32 @@ cudaError_t launch_nv(const float* coeff, const int* actions, const float* beta,
   return cudaGetLastError();
 }
 
-}  // namespace
+template <int VEC>
+cudaError_t launch_wide(const float* coeff, const int* actions, const float* beta,
+                        float* part, float* grad, int B, int S, int L, int splits,
+                        int chunk, cudaStream_t st) {
+  size_t smem = 0;
+  const int warps = wide_warps((size_t)L, kThreads / 32, &smem);
+  if (warps < 1) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute((const void*)snis_bwd_wide<VEC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  snis_bwd_wide<VEC><<<dim3(splits, B), 32 * warps, smem, st>>>(coeff, actions, beta,
+                                                                part, S, L, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  snis_bwd_finalize<<<B, kThreads, 0, st>>>(part, grad, splits, L);
+  return cudaGetLastError();
+}
 
-extern "C" {
-
-// Largest L the kernel takes (a multiple of 4): 8 lanes x 8 words x 4.
-int snis_bwd_max_dim(void) { return kGroup * 8 * 4; }
-
-// Launches the backward on `stream`; returns cudaGetLastError(). `part`
-// is scratch of B * splits * L floats.
-int snis_bwd_launch(const void* coeff, const void* actions, const void* beta, void* part,
-                    void* grad, int B, int S, int L, int splits, int chunk,
-                    void* stream) {
+// The backward at any L: the register layout where it holds L (unless
+// `wide_only`), else the wide path.
+int launch(const void* coeff, const void* actions, const void* beta, void* part,
+           void* grad, int B, int S, int L, int splits, int chunk, void* stream,
+           bool wide_only) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nv = (L / 4 + kGroup - 1) / kGroup;
 #define SNIS_ARGS                                                            \
@@ -132,13 +200,36 @@ int snis_bwd_launch(const void* coeff, const void* actions, const void* beta, vo
       static_cast<const float*>(beta), static_cast<float*>(part),            \
       static_cast<float*>(grad), B, S, L, splits, chunk, st
   cudaError_t err;
-  if (nv <= 1) err = launch_nv<1>(SNIS_ARGS);
+  if (L % 4) err = launch_wide<1>(SNIS_ARGS);
+  else if (wide_only || nv > 8) err = launch_wide<4>(SNIS_ARGS);
+  else if (nv <= 1) err = launch_nv<1>(SNIS_ARGS);
   else if (nv <= 2) err = launch_nv<2>(SNIS_ARGS);
   else if (nv <= 4) err = launch_nv<4>(SNIS_ARGS);
-  else if (nv <= 8) err = launch_nv<8>(SNIS_ARGS);
-  else err = cudaErrorInvalidValue;
+  else err = launch_nv<8>(SNIS_ARGS);
 #undef SNIS_ARGS
   return (int)err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the backward on `stream`, any L >= 1; returns
+// cudaGetLastError(), or cudaErrorInvalidValue where one warp's sum
+// exceeds the block's shared memory. `part` is scratch of
+// B * splits * L floats.
+int snis_bwd_launch(const void* coeff, const void* actions, const void* beta, void* part,
+                    void* grad, int B, int S, int L, int splits, int chunk,
+                    void* stream) {
+  return launch(coeff, actions, beta, part, grad, B, S, L, splits, chunk, stream, false);
+}
+
+// The same through the wide path at every L: `chip_smoke.py` times it
+// against the register layout at fopo-paper's L 100.
+int snis_bwd_launch_wide(const void* coeff, const void* actions, const void* beta,
+                         void* part, void* grad, int B, int S, int L, int splits,
+                         int chunk, void* stream) {
+  return launch(coeff, actions, beta, part, grad, B, S, L, splits, chunk, stream, true);
 }
 
 const char* snis_bwd_error_string(int err) {

@@ -36,9 +36,28 @@
 //     partial per (row, split); `snis_fwd_finalize` folds the splits'
 //     partials (they combine associatively after rescaling to a common
 //     max) and finalises g.
+//   * That register layout (8 lanes x at most 8 words) takes L a multiple
+//     of 4 up to 256, fopo-paper's L 100 among them. Any other L takes
+//     the wide path, `snis_fwd_wide`: one warp per sample, a row read in
+//     32-word chunks (16-byte words where L is a multiple of 4, 4-byte
+//     words otherwise, since such a row is not 16-byte aligned), so the
+//     dot product loops over chunks with its partial sum in a register
+//     and the online softmax still folds one row at a time. The warp's
+//     A and C live in shared memory ([warps][L] each, every lane touching
+//     only its own words), the row is read again for the fold (an L1
+//     hit), and the block combines its warps as above. Shared memory
+//     bounds L there: 8 warps up to L 3,600, one warp up to about 29,000
+//     (covgrad mode; the scores-only mode takes any L).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "snis_covgrad_wide.cuh"
+
+using snis_wide::Word;
+using snis_wide::warp_sum;
+using snis_wide::wide_warps;
+using snis_wide::zero_word;
 
 #define NEG_INF_F (-3.0e38f)
 #define LOG_Q_VALID_MAX_F (1.5e38f)
@@ -217,6 +236,108 @@ __global__ void __launch_bounds__(kThreads) snis_fwd_finalize(
   }
 }
 
+__device__ __forceinline__ float dotw(float a, float b, float acc) { return fmaf(a, b, acc); }
+__device__ __forceinline__ float dotw(float4 a, float4 b, float acc) { return dot4(a, b, acc); }
+__device__ __forceinline__ float axpby(float x, float a, float y, float c) {
+  return fmaf(a, x, c * y);
+}
+
+// grid (splits, B), block 32 * warps. Any L: warp w of block (j, b)
+// scores samples lo + w, lo + w + warps, ... of row b; lane owns the
+// words lane + 32 k. In covgrad mode the warp folds its samples into
+// (m, z, R) in registers and A, C in shared memory, and the block writes
+// the same partial as `snis_fwd_kernel`.
+template <int VEC, bool COVGRAD>
+__global__ void __launch_bounds__(kThreads) snis_fwd_wide(
+    const float* __restrict__ h, const float* __restrict__ beta,
+    const int* __restrict__ actions, const float* __restrict__ log_q,
+    const float* __restrict__ rewards, float* __restrict__ scores,
+    float* __restrict__ part, int S, int L, int chunk) {
+  using W = typename Word<VEC>::T;
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
+  const int b = blockIdx.y, split = blockIdx.x;
+  const int lo = split * chunk, hi = min(S, lo + chunk);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int LW = L / VEC;
+  const W* hw = reinterpret_cast<const W*>(h + (size_t)b * L);
+  const W* bw = reinterpret_cast<const W*>(beta);
+  W* A = reinterpret_cast<W*>(smem + (size_t)warp * 2 * L);  // [warps][2][L]
+  W* C = reinterpret_cast<W*>(smem + (size_t)warp * 2 * L + L);
+  float* gm = smem + (size_t)warps * 2 * L;                   // [warps]
+  float* gz = gm + warps;                                     // [warps]
+  float* gr = gz + warps;                                     // [warps]
+  if (COVGRAD) {
+    for (int f = lane; f < LW; f += 32) {
+      A[f] = zero_word<W>();
+      C[f] = zero_word<W>();
+    }
+  }
+  float m = NEG_INF_F, z = 0.f, rs = 0.f;
+  for (int s = lo + warp; s < hi; s += warps) {
+    const size_t at = (size_t)b * S + s;
+    const int a = actions[at];
+    const W* row = bw + (size_t)max(a, 0) * LW;
+    float d = 0.f;
+    for (int f = lane; f < LW; f += 32) d = dotw(__ldg(hw + f), __ldg(row + f), d);
+    const float score = warp_sum(d);
+    if (lane == 0) scores[at] = score;
+    if (COVGRAD) {
+      const float lq = log_q[at];
+      const float r = rewards[at];
+      const bool valid = lq < LOG_Q_VALID_MAX_F;
+      const float logw = valid ? score - lq : NEG_INF_F;
+      const float m_new = fmaxf(m, logw);
+      const float alpha = expf(m - m_new);
+      const float w = valid ? expf(logw - m_new) : 0.f;
+      const float wr = w * r;
+      z = z * alpha + w;
+      rs = rs * alpha + wr;
+      for (int f = lane; f < LW; f += 32) {
+        const W x = __ldg(row + f);
+        A[f] = axpby(x, wr, A[f], alpha);
+        C[f] = axpby(x, w, C[f], alpha);
+      }
+      m = m_new;
+    }
+  }
+  if (!COVGRAD) return;
+
+  // combine the block's warps at a common max, in warp order
+  if (lane == 0) gm[warp] = m;
+  __syncthreads();
+  float M = gm[0];
+  for (int g = 1; g < warps; ++g) M = fmaxf(M, gm[g]);
+  __syncthreads();  // every thread has read gm before it is overwritten
+  if (lane == 0) {
+    const float scale = expf(m - M);
+    gm[warp] = scale;
+    gz[warp] = z * scale;
+    gr[warp] = rs * scale;
+  }
+  __syncthreads();
+  float* out = part + ((size_t)b * gridDim.x + split) * (3 + 2 * L);
+  if (tid == 0) {
+    float zs = 0.f, rsum = 0.f;
+    for (int g = 0; g < warps; ++g) {
+      zs += gz[g];
+      rsum += gr[g];
+    }
+    out[0] = M;
+    out[1] = zs;
+    out[2] = rsum;
+  }
+  for (int l = tid; l < L; l += blockDim.x) {
+    float sa = 0.f, sc = 0.f;
+    for (int g = 0; g < warps; ++g) {
+      sa += smem[(size_t)g * 2 * L + l] * gm[g];
+      sc += smem[(size_t)g * 2 * L + L + l] * gm[g];
+    }
+    out[3 + l] = sa;
+    out[3 + L + l] = sc;
+  }
+}
+
 template <int NV>
 cudaError_t launch_nv(const float* h, const float* beta, const int* actions,
                       const float* log_q, const float* rewards, float* scores,
@@ -243,23 +364,41 @@ cudaError_t launch_nv(const float* h, const float* beta, const int* actions,
   return cudaGetLastError();
 }
 
-}  // namespace
+template <int VEC>
+cudaError_t launch_wide(const float* h, const float* beta, const int* actions,
+                        const float* log_q, const float* rewards, float* scores,
+                        float* part, float* grad, int B, int S, int L, int splits,
+                        int chunk, bool covgrad, cudaStream_t st) {
+  dim3 grid(splits, B);
+  if (!covgrad) {
+    snis_fwd_wide<VEC, false><<<grid, kThreads, 0, st>>>(
+        h, beta, actions, log_q, rewards, scores, part, S, L, chunk);
+    return cudaGetLastError();
+  }
+  size_t smem = 0;
+  const int warps = wide_warps(2 * (size_t)L + 3, kThreads / 32, &smem);
+  if (warps < 1) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute((const void*)snis_fwd_wide<VEC, true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  snis_fwd_wide<VEC, true><<<grid, 32 * warps, smem, st>>>(
+      h, beta, actions, log_q, rewards, scores, part, S, L, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  snis_fwd_finalize<<<B, kThreads, 0, st>>>(part, grad, splits, L);
+  return cudaGetLastError();
+}
 
-extern "C" {
-
-// Largest L the kernel takes (a multiple of 4): 8 lanes x 8 words x 4.
-int snis_fwd_max_dim(void) { return kGroup * 8 * 4; }
-
-// Launches the forward on `stream`; returns cudaGetLastError(). In
-// covgrad mode `part` is scratch of B * splits * (3 + 2L) floats and
-// `grad` the [B, L] output; otherwise both are unused.
-int snis_fwd_launch(const void* h, const void* beta, const void* actions,
-                    const void* log_q, const void* rewards, void* scores, void* part,
-                    void* grad, int B, int S, int L, int splits, int chunk,
-                    int covgrad, void* stream) {
+// The forward at any L: the register layout where it holds L (unless
+// `wide_only`), else the wide path.
+int launch(const void* h, const void* beta, const void* actions, const void* log_q,
+           const void* rewards, void* scores, void* part, void* grad, int B, int S,
+           int L, int splits, int chunk, int covgrad, void* stream, bool wide_only) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int L4 = L / 4;
-  const int nv = (L4 + kGroup - 1) / kGroup;
+  const int nv = (L / 4 + kGroup - 1) / kGroup;
 #define SNIS_ARGS                                                              \
   static_cast<const float*>(h), static_cast<const float*>(beta),               \
       static_cast<const int*>(actions), static_cast<const float*>(log_q),      \
@@ -267,13 +406,41 @@ int snis_fwd_launch(const void* h, const void* beta, const void* actions,
       static_cast<float*>(part), static_cast<float*>(grad), B, S, L, splits,   \
       chunk, covgrad != 0, st
   cudaError_t err;
-  if (nv <= 1) err = launch_nv<1>(SNIS_ARGS);
+  if (L % 4) err = launch_wide<1>(SNIS_ARGS);
+  else if (wide_only || nv > 8) err = launch_wide<4>(SNIS_ARGS);
+  else if (nv <= 1) err = launch_nv<1>(SNIS_ARGS);
   else if (nv <= 2) err = launch_nv<2>(SNIS_ARGS);
   else if (nv <= 4) err = launch_nv<4>(SNIS_ARGS);
-  else if (nv <= 8) err = launch_nv<8>(SNIS_ARGS);
-  else err = cudaErrorInvalidValue;
+  else err = launch_nv<8>(SNIS_ARGS);
 #undef SNIS_ARGS
   return (int)err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the forward on `stream`, any L >= 1; returns
+// cudaGetLastError(), or cudaErrorInvalidValue where covgrad mode's A and
+// C for one warp exceed the block's shared memory. In
+// covgrad mode `part` is scratch of B * splits * (3 + 2L) floats and
+// `grad` the [B, L] output; otherwise both are unused.
+int snis_fwd_launch(const void* h, const void* beta, const void* actions,
+                    const void* log_q, const void* rewards, void* scores, void* part,
+                    void* grad, int B, int S, int L, int splits, int chunk,
+                    int covgrad, void* stream) {
+  return launch(h, beta, actions, log_q, rewards, scores, part, grad, B, S, L, splits,
+                chunk, covgrad, stream, false);
+}
+
+// The same through the wide path at every L: `chip_smoke.py` times it
+// against the register layout at fopo-paper's L 100.
+int snis_fwd_launch_wide(const void* h, const void* beta, const void* actions,
+                         const void* log_q, const void* rewards, void* scores,
+                         void* part, void* grad, int B, int S, int L, int splits,
+                         int chunk, int covgrad, void* stream) {
+  return launch(h, beta, actions, log_q, rewards, scores, part, grad, B, S, L, splits,
+                chunk, covgrad, stream, true);
 }
 
 const char* snis_fwd_error_string(int err) {

@@ -5,8 +5,10 @@
 and `snis_covgrad_fwd_tiled_pallas` compute (sampled scores, and in
 covgrad mode the SNIS covariance gradient); `snis_bwd_cuda` what
 `snis_covgrad_bwd_pallas` and `snis_covgrad_bwd_tiled_pallas` compute
-(the coefficient-weighted gather-reduce). See the sources for the
-designs and their bounds.
+(the coefficient-weighted gather-reduce), at any L: a register layout
+for L a multiple of 4 up to 256, a wide path (one warp per row, read in
+chunks) for every other L. See the sources for the designs and their
+bounds.
 
 The wrappers check device, dtype, shape and contiguity, split S across
 blocks (`splits_for`), allocate outputs and scratch with `torch.empty`,
@@ -40,7 +42,6 @@ _GROUPS = 32  # samples in flight per block (256 threads, 8 lanes each)
 def fwd_library() -> ctypes.CDLL:
     lib = _build.load(FWD_SOURCE)
     _launch.declare(lib, "snis_fwd_launch", "pppppppp" + "iiiiii" + "p")
-    _launch.declare(lib, "snis_fwd_max_dim", "")
     _launch.declare(lib, "snis_fwd_error_string", "i", ctypes.c_char_p)
     return lib
 
@@ -49,7 +50,6 @@ def fwd_library() -> ctypes.CDLL:
 def bwd_library() -> ctypes.CDLL:
     lib = _build.load(BWD_SOURCE)
     _launch.declare(lib, "snis_bwd_launch", "ppppp" + "iiiii" + "p")
-    _launch.declare(lib, "snis_bwd_max_dim", "")
     _launch.declare(lib, "snis_bwd_error_string", "i", ctypes.c_char_p)
     return lib
 
@@ -61,13 +61,6 @@ def splits_for(b: int, s: int, sms: int) -> tuple[int, int]:
     want = max(1, -(-4 * sms // max(1, b)))
     chunk = max(_GROUPS, -(-(-(-s // want)) // _GROUPS) * _GROUPS)
     return -(-s // chunk), chunk
-
-
-def _check_dim(l: int, max_dim: int) -> None:
-    if l % 4 or not 4 <= l <= max_dim:
-        raise ValueError(
-            f"the covgrad kernels take L a multiple of 4 in [4, {max_dim}], got {l}"
-        )
 
 
 def _check_rows(name, t, b, s, dtype, dev):
@@ -98,10 +91,9 @@ def snis_fwd_cuda(
     _check_rows("rewards", rewards, b, s, torch.float32, dev)
     if beta.shape[1] != l:
         raise ValueError(f"shape mismatch: h {tuple(h.shape)}, beta {tuple(beta.shape)}")
-    if b < 1 or s < 1 or b > 65535:
-        raise ValueError(f"need 1 <= B <= 65535 and S >= 1 (got {b}, {s})")
+    if b < 1 or s < 1 or l < 1 or b > 65535:
+        raise ValueError(f"need 1 <= B <= 65535, S >= 1 and L >= 1 (got {b}, {s}, {l})")
     lib = fwd_library()
-    _check_dim(l, lib.snis_fwd_max_dim())
     h, beta = _launch.aligned16(h), _launch.aligned16(beta)
     splits, chunk = splits_for(b, s, _launch.sm_count(dev.index or 0))
     scores = torch.empty((b, s), dtype=torch.float32, device=dev)
@@ -134,10 +126,9 @@ def snis_bwd_cuda(
     _check_rows("coeff", coeff, b, s, torch.float32, dev)
     _check_rows("actions", actions, b, s, torch.int32, dev)
     l = beta.shape[1]
-    if b < 1 or s < 1 or b > 65535:
-        raise ValueError(f"need 1 <= B <= 65535 and S >= 1 (got {b}, {s})")
+    if b < 1 or s < 1 or l < 1 or b > 65535:
+        raise ValueError(f"need 1 <= B <= 65535, S >= 1 and L >= 1 (got {b}, {s}, {l})")
     lib = bwd_library()
-    _check_dim(l, lib.snis_bwd_max_dim())
     beta = _launch.aligned16(beta)
     splits, chunk = splits_for(b, s, _launch.sm_count(dev.index or 0))
     part = torch.empty((b, splits, l), dtype=torch.float32, device=dev)

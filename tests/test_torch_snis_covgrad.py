@@ -5,9 +5,13 @@ The port's wrappers run their plain PyTorch versions here; the reference
 runs its Pallas kernels in interpret mode, per-sample (TS = 1) and tiled
 (TS = 8, and TS = 5, which does not divide S = 24). Inputs have masked
 slots, a row with every slot masked, and (for the backward) a NaN
-coefficient on a dead lane. Tolerances: scores, g, wbar and grad_h
-within rtol 1e-5 / atol 1e-6 (fp32 sums taken in another order).
+coefficient on a dead lane, at L 16 and at the widths that the card's
+wide path takes (L 18 and 50, not multiples of 4; L 260, over 256).
+Tolerances: scores, g, wbar and grad_h within rtol 1e-5 / atol 1e-6
+(fp32 sums taken in another order).
 """
+import inspect
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -87,6 +91,46 @@ def test_covgrad_bwd_matches_reference(sample_tile):
     assert torch.isfinite(gh).all()
     np.testing.assert_allclose(gh.numpy(), np.asarray(jgh), **TOL)
     assert (gh[-1] == 0).all()
+
+
+@pytest.mark.parametrize("l", [18, 50, 260])
+def test_covgrad_any_width_matches_reference(l):
+    args = _problem(l=l, seed=30 + l)
+    jg, jw, js = jops.snis_covgrad_fused(*map(jnp.asarray, args), interpret=True, sample_tile=8)
+    g, w, s = snis_covgrad_fused(*_t(*args), sample_tile=8)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), **TOL)
+    np.testing.assert_allclose(w.numpy(), np.asarray(jw), **TOL)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), **TOL)
+    assert (g[-1] == 0).all() and (w[-1] == 0).all()
+    js = jops.snis_scores_fused(*map(jnp.asarray, args), interpret=True, sample_tile=8)
+    np.testing.assert_allclose(snis_scores_fused(*_t(*args)).numpy(), np.asarray(js), **TOL)
+
+
+@pytest.mark.parametrize("l", [18, 50, 260])
+def test_covgrad_bwd_any_width_matches_reference(l):
+    h, beta, actions, _, _ = _problem(l=l, seed=40 + l)
+    coeff = np.random.default_rng(l).standard_normal(actions.shape).astype(np.float32)
+    coeff[actions < 0] = np.nan
+    jgh = jops.snis_covgrad_bwd(
+        jnp.asarray(coeff), jnp.asarray(actions), jnp.asarray(beta), interpret=True, sample_tile=8
+    )
+    gh = snis_covgrad_bwd(*_t(coeff, actions, beta), sample_tile=8)
+    assert gh.shape == (actions.shape[0], l) and torch.isfinite(gh).all()
+    np.testing.assert_allclose(gh.numpy(), np.asarray(jgh), **TOL)
+    assert (gh[-1] == 0).all()
+
+
+def test_cuda_wrappers_take_any_width():
+    """The wrappers no longer refuse an L that the reference takes: no
+    width check is left in them or in the libraries they bind (that the
+    kernels compute every L right is `chip_smoke.py`'s check on the
+    card, at L 18, 50 and 260)."""
+    assert not hasattr(kernel, "_check_dim")
+    for fn in (kernel.snis_fwd_cuda, kernel.snis_bwd_cuda):
+        src = inspect.getsource(fn)
+        assert "max_dim" not in src and "% 4" not in src
+    for path in (kernel.FWD_SOURCE, kernel.BWD_SOURCE):
+        assert "max_dim" not in path.read_text()
 
 
 def test_tile_rule_is_the_reference_rule():

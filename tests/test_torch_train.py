@@ -319,6 +319,34 @@ def test_trainer_matches_reference(trajectories, after):
         assert np.abs(tw - w0).max() > 1e-4  # theta moved over the last two steps
 
 
+def test_adaptive_eps_and_grad_clip_match_reference(dataset):
+    """The kernel configuration with the adaptive eps schedule and global
+    gradient clipping: 6 steps, the reference's step seeds injected, the
+    same history and theta."""
+    p = dataset.item_embeddings.shape[0]
+    kw = dict(batch_size=4, learning_rate=3e-3, num_steps=6, seed=2, adaptive_eps=True,
+              grad_clip=0.1)
+    jtr = JTrainer(JTrainerConfig(
+        estimator="fopo", fopo=JFOPOConfig(num_items=p, num_samples=40, top_k=16, **KERNEL_KNOBS),
+        checkpoint_every=0, **kw), dataset)
+    seeds = _reference_seeds(2, 6)
+    ttr = FOPOTrainer(
+        TrainerConfig(estimator="fopo", fopo=FOPOConfig(
+            num_items=p, num_samples=40, top_k=16, **KERNEL_KNOBS), **kw),
+        dataset, device="cpu",
+        params=convert.linear_tower_params_from_numpy(jax.tree.map(np.asarray, jtr.params)),
+        opt_state=convert.adam_state_from_numpy(jax.tree.map(np.asarray, jtr.opt_state)),
+        step_seeds=lambda step: seeds[step],
+    )
+    w0 = ttr.params["w"].clone()
+    jh, th = jtr.train(6), ttr.train(6)
+    for k in ("loss", "ess", "rbar", "max_wbar"):
+        np.testing.assert_allclose(th[k], jh[k], **TOL)
+    np.testing.assert_allclose(ttr.params["w"].numpy(), np.asarray(jtr.params["w"]), rtol=0,
+                               atol=1e-6)
+    assert not torch.equal(ttr.params["w"], w0)
+
+
 def test_exact_estimator_matches_reference(dataset):
     """The dense exact gradient has no randomness: two steps, equal."""
     kw = dict(batch_size=4, learning_rate=3e-3, num_steps=2, seed=1)
