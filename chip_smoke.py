@@ -14,9 +14,14 @@ more each:
                   libraries' SASS (cuobjdump)
   3. kernels      each kernel against its plain PyTorch version on the
                   card, at small shapes and at the shapes its path gives
-                  it (ivf_topk also at the LM route's width, L 2304, and
-                  at widths not a multiple of 4; the covgrad kernels also
-                  at L 18, 50 and 260, their wide path, checked and timed),
+                  it (ivf_topk also at the LM route's width, L 2304, at
+                  widths not a multiple of 4, at B 1 with one probe, with
+                  every probed list dead and with K 256 above the live
+                  candidates; mips_topk at K 10 / 64 / 256, B 1 / 33 / 64,
+                  also against the emulation of its 3xTF32 arithmetic, and
+                  its floor, probe and merge kernels timed apart; the covgrad
+                  kernels also at L 18, 50 and 260, their wide path,
+                  checked and timed),
                   within the CPU parity tests' tolerances; times of
                   the kernel and the plain version (device time per call
                   from a replayed CUDA graph, and time per eager call),
@@ -66,7 +71,7 @@ more each:
                   (random weights from a seed): a `ServingEngine` with
                   max_batch 8 answers 32 requests with K 10; DIEN through
                   `RecsysMIPSRoute` (its GRU tower, then `ivf_topk` at L
-                  18, launches counted), DIN and Wide&Deep through
+                  18, launches counted, then timed), DIN and Wide&Deep through
                   `DenseCandidateRoute` over 500 candidates; the answers
                   held to the plain path on the CPU (ids as sets but for
                   boundary ties, scores within rtol 1e-5 / atol 1e-6;
@@ -289,8 +294,9 @@ def bound_ms(q, probe, lists, list_embs, k) -> tuple[float, str, float]:
 
 def kernel_phase(index, state, users) -> dict:
     """ivf_topk's kernel against its plain version at every listed shape;
-    times at the serving shapes. `index`/`state` are the serving route's,
-    `users` a list of [8, 50] user vectors from its tower."""
+    times at the serving shapes and over full lists at L 2304.
+    `index`/`state` are the serving route's, `users` a list of [8, 50]
+    user vectors from its tower."""
     import torch
 
     from repro_torch.kernels.ivf_topk import kernel, ref, tile_align_index
@@ -299,6 +305,7 @@ def kernel_phase(index, state, users) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     max_err = 0.0
+    timing = {}
 
     def probe_of(q, centroids, n_probe):
         n_probe = min(n_probe, centroids.shape[0])
@@ -327,8 +334,8 @@ def kernel_phase(index, state, users) -> dict:
         compare(f"small p={p} ct={cap_tile}", q, probe_of(q, ix.centroids, n_probe),
                 ix.lists, ix.list_embs, k)
 
-    # ragged list ends (capacity not a multiple of the kernel's 128-slot
-    # tile) and K above the candidate count
+    # ragged list ends (capacity not a multiple of the kernel's 32-slot
+    # ranges) and K above the candidate count
     for c, capp, l, b, n_probe, k in [(16, 300, 50, 8, 4, 10), (8, 1000, 24, 3, 3, 64),
                                       (8, 16, 8, 3, 1, 96)]:
         lists = torch.randperm(c * capp, generator=gen, device=dev).reshape(c, capp)
@@ -340,9 +347,28 @@ def kernel_phase(index, state, users) -> dict:
                              for _ in range(b)]).to(torch.int32)
         compare(f"ragged capp={capp}", q, probe, lists, embs.contiguous(), k)
 
+    # one row and one probe at DIEN's and SASRec's widths; every probed
+    # list dead; K 256 above the live candidates; a list whose live rows
+    # take more tiles than a block copies at once
+    for tag, c, capp, l, b, n_probe, k, dead in [
+        ("B 1 n_probe 1 L 18", 64, 900, 18, 1, 1, 10, 0.1),
+        ("B 1 n_probe 1 L 50", 64, 900, 50, 1, 1, 10, 0.1),
+        ("all probed lists dead", 16, 300, 50, 4, 4, 10, 1.0),
+        ("K 256 above the live candidates", 32, 64, 50, 3, 2, 256, 0.5),
+        ("a range of 1024 live rows, five tiles", 16, 1024, 50, 64, 8, 64, 0.0),
+    ]:
+        lists = torch.randperm(c * capp, generator=gen, device=dev).reshape(c, capp)
+        lists = torch.where(torch.rand((c, capp), generator=gen, device=dev) < dead,
+                            -1, lists).to(torch.int32)
+        embs = torch.randn((c, capp, l), generator=gen, device=dev) * (lists >= 0)[..., None]
+        q = torch.randn((b, l), generator=gen, device=dev)
+        probe = torch.stack([torch.randperm(c, generator=gen, device=dev)[:n_probe]
+                             for _ in range(b)]).to(torch.int32)
+        compare(tag, q, probe, lists, embs.contiguous(), k)
+
     # the LM route's width (L 2304 = the Gemma-2 hidden, C 512, K 4, B 8,
-    # n_probe 8), streamed in 72 slices of 32 columns; and widths that are
-    # not a multiple of 4 (4-byte copies, a partial last slice)
+    # n_probe 8), tiles of 4 whole rows; and widths that are not a
+    # multiple of 4 (4-byte copies)
     for c, capp, l, b, n_probe, k in [(512, 512, 2304, 8, 8, 4), (16, 200, 2302, 3, 4, 10),
                                       (8, 100, 7, 2, 3, 5)]:
         lists = torch.randperm(c * capp, generator=gen, device=dev).reshape(c, capp)
@@ -354,7 +380,7 @@ def kernel_phase(index, state, users) -> dict:
         probe = torch.stack([torch.randperm(c, generator=gen, device=dev)[:n_probe]
                              for _ in range(b)]).to(torch.int32)
         compare(f"wide L={l}", q, probe, lists, embs, k)
-        if l == 2304:  # time it: 75 % of the slots live, read in 36 slices of 64 columns
+        if l == 2304:  # time it: 75 % of the slots live, in tiles of 4 rows
             sets = [(torch.randn((b, l), generator=gen, device=dev), torch.stack(
                 [torch.randperm(c, generator=gen, device=dev)[:n_probe] for _ in range(b)]
             ).to(torch.int32), lists, embs, k) for _ in range(4)]
@@ -364,6 +390,8 @@ def kernel_phase(index, state, users) -> dict:
             log(f"  time wide L={l}: device ms per call (CUDA graph) kernel {t_k:.4f}, plain "
                 f"{t_p:.4f}; bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.3f} MB); kernel "
                 f"device time at {100 * b_ms / t_k:.1f}% of the bound")
+            timing["full lists L=2304"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                                               bound_by=b_by)
             del sets
         del lists, embs
 
@@ -376,7 +404,6 @@ def kernel_phase(index, state, users) -> dict:
     d_embs = (torch.randn((c, 8, users[0].shape[1]), generator=gen, device=dev)
               * (d_lists >= 0)[..., None]).contiguous()
     probes = [probe_of(u, state.centroids, N_PROBE) for u in users]
-    timing = {}
     for tag, lists, embs, k in [
         ("main K=10", state.lists, state.list_embs, K_SERVE),
         ("main K=256", state.lists, state.list_embs, 256),
@@ -549,15 +576,20 @@ def training_kernel_phase(beta, h0, positives) -> dict:
     k, s = 256, 1000
 
     # -- mips_topk ----------------------------------------------------------
+    # small shapes against the plain version and against the emulation of
+    # the kernel's 3xTF32 arithmetic (`ref.mips_topk_mma`), by one gate
     err = 0.0
     for bb, pp, ll, kk in [(5, 3000, 24, 64), (3, 700, 17, 10), (40, 5000, 100, 256),
-                           (1, 64, 8, 64), (33, 20000, 100, 256)]:
+                           (1, 64, 8, 64), (33, 20000, 100, 256), (64, 20000, 100, 256),
+                           (1, 5000, 100, 10), (64, 3001, 17, 37), (33, 777, 7, 64)]:
         q = torch.randn((bb, ll), generator=gen, device=dev)
         it = torch.randn((pp, ll), generator=gen, device=dev)
-        e = topk_err(mk.mips_topk_cuda(q, it, kk), mr.mips_topk_ref(q, it, kk),
-                     f"mips small b={bb} p={pp}")
+        out = mk.mips_topk_cuda(q, it, kk)
+        e = topk_err(out, mr.mips_topk_ref(q, it, kk), f"mips small b={bb} p={pp}")
+        e_mma = topk_err(out, mr.mips_topk_mma(q, it, kk), f"mips small b={bb} p={pp} vs mma")
         err = max(err, e)
-        log(f"  mips_topk small: B={bb} P={pp} L={ll} K={kk} max_abs_err={e:.3g} ok")
+        log(f"  mips_topk small: B={bb} P={pp} L={ll} K={kk} max_abs_err={e:.3g}, against the "
+            f"3xTF32 emulation {e_mma:.3g} ok")
     hs = [h0[i * b:(i + 1) * b].contiguous() for i in range(4)]
     for i, h in enumerate(hs[:2]):
         e = topk_err(mk.mips_topk_cuda(h, beta, k), mr.mips_topk_ref(h, beta, k),
@@ -570,6 +602,7 @@ def training_kernel_phase(beta, h0, positives) -> dict:
         [(h, beta, k) for h in hs], p * l * 4 + b * l * 4 + b * k * 8, 2 * b * p * l,
         library_fn=lambda q, it, kk: torch.topk(q @ it.T, kk),
         library_note="torch.topk(h @ beta.T, K): two calls"))
+    res["mips_topk"].update(mips_split_times(hs[0], beta, k))
 
     # -- fused_sampler --------------------------------------------------------
     err, agree_min = 0.0, 1.0
@@ -680,6 +713,32 @@ def training_kernel_phase(beta, h0, positives) -> dict:
         f"{w['covgrad']['ms']:.4f} / {res['snis_covgrad_fwd_covgrad_mode']['ms']:.4f}, bwd "
         f"{w['bwd']['ms']:.4f} / {res['snis_covgrad_bwd']['ms']:.4f}")
     return res
+
+
+def mips_split_times(h, beta, k) -> dict:
+    """K6's parts timed apart at one call's inputs, each launched alone
+    through the library (`which` 1, 2, 4; these launches are not the
+    wrapper's and are not counted): the floor (the sample and floor
+    kernels), the probe kernel (scores and the partial top-K per catalog
+    chunk) and the merge kernel."""
+    import torch
+
+    from repro_torch.kernels.mips_topk import kernel as mk
+
+    lib, args, bufs = mk._launch_args(h, beta, k)
+    ms = {}
+    for name, which in (("floor", 1), ("probe", 2), ("merge", 4)):
+        def launch(which=which):
+            err = lib.mips_topk_launch(*args, which, torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"mips_topk {name} launch failed ({err})")
+        ms[name] = device_ms(launch, [()])
+    b, m = bufs[5].shape
+    stride = args[-1]
+    log(f"  mips_topk B={b} P={beta.shape[0]} K={k}, its kernels apart: device ms per call (CUDA "
+        f"graph) floor {ms['floor']:.4f} ({m} rows sampled, every {stride}th), probe "
+        f"{ms['probe']:.4f}, merge {ms['merge']:.4f} (chunks {args[13]} of {args[14]} rows, "
+        f"{args[15]} ring stages)")
+    return dict(floor_ms=ms["floor"], probe_ms=ms["probe"], merge_ms=ms["merge"])
 
 
 @contextlib.contextmanager
@@ -1210,8 +1269,40 @@ def recsys_phase(arch: str) -> dict:
         + f", plain calls {ivf_plain}; answers match the plain "
         f"path on the CPU ({cpu_s:.1f} s){tower}")
     stage_times(route, payloads, records, f"recsys {arch}")
-    return dict(p50_ms=percentile(lats, 50) * 1e3, p99_ms=percentile(lats, 99) * 1e3,
-                ivf_launches=ivf_launches, batches=engine.batches)
+    res = dict(p50_ms=percentile(lats, 50) * 1e3, p99_ms=percentile(lats, 99) * 1e3,
+               ivf_launches=ivf_launches, batches=engine.batches)
+    if cfg.kind == "dien":
+        res["ivf_l18"] = dien_ivf_times(route, payloads)
+    return res
+
+
+def dien_ivf_times(route, payloads) -> dict:
+    """ivf_topk at DIEN's width (L 18) on the route's index, the user
+    vectors of 4 served batches: device ms per call of the kernel and its
+    plain version, and the bound."""
+    import torch
+
+    from repro_torch.kernels.ivf_topk import kernel as ivk
+    from repro_torch.kernels.ivf_topk import ref as ivref
+
+    planner = route.planner
+    state = planner.index_state
+    sets = []
+    with torch.inference_mode():
+        for i in range(0, 4 * MAX_BATCH, MAX_BATCH):
+            x = route.prepare(payloads[i:i + MAX_BATCH])
+            h = planner.policy.user_embedding(planner.params, x).float().contiguous()
+            probe = torch.topk(h @ state.centroids.float().T, planner.n_probe, dim=1).indices
+            sets.append((h, probe.to(torch.int32), state.lists, state.list_embs, K_SERVE))
+        t_k = device_ms(ivk.ivf_probe_topk_cuda, sets)
+        t_p = device_ms(ivref.ivf_probe_topk_ref, sets)
+    b_ms, b_by, nbytes = bound_ms(*sets[0])
+    c, capp = state.lists.shape
+    log(f"  time ivf_topk DIEN shape (B={MAX_BATCH} L={sets[0][0].shape[1]} C={c} capp={capp} "
+        f"n_probe={planner.n_probe} K={K_SERVE}, served users): device ms per call (CUDA graph) "
+        f"kernel {t_k:.4f}, plain {t_p:.4f}; bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.3f} "
+        f"MB); kernel at {100 * b_ms / t_k:.1f}% of the bound")
+    return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
 
 
 # ---------------------------------------------------------------------------
@@ -2300,6 +2391,13 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": None,
+        "shape": "SASRec serving: B 8, L 50, C 1024, n_probe 8, K 10 (main lists)",
+        **{key: {x: tt[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")} for key, tt in (
+            ("k256", kres["timing"]["main K=256"]),
+            ("full_lists_l2304", kres["timing"]["full lists L=2304"]),
+            ("lm_shape", lres["ivf_lm"]),
+            ("dien_l18", rres["dien"]["ivf_l18"]),
+        )},
     }]
     for name, source, replaces, launch_fn in [
         ("mips_topk", mk.SOURCE, "src/repro/kernels/mips_topk/kernel.py:72", mk.mips_topk_cuda),
@@ -2324,6 +2422,9 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+        if name == "mips_topk":
+            entries[-1].update(floor_ms=r["floor_ms"], probe_ms=r["probe_ms"],
+                               merge_ms=r["merge_ms"])
         if name.startswith("snis_covgrad"):  # the wide path, B 32, S 1000
             modes = ("fwd", "covgrad") if name.endswith("fwd") else ("bwd",)
             entries[-1]["wide_l"] = {

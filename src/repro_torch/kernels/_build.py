@@ -4,10 +4,11 @@ Each kernel is one `.cu` file under its package's `csrc/`, with a plain C
 interface (no PyTorch headers, so `nvcc` takes seconds); sources of one
 package may share `.cuh` headers beside them. It is compiled for Hopper
 (`sm_90a`) at first use into ``BUILD_DIR``, one shared library per
-source, named by the hash of the source and of the headers in its
-directory: an edited source or header builds anew, an unchanged one is
-loaded from the cache. `build` starts one `nvcc`
-per source, all at once, and waits for them all.
+source, named by the hash of the source, of the headers in its
+directory and of the headers in ``SHARED_DIR`` (on every source's
+include path): an edited source or header builds anew, an unchanged one
+is loaded from the cache. `build` starts one `nvcc` per source, all at
+once, and waits for them all.
 
 Nothing here runs when a module is imported: the CPU tests import every
 module of the port on a machine that has no `nvcc`.
@@ -21,9 +22,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SHARED_DIR", "build", "load"]
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SHARED_DIR = Path(__file__).resolve().parent / "csrc"  # headers shared across packages
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -48,7 +50,7 @@ def _nvcc() -> str:
 
 def _target(source: Path) -> Path:
     h = hashlib.sha256(source.read_bytes())
-    for header in sorted(source.parent.glob("*.cuh")):
+    for header in [*sorted(source.parent.glob("*.cuh")), *sorted(SHARED_DIR.glob("*.cuh"))]:
         h.update(header.read_bytes())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
@@ -64,7 +66,7 @@ def build(sources: list[Path]) -> dict[Path, Path]:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SHARED_DIR), "-o", str(tmp), str(src)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )

@@ -34,7 +34,7 @@ import torch
 
 __all__ = [
     "NEG_INF", "flash_attention_bwd_mma", "flash_attention_bwd_ref",
-    "flash_attention_mma", "flash_attention_ref",
+    "flash_attention_mma", "flash_attention_ref", "mma_product",
 ]
 
 NEG_INF = -2.0e38
@@ -159,7 +159,7 @@ def _bf16_terms(x: torch.Tensor, n: int) -> list[torch.Tensor]:
     return terms
 
 
-def _product(eq: str, a: torch.Tensor, b: torch.Tensor, fp32: bool, terms: int = 2):
+def mma_product(eq: str, a: torch.Tensor, b: torch.Tensor, fp32: bool, terms: int = 2):
     """The kernels' product of operands a and b, summed in fp32.
     bf16 inputs: b exact in bf16 and a split into ``terms`` bf16 terms
     (exact when a is bf16; two terms keep ~16 bits of p or ds, three
@@ -195,7 +195,7 @@ def flash_attention_mma(
     seq_kv = skv if seq_kv is None else seq_kv
     fp32 = q.dtype == torch.float32
     scale = 1.0 / float(dh) ** 0.5
-    s = _product("bqd,bkd->bqk", q, k, fp32) * scale
+    s = mma_product("bqd,bkd->bqk", q, k, fp32) * scale
     if logit_cap is not None:
         s = logit_cap * torch.tanh(s / logit_cap)
     mask = _live(sq, skv, seq_kv, causal, window, q_offset, q.device)
@@ -203,7 +203,7 @@ def flash_attention_mma(
     m = s.max(dim=-1, keepdim=True).values
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
-    out = _product("bqk,bkd->bqd", p, v, fp32, terms=3) / l
+    out = mma_product("bqk,bkd->bqd", p, v, fp32, terms=3) / l
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
@@ -232,7 +232,7 @@ def flash_attention_bwd_mma(
     seq_kv = skv if seq_kv is None else seq_kv
     fp32 = q.dtype == torch.float32
     scale = 1.0 / float(dh) ** 0.5
-    s = _product("bqd,bkd->bqk", q, k, fp32) * scale
+    s = mma_product("bqd,bkd->bqk", q, k, fp32) * scale
     dcap = None
     if logit_cap is not None:
         t = torch.tanh(s / logit_cap)
@@ -241,13 +241,13 @@ def flash_attention_bwd_mma(
     mask = _live(sq, skv, seq_kv, causal, window, q_offset, q.device)[None]
     s = torch.where(mask, s, NEG_INF)
     p = torch.exp(s - lse[..., None])
-    dp = _product("bqd,bkd->bqk", do, v, fp32)
+    dp = mma_product("bqd,bkd->bqk", do, v, fp32)
     ds = p * (dp - dsum[..., None])
     if dcap is not None:
         ds = ds * dcap
     ds = torch.where(mask, ds, 0.0)
-    dv = _product("bqk,bqd->bkd", p, do, fp32)
-    dq = _product("bqk,bkd->bqd", ds, k, fp32) * scale
-    dk = _product("bqk,bqd->bkd", ds, q, fp32) * scale
+    dv = mma_product("bqk,bqd->bkd", p, do, fp32)
+    dq = mma_product("bqk,bkd->bqd", ds, k, fp32) * scale
+    dk = mma_product("bqk,bqd->bkd", ds, q, fp32) * scale
     group = lambda x: x.reshape(-1, n_rep, *x.shape[1:]).sum(1)  # noqa: E731
     return dq.to(q.dtype), group(dk).to(k.dtype), group(dv).to(v.dtype)

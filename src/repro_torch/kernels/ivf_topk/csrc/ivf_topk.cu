@@ -8,205 +8,107 @@
 // slot of the lists probe[b, 0..n_probe), where score = q[b] . emb[slot] and
 // a padded slot (id -1) is dead. Scores come out sorted in descending
 // order; a row short of K live candidates back-fills (-3e38f, -1), the
-// same sentinel the reference uses.
+// same sentinel the reference uses. K <= 256.
 //
 // Bound. The function must read, per query row, n_probe * capp list ids
 // and the embeddings of the live slots among them (4L bytes each): at most
 // n_probe * capp * (4L + 4) bytes, plus the queries, the probe ids and the
 // [B, K] outputs. It does ~2L flops per candidate, i.e. ~0.5 flop per byte,
 // far below the card's balance point: the kernel is bound by device-memory
-// bytes, never by arithmetic.
+// bytes, never by arithmetic. At the serving shapes those bytes take a few
+// microseconds, so what a call costs is its chain of dependent round trips
+// to device memory and its launches; the design cuts both.
 //
-// What the design does about that bound:
-//   * Nothing intermediate goes to device memory: neither the
-//     [B, n_probe*capp, L] candidate tensor nor the [B, n_probe*capp] score
-//     matrix exists. Each probed tile of T = 128 list slots is streamed
-//     through shared memory once, in slices of up to 64 columns of L (a
-//     stage: the 128 x 64 slice of the slots' embeddings and the query's
-//     64 columns, 35 KB), and each thread carries its slot's dot product
-//     from slice to slice in a register, in column order. The shared
-//     memory a block needs stops growing with L past 64 (an LM hidden
-//     width of 2304 streams 36 slices; SASRec's 50 is one slice, as
-//     before the slicing), only with K.
-//   * The copies are asynchronous (cp.async) and double-buffered: a block
-//     issues every load of the next stage before it scores the current one,
-//     so many loads are in flight per SM instead of one per thread. When L
-//     is a multiple of 4 (and the rows start on 16-byte boundaries) a copy
-//     moves 16 bytes, else 4.
-//   * The build packs each list from the front, so its padded tail holds
-//     no live slot. A block first finds the end of the live slots in its
-//     range and copies no tile past it: the bytes read follow the live
-//     slots, as the bound counts them (plus the dead rows of the last
-//     partly live tile).
-//   * A TPU grid runs in order and carries the running top-K between grid
-//     steps; GPU blocks run in no order. So the work is split in two
-//     kernels: `ivf_probe_kernel` runs one block per (row, probe, chunk of
-//     the list), enough blocks to fill the 132 SMs even at a batch of 8,
-//     and writes a partial top-K per block to a scratch buffer;
-//     `ivf_merge_kernel` runs one block per row and merges the
-//     n_probe * splits partial lists into the final K. The scratch buffer
-//     is B * n_probe * splits * K * 8 bytes, small beside the list reads.
-//     More splits fill more SMs but give the merge more candidates; the
-//     wrapper balances the two (see `splits_for` in kernel.py).
-//   * The running top-K of a block is held sorted in shared memory. A tile
-//     of candidates touches it only when one of them beats the current
-//     K-th score (a block-wide vote); then only the winners are appended
-//     and one bitonic sort of (K padded to a power of two) + winners,
-//     rounded up to a power of two, restores the order. The merge kernel
-//     reads the sorted partial lists rank by rank, so the K-th score rises
-//     early and most later tiles sort nothing.
+// What the design does:
+//   * One launch per call. A block takes a range of up to 1024 slots of
+//     one probed list (grid: n_probe * splits ranges per row, B rows) and
+//     writes that range's top-K to a scratch buffer; the last block of a
+//     row to finish takes a ticket (__threadfence, then an atomicAdd on the
+//     row's counter, which that block resets to 0) and merges the row's
+//     partial lists. The B merges run on B blocks at once, beside the
+//     other rows' probes.
+//   * Two round trips before the scores: a block loads its range's ids
+//     (four per thread, all at once) and the query, compacts the live
+//     slots in slot order (a warp ballot and a scan of the warps' counts),
+//     then issues the copies of its live rows, two tiles of up to 40 KB,
+//     before the first wait (`cp.async`, 16 bytes when L % 4 == 0, 8 when L
+//     is even, else 4).
+//     A range whose live rows fit two tiles (the serving shapes) is read in
+//     one round trip at any L: at L 2304 a tile is 4 whole rows, not a
+//     slice of 64 columns of each. A longer range streams two tiles ahead.
+//     Only live rows are copied, so the bytes read follow the live slots,
+//     as the bound counts them.
+//   * Dot products from shared memory: G lanes per row (G grows with L,
+//     up to a warp), each lane summing its columns in order, then a
+//     butterfly of shuffles (every lane of the group gets the same sum).
+//   * No sort per tile. The block's running top-K keeps its K-th score as
+//     a threshold (topk_select.cuh): a candidate that beats it is appended
+//     (one atomicAdd per warp), and one warp folds the buffer by a radix
+//     select when it could not take another tile. The top-K is sorted
+//     once, in one warp's registers, before it is written.
+//   * The merge loads the row's partial lists into shared memory (up to
+//     32 ranks at once, in one round trip), then one warp reads them
+//     rank by rank, appends what beats the threshold, folds when the buffer
+//     holds K entries or would overflow, and stops after the first rank
+//     none of whose entries beats the threshold: the lists are sorted, so
+//     no later entry can.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define NEG_INF_F (-3.0e38f)
+#include "topk_select.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // threads per block == candidates per tile
-constexpr int kMaxSlice = 64;  // columns of L per stage, at most
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxChunk = 1024;                  // list slots per block
+constexpr int kIdsPerThread = kMaxChunk / kThreads;
+constexpr int kStageBytes = 40 * 1024;           // one tile of live rows
+constexpr int kStages = 2;
+constexpr int kMaxTile = 256;                    // live rows per tile
+constexpr int kCap = 256;                        // append slots of the running top-K
+constexpr int kRowBytes = kStages * kStageBytes; // the rows' region, also the merge's
 
-// How L is cut into stages.
-struct Slicing {
-  int sw;      // columns per slice: all of L up to kMaxSlice (the last may be short)
-  int stride;  // row stride of a staged slice in shared memory, in floats
-  int stage;   // floats of one stage buffer: the slots' slice, then the query's
+// The block's dynamic shared memory: the query (L floats, rounded to 4),
+// the rows' region, the top-K slots (RT * 32 top slots, then kCap), the
+// live slots and ids of the range.
+struct Layout {
+  int lq, slots;
+  size_t q, rows, ts, ti, live_slot, live_id, bytes;
 };
 
-// An L of at most 64 is one slice, staged as it lies in device memory
-// (stride L): a tile's embeddings are one contiguous run, copied as such.
-// A wider L is cut into slices of 64 columns, and the stride padded: with
-// 4-byte copies a thread reads its row word by word, and an odd stride puts
-// thread i's word l in bank (i * stride + l) % 32, distinct across the warp;
-// with 16-byte copies it reads 16-byte words, and a stride of an odd number
-// of them puts the 8 threads of each quarter-warp on distinct ones. A stage
-// is a multiple of 4 floats, so both buffers start on 16 bytes.
-__host__ __device__ inline Slicing slicing(int L, bool vec) {
-  Slicing s;
-  s.sw = L < kMaxSlice ? L : kMaxSlice;
-  if (L <= kMaxSlice) s.stride = L;
-  else s.stride = vec ? 4 * ((kMaxSlice / 4) | 1) : (kMaxSlice | 1);
-  s.stage = ((kThreads * s.stride + 3) & ~3) + ((s.sw + 3) & ~3);
-  return s;
+__host__ __device__ inline Layout layout(int L, int rt) {
+  Layout y;
+  y.lq = (L + 3) & ~3;
+  y.slots = rt * 32 + kCap;
+  y.q = 0;
+  y.rows = (size_t)y.lq * sizeof(float);
+  y.ts = y.rows + kRowBytes;
+  y.ti = y.ts + (size_t)y.slots * sizeof(float);
+  y.live_slot = y.ti + (size_t)y.slots * sizeof(int);
+  y.live_id = y.live_slot + kMaxChunk * sizeof(int);
+  y.bytes = y.live_id + kMaxChunk * sizeof(int);
+  return y;
 }
 
-__host__ __device__ inline int next_pow2(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
-}
-
-__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// a sorts before b: higher score first; equal scores by lower id
-__device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
-  return sa > sb || (sa == sb && ia < ib);
-}
-
-// Bitonic sort of n (a power of two) (score, id) pairs in shared memory,
-// into descending order. Every thread of the block must call it.
-__device__ void bitonic_sort_desc(float* s, int* id, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        int x = i ^ j;
-        if (x > i) {
-          float si = s[i], sx = s[x];
-          int ii = id[i], ix = id[x];
-          bool swap = ((i & k) == 0) ? before(sx, ix, si, ii)
-                                     : before(si, ii, sx, ix);
-          if (swap) {
-            s[i] = sx; s[x] = si;
-            id[i] = ix; id[x] = ii;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Entries of a running top-K buffer: kp sorted entries plus up to one
-// tile of winners, rounded up to the power of two the sort runs on.
-__host__ __device__ inline int topk_buffer(int kp) { return next_pow2(kp + kThreads); }
-
-// The block's running top-K: s[0..kp) / id[0..kp) sorted descending in
-// buffers of topk_buffer(kp) entries, and a winner counter (zero between
-// calls).
-struct TopK {
-  float* s;
-  int* id;
-  int* count;
-  int k, kp;
-};
-
-__device__ void init_topk(const TopK& t) {
-  for (int e = threadIdx.x; e < t.kp; e += blockDim.x) {
-    t.s[e] = NEG_INF_F;
-    t.id[e] = -1;
-  }
-  if (threadIdx.x == 0) *t.count = 0;
-}
-
-// Offer one candidate per thread (cand_id -1: nothing) to the running
-// top-K. Every thread of the block must call it; it sorts only when some
-// candidate beats the K-th score, and then only the winners join.
-__device__ void offer(const TopK& t, float cand_s, int cand_id) {
-  // a tie with the K-th entry loses, as the earlier position wins a tie in
-  // the reference's top-K
-  const bool wins = cand_id >= 0 && cand_s > t.s[t.k - 1];
-  if (!__syncthreads_or(wins)) return;
-  if (wins) {
-    const int pos = t.kp + atomicAdd(t.count, 1);
-    t.s[pos] = cand_s;
-    t.id[pos] = cand_id;
-  }
-  __syncthreads();
-  const int used = t.kp + *t.count;
-  const int n = next_pow2(used);
-  for (int e = used + threadIdx.x; e < n; e += blockDim.x) {
-    t.s[e] = NEG_INF_F;
-    t.id[e] = -1;
-  }
-  __syncthreads();
-  bitonic_sort_desc(t.s, t.id, n);
-  // every thread read the count before the sort's barriers; the next
-  // offer's vote orders this reset before its first atomicAdd
-  if (threadIdx.x == 0) *t.count = 0;
-}
-
-// The copies of a slice of m rows, wu copies each, to rows of stride S:
-// this thread's copies e = threadIdx.x + i * blockDim.x, walked as (row,
-// column) with no division per copy.
-template <bool kVec>
-__device__ void issue_rows(float* buf, int S, const float* embs_c, int t0, int m, int l0,
-                           int wu, int L) {
-  constexpr int U = kVec ? 4 : 1;
+// Issue the copies of rows [j0, j0 + m) of the live list into a stage of
+// row stride L floats, U floats a copy, committed as one group: this
+// thread's copies e = tid + i * kThreads, walked as (row, word) with no
+// division per copy.
+template <int U>
+__device__ void issue_tile(float* stage, const float* embs_c, const int* live_slot, int j0,
+                           int m, int L) {
+  const int wu = L / U;  // copies per row
   int r = threadIdx.x / wu;
   int c = threadIdx.x - r * wu;
-  const int dr = blockDim.x / wu;
-  const int dc = blockDim.x - dr * wu;
-  for (int e = threadIdx.x; e < m * wu; e += blockDim.x) {
-    float* dst = buf + r * S + c * U;
-    const float* src = embs_c + (size_t)(t0 + r) * L + l0 + c * U;
-    if (kVec) cp_async16(dst, src);
+  const int dr = kThreads / wu;
+  const int dc = kThreads - dr * wu;
+  for (int e = threadIdx.x; e < m * wu; e += kThreads) {
+    float* dst = stage + r * L + c * U;
+    const float* src = embs_c + (size_t)live_slot[j0 + r] * L + c * U;
+    if constexpr (U == 4) cp_async16(dst, src);
+    else if constexpr (U == 2) cp_async8(dst, src);
     else cp_async4(dst, src);
     r += dr;
     c += dc;
@@ -215,241 +117,263 @@ __device__ void issue_rows(float* buf, int S, const float* embs_c, int t0, int m
       ++r;
     }
   }
-}
-
-// Issue the cp.async copies of one stage: columns [l0, l0 + w) of the m
-// slots from t0, and the same columns of the query, committed as one group.
-template <bool kVec>
-__device__ void issue_stage(float* buf, const Slicing& sl, const float* embs_c,
-                            const float* qrow, int t0, int m, int l0, int w, int L) {
-  constexpr int U = kVec ? 4 : 1;  // floats per copy
-  const int S = sl.stride;
-  const int wu = w / U;  // copies per row (w is a multiple of 4 with 16-byte copies)
-  float* qbuf = buf + ((kThreads * S + 3) & ~3);
-  if (S == L) {  // one slice: the tile is one contiguous run
-    const float* src = embs_c + (size_t)t0 * L;
-    for (int e = threadIdx.x; e < m * wu; e += blockDim.x) {
-      if (kVec) cp_async16(buf + e * U, src + e * U);
-      else cp_async4(buf + e * U, src + e * U);
-    }
-  } else {
-    issue_rows<kVec>(buf, S, embs_c, t0, m, l0, wu, L);
-  }
-  if (threadIdx.x < wu) {
-    if (kVec) cp_async16(qbuf + U * threadIdx.x, qrow + l0 + U * threadIdx.x);
-    else cp_async4(qbuf + threadIdx.x, qrow + l0 + threadIdx.x);
-  }
   cp_async_commit();
 }
 
-// Carry this thread's dot product over the w staged columns of its slot,
-// in column order (the same order at any slicing).
-template <bool kVec>
-__device__ __forceinline__ float slice_dot(const float* buf, const Slicing& sl, int w,
-                                           float acc) {
-  const float* row = buf + threadIdx.x * sl.stride;
-  const float* qs = buf + ((kThreads * sl.stride + 3) & ~3);
-  if (kVec) {
-    for (int c = 0; c < w; c += 4) {
-      const float4 r = *reinterpret_cast<const float4*>(row + c);
-      const float4 q = *reinterpret_cast<const float4*>(qs + c);
-      acc = fmaf(q.x, r.x, acc);
-      acc = fmaf(q.y, r.y, acc);
-      acc = fmaf(q.z, r.z, acc);
-      acc = fmaf(q.w, r.w, acc);
-    }
-  } else {
-    for (int c = 0; c < w; ++c) acc = fmaf(qs[c], row[c], acc);
-  }
-  return acc;
-}
-
-// grid (n_probe * splits, B). Block (j, b) scores list slots
-// [split * chunk, min(capp, (split + 1) * chunk)) of cluster probe[b, j / splits]
-// and writes that range's top-K to part_s / part_i [B, n_probe * splits, K].
-template <bool kVec>
-__global__ void ivf_probe_kernel(
+// grid (n_probe * splits, B), kThreads threads. Block (j, b) takes slots
+// [split * chunk, min(capp, (split + 1) * chunk)) of cluster
+// probe[b, j / splits], writes that range's top-K to part_s / part_i
+// [B, n_probe * splits, K], and the last block of row b merges the row's
+// partial lists into out_s / out_i [B, K]. counters[b] is 0 between
+// launches. U: floats per copy (4 when L % 4 == 0 and the rows and the
+// query start on 16 bytes, 2 when L is even and they start on 8, else 1).
+// T: live rows per tile.
+template <int RT, int U>
+__global__ void __launch_bounds__(kThreads, 2) ivf_topk_kernel(
     const float* __restrict__ q, const int* __restrict__ probe,
     const int* __restrict__ lists, const float* __restrict__ embs,
     float* __restrict__ part_s, int* __restrict__ part_i,
-    int L, int n_probe, int capp, int k, int kp, int splits, int chunk) {
-  extern __shared__ __align__(16) float smem[];
-  const Slicing sl = slicing(L, kVec);
-  float* stages = smem;                                        // [2][sl.stage]
-  float* ts = stages + 2 * sl.stage;                           // top-K scores
-  int* ti = reinterpret_cast<int*>(ts + topk_buffer(kp));      // top-K ids
-  __shared__ int count, live_end;
-  const TopK top{ts, ti, &count, k, kp};
+    float* __restrict__ out_s, int* __restrict__ out_i, int* __restrict__ counters,
+    int L, int n_probe, int capp, int k, int splits, int chunk, int T, int G) {
+  constexpr int kp = RT * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout y = layout(L, RT);
+  float* qs = reinterpret_cast<float*>(smem + y.q);
+  float* rows = reinterpret_cast<float*>(smem + y.rows);
+  float* ts = reinterpret_cast<float*>(smem + y.ts);
+  int* ti = reinterpret_cast<int*>(smem + y.ti);
+  int* live_slot = reinterpret_cast<int*>(smem + y.live_slot);
+  int* live_id = reinterpret_cast<int*>(smem + y.live_id);
+  __shared__ int wcount[kIdsPerThread * kWarps];
+  __shared__ int n_live, cnt, last, stop;
+  __shared__ float theta;
 
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y;
   const int j = blockIdx.x;
   const int c = probe[b * n_probe + j / splits];
   const int lo = (j % splits) * chunk;
   const int hi = min(capp, lo + chunk);
   const float* embs_c = embs + (size_t)c * capp * L;
-  const int* ids_c = lists + (size_t)c * capp;
   const float* qrow = q + (size_t)b * L;
 
-  init_topk(top);
-  if (threadIdx.x == 0) live_end = lo;
-  __syncthreads();
-  // one past the last live slot of the range: no tile past it is copied
-  int end = lo;
-  for (int s = lo + threadIdx.x; s < hi; s += blockDim.x) {
-    if (ids_c[s] >= 0) end = s + 1;
+  // round trip 1: the query (cp.async, group 0) and the range's ids
+  for (int e = tid; e < L / U; e += kThreads) {
+    if constexpr (U == 4) cp_async16(qs + 4 * e, qrow + 4 * e);
+    else if constexpr (U == 2) cp_async8(qs + 2 * e, qrow + 2 * e);
+    else cp_async4(qs + e, qrow + e);
   }
-  atomicMax(&live_end, end);
+  cp_async_commit();
+  int idv[kIdsPerThread];
+#pragma unroll
+  for (int i = 0; i < kIdsPerThread; ++i) {
+    const int s = lo + i * kThreads + tid;
+    idv[i] = s < hi ? __ldg(lists + (size_t)c * capp + s) : -1;
+  }
+  for (int e = tid; e < y.slots; e += kThreads) {
+    ts[e] = NEG_INF_F;
+    ti[e] = -1;
+  }
+  if (tid == 0) {
+    cnt = 0;
+    theta = NEG_INF_F;
+  }
+  // the live slots in slot order: a ballot per (round i, warp), then an
+  // exclusive scan of the counts in (i, warp) order by warp 0
+  unsigned live_mask[kIdsPerThread];
+#pragma unroll
+  for (int i = 0; i < kIdsPerThread; ++i) {
+    live_mask[i] = __ballot_sync(0xffffffffu, idv[i] >= 0);
+    if (lane == 0) wcount[i * kWarps + warp] = __popc(live_mask[i]);
+  }
   __syncthreads();
-  end = live_end;
+  if (warp == 0) {
+    static_assert(kIdsPerThread * kWarps == 32, "one count per lane");
+    const int v = wcount[lane];
+    int incl = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += o;
+    }
+    wcount[lane] = incl - v;
+    if (lane == 31) n_live = incl;
+  }
+  __syncthreads();
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int i = 0; i < kIdsPerThread; ++i) {
+    if (idv[i] >= 0) {
+      const int pos = wcount[i * kWarps + warp] + __popc(live_mask[i] & below);
+      live_slot[pos] = lo + i * kThreads + tid;
+      live_id[pos] = idv[i];
+    }
+  }
+  __syncthreads();
 
-  // stage g is slice g % nsl of tile g / nsl
-  const int nsl = (L + sl.sw - 1) / sl.sw;
-  const int nstages = (end - lo + kThreads - 1) / kThreads * nsl;
-  if (nstages > 0)
-    issue_stage<kVec>(stages, sl, embs_c, qrow, lo, min(kThreads, end - lo), 0, sl.sw, L);
-  int cid = -1;
-  float acc = 0.f;
-  for (int g = 0; g < nstages; ++g) {
-    const int t = g / nsl;
-    const int s = g - t * nsl;
-    const int t0 = lo + t * kThreads;
-    const int m = min(kThreads, end - t0);
-    if (s == 0) {
-      cid = threadIdx.x < m ? ids_c[t0 + threadIdx.x] : -1;
-      acc = 0.f;
-    }
-    if (g + 1 < nstages) {
-      const int t1 = (g + 1) / nsl;
-      const int l1 = ((g + 1) - t1 * nsl) * sl.sw;
-      const int n0 = lo + t1 * kThreads;
-      issue_stage<kVec>(stages + ((g + 1) & 1) * sl.stage, sl, embs_c, qrow, n0,
-                        min(kThreads, end - n0), l1, min(sl.sw, L - l1), L);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  // round trip 2: the live rows, two tiles before the first wait
+  const int n = n_live;
+  const int ntiles = (n + T - 1) / T;
+  const int stage_floats = kStageBytes / (int)sizeof(float);
+  for (int t = 0; t < ntiles && t < kStages; ++t)
+    issue_tile<U>(rows + t * stage_floats, embs_c, live_slot, t * T, min(T, n - t * T), L);
+  const int per_warp = 32 / G;  // rows a warp scores at once
+  const int gl = lane % G;      // this lane's place in its row's group
+  for (int t = 0; t < ntiles; ++t) {
+    // the query and tile t have landed (tile t + 1 may be in flight)
+    if (t + 1 < ntiles) cp_async_wait<1>();
+    else cp_async_wait<0>();
     __syncthreads();
-    if (cid >= 0) {
-      const int l0 = s * sl.sw;
-      acc = slice_dot<kVec>(stages + (g & 1) * sl.stage, sl, min(sl.sw, L - l0), acc);
+    const float* stage = rows + (t % kStages) * stage_floats;
+    const int j0 = t * T;
+    const int m = min(T, n - j0);
+    const float th = theta;
+    for (int r0 = 0; r0 < m; r0 += kWarps * per_warp) {
+      const int r = r0 + warp * per_warp + lane / G;
+      float acc = 0.f;
+      if (r < m) {
+        const float* row = stage + r * L;
+        if constexpr (U == 4) {
+          const float4* row4 = reinterpret_cast<const float4*>(row);
+          const float4* q4 = reinterpret_cast<const float4*>(qs);
+          for (int w = gl; w < L / 4; w += G) {
+            const float4 a = row4[w], x = q4[w];
+            acc = fmaf(x.x, a.x, acc);
+            acc = fmaf(x.y, a.y, acc);
+            acc = fmaf(x.z, a.z, acc);
+            acc = fmaf(x.w, a.w, acc);
+          }
+        } else {
+          for (int w = gl; w < L; w += G) acc = fmaf(qs[w], row[w], acc);
+        }
+      }
+      for (int d = G / 2; d > 0; d >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, d);
+      // a tie with the K-th score loses, as the earlier slot wins a tie
+      const bool wins = r < m && gl == 0 && acc > th;
+      const unsigned mask = __ballot_sync(0xffffffffu, wins);
+      if (mask) {
+        const int leader = __ffs(mask) - 1;
+        int base = 0;
+        if (lane == leader) base = atomicAdd(&cnt, __popc(mask));
+        base = __shfl_sync(0xffffffffu, base, leader);
+        if (wins) {
+          const int pos = kp + base + __popc(mask & below);
+          ts[pos] = acc;
+          ti[pos] = live_id[j0 + r];
+        }
+      }
     }
-    if (s == nsl - 1) offer(top, cid >= 0 ? acc : NEG_INF_F, cid);
-    __syncthreads();  // this buffer is refilled by the next iteration's copies
+    __syncthreads();  // the appends are done and the stage is read
+    if (t + kStages < ntiles)
+      issue_tile<U>(rows + (t % kStages) * stage_floats, embs_c, live_slot, (t + kStages) * T,
+                    min(T, n - (t + kStages) * T), L);
+    // fold a buffer that could not take another tile (the next barrier
+    // waits for it)
+    if (warp == 0) fold_if<RT, kCap>(ts, ti, &cnt, &theta, k, kCap - T + 1, lane);
   }
+  cp_async_wait<0>();  // the query's copy, when no row was live
+  __syncthreads();
 
-  const size_t out = ((size_t)b * gridDim.x + j) * k;
-  for (int e = threadIdx.x; e < k; e += blockDim.x) {
-    part_s[out + e] = ts[e];
-    part_i[out + e] = ti[e];
+  // the range's top-K, sorted, to the scratch buffer
+  const int lists_per_row = gridDim.x;
+  if (warp == 0) {
+    const size_t out = ((size_t)b * lists_per_row + j) * k;
+    write_top<RT, kCap>(ts, ti, &cnt, &theta, k, lane, part_s + out, part_i + out);
+    __threadfence();  // the partial list is visible before the ticket
   }
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(counters + b, 1);
+    last = ticket == lists_per_row - 1;
+    if (last) counters[b] = 0;  // every block of the row has taken its ticket
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // the merge, in the rows' region: scores in its first half, ids in its second
+  merge_lists<RT, kCap>(part_s + (size_t)b * lists_per_row * k,
+                        part_i + (size_t)b * lists_per_row * k, lists_per_row, k, rows,
+                        reinterpret_cast<int*>(rows) + kRowBytes / 8, kRowBytes / 8, ts, ti, &cnt,
+                        &theta, &stop, out_s + (size_t)b * k, out_i + (size_t)b * k);
 }
 
-// grid (B). Merges row b's p sorted partial lists of k entries into its
-// top-K, reading them rank by rank (rank 0 of every list first).
-__global__ void ivf_merge_kernel(
-    const float* __restrict__ part_s, const int* __restrict__ part_i,
-    float* __restrict__ out_s, int* __restrict__ out_i, int p, int k, int kp) {
-  extern __shared__ __align__(16) float smem[];
-  float* ts = smem;
-  int* ti = reinterpret_cast<int*>(ts + topk_buffer(kp));
-  __shared__ int count;
-  const TopK top{ts, ti, &count, k, kp};
-  const int b = blockIdx.x;
-  init_topk(top);
-  __syncthreads();
-  const int m = p * k;
-  const float* ps = part_s + (size_t)b * m;
-  const int* pi = part_i + (size_t)b * m;
-  for (int t0 = 0; t0 < m; t0 += kThreads) {
-    const int e = t0 + threadIdx.x;
-    float sc = NEG_INF_F;
-    int cid = -1;
-    if (e < m) {
-      const int at = (e % p) * k + e / p;  // list e % p, rank e / p
-      cid = pi[at];
-      sc = ps[at];
-    }
-    offer(top, sc, cid);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < k; e += blockDim.x) {
-    out_s[(size_t)b * k + e] = ts[e];
-    out_i[(size_t)b * k + e] = ti[e];
-  }
-}
-
-// Raise a kernel's dynamic shared-memory limit on the current device when
-// a launch needs more than it was last set to (the call costs host time,
-// so it is made once per new maximum, not once per launch).
-cudaError_t ensure_smem(int which, const void* fn, size_t bytes) {
-  static size_t set_to[3][64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+template <int RT, int U>
+cudaError_t launch(const void* q, const void* probe, const void* lists, const void* embs,
+                   void* part_s, void* part_i, void* out_s, void* out_i, void* counters, int B,
+                   int L, int n_probe, int capp, int k, int splits, int chunk, int T, int G,
+                   cudaStream_t st) {
+  const size_t smem = layout(L, RT).bytes;
+  const void* fn = (const void*)ivf_topk_kernel<RT, U>;
+  constexpr int which = (RT == 1 ? 0 : RT == 2 ? 1 : RT == 4 ? 2 : 3) * 3 + (U == 4 ? 2 : U == 2);
+  cudaError_t err = ensure_smem(which, fn, smem);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (bytes <= set_to[which][dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err == cudaSuccess) set_to[which][dev] = bytes;
-  return err;
+  dim3 grid(n_probe * splits, B);
+  ivf_topk_kernel<RT, U><<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const int*>(probe),
+      static_cast<const int*>(lists), static_cast<const float*>(embs),
+      static_cast<float*>(part_s), static_cast<int*>(part_i), static_cast<float*>(out_s),
+      static_cast<int*>(out_i), static_cast<int*>(counters), L, n_probe, capp, k, splits, chunk,
+      T, G);
+  return cudaGetLastError();
+}
+
+template <int U>
+cudaError_t launch_u(int rt, const void* q, const void* probe, const void* lists,
+                     const void* embs, void* part_s, void* part_i, void* out_s, void* out_i,
+                     void* counters, int B, int L, int n_probe, int capp, int k, int splits,
+                     int chunk, int T, int G, cudaStream_t st) {
+#define IVF_LAUNCH(R)                                                                        \
+  launch<R, U>(q, probe, lists, embs, part_s, part_i, out_s, out_i, counters, B, L, n_probe, \
+               capp, k, splits, chunk, T, G, st)
+  switch (rt) {
+    case 1: return IVF_LAUNCH(1);
+    case 2: return IVF_LAUNCH(2);
+    case 4: return IVF_LAUNCH(4);
+    case 8: return IVF_LAUNCH(8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef IVF_LAUNCH
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of the probe kernel with 4-byte (which = 0) or
-// 16-byte (2) copies and of the merge kernel (1), in bytes; the caller
-// checks it against the card's limit. L is streamed in slices of at most
-// 64 columns, so it stops growing with L past 64.
-size_t ivf_topk_smem_bytes(int L, int k, int which) {
-  const size_t topk = (size_t)topk_buffer(next_pow2(k)) * (sizeof(float) + sizeof(int));
-  if (which == 1) return topk;
-  return topk + 2 * (size_t)slicing(L, which == 2).stage * sizeof(float);
-}
-
-int ivf_topk_threads(void) { return kThreads; }
-
-// Launches both kernels on `stream` and returns cudaGetLastError().
-// part_s / part_i: scratch of B * n_probe * splits * k entries each.
+// Launches the kernel on `stream` and returns cudaGetLastError().
+// part_s / part_i: scratch of B * n_probe * splits * k entries each;
+// counters: B ints, 0 (each launch leaves them 0). T live rows per tile
+// (T * L * 4 <= 40 KB), G lanes per row (a power of two <= 32).
 int ivf_topk_launch(const void* q, const void* probe, const void* lists,
                     const void* embs, void* part_s, void* part_i,
-                    void* out_s, void* out_i, int B, int L, int n_probe,
-                    int capp, int k, int splits, int chunk, void* stream) {
-  const int kp = next_pow2(k);
+                    void* out_s, void* out_i, void* counters, int B, int L, int n_probe,
+                    int capp, int k, int splits, int chunk, int T, int G, void* stream) {
+  const int rt = next_pow2(k) > 32 ? next_pow2(k) / 32 : 1;
+  if (k < 1 || rt > 8 || chunk > kMaxChunk || T < 1 || T > kMaxTile ||
+      (size_t)T * L * sizeof(float) > kStageBytes || G < 1 || G > 32 || (G & (G - 1)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // 16-byte copies need every row and the query to start on 16 bytes
-  const bool vec = L % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(embs) % 16 == 0;
-  const size_t smem0 = ivf_topk_smem_bytes(L, k, vec ? 2 : 0);
-  const size_t smem1 = ivf_topk_smem_bytes(L, k, 1);
-  const void* probe_fn = vec ? (const void*)ivf_probe_kernel<true>
-                             : (const void*)ivf_probe_kernel<false>;
-  cudaError_t err = ensure_smem(vec ? 2 : 0, probe_fn, smem0);
-  if (err != cudaSuccess) return (int)err;
-  err = ensure_smem(1, (const void*)ivf_merge_kernel, smem1);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid0(n_probe * splits, B);
-  if (vec) {
-    ivf_probe_kernel<true><<<grid0, kThreads, smem0, st>>>(
-        static_cast<const float*>(q), static_cast<const int*>(probe),
-        static_cast<const int*>(lists), static_cast<const float*>(embs),
-        static_cast<float*>(part_s), static_cast<int*>(part_i), L, n_probe,
-        capp, k, kp, splits, chunk);
-  } else {
-    ivf_probe_kernel<false><<<grid0, kThreads, smem0, st>>>(
-        static_cast<const float*>(q), static_cast<const int*>(probe),
-        static_cast<const int*>(lists), static_cast<const float*>(embs),
-        static_cast<float*>(part_s), static_cast<int*>(part_i), L, n_probe,
-        capp, k, kp, splits, chunk);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ivf_merge_kernel<<<B, kThreads, smem1, st>>>(
-      static_cast<const float*>(part_s), static_cast<const int*>(part_i),
-      static_cast<float*>(out_s), static_cast<int*>(out_i), n_probe * splits,
-      k, kp);
-  return (int)cudaGetLastError();
+  // 16-byte copies need every row and the query to start on 16 bytes, 8-byte
+  // ones on 8
+  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(embs);
+  const int u = L % 4 == 0 && align % 16 == 0 ? 4 : L % 2 == 0 && align % 8 == 0 ? 2 : 1;
+#define IVF_LAUNCH_U(UU)                                                                       \
+  launch_u<UU>(rt, q, probe, lists, embs, part_s, part_i, out_s, out_i, counters, B, L, n_probe, \
+               capp, k, splits, chunk, T, G, st)
+  const cudaError_t err = u == 4 ? IVF_LAUNCH_U(4) : u == 2 ? IVF_LAUNCH_U(2) : IVF_LAUNCH_U(1);
+#undef IVF_LAUNCH_U
+  return (int)err;
+}
+
+// The id of the CUDA-graph capture under way on `stream`, or 0 when none
+// is: the wrapper's ticket counters belong to one capture, or to eager
+// launches.
+unsigned long long ivf_topk_capture_id(void* stream) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long id = 0;
+  if (cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, &id) != cudaSuccess)
+    return 0;
+  return status == cudaStreamCaptureStatusActive ? id : 0;
 }
 
 const char* ivf_topk_error_string(int err) {

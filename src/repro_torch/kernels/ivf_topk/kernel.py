@@ -5,30 +5,39 @@ computes: the masked top-K over the probed clusters' padded inverted
 lists, without materialising the candidate tensor. See the source for
 the design and its bound.
 
-The wrapper checks device, dtype, shape and contiguity, allocates the
+The wrapper checks device, dtype, shape and contiguity, sizes the
+launch (`splits_for`, `tile_rows`, `lanes_per_row`), allocates the
 outputs and the partial top-K scratch with `torch.empty`, launches on
 PyTorch's current stream without synchronising, and raises if the
-launch is refused. It counts its launches in
-``ivf_probe_topk_cuda.launches``.
+launch is refused. One launch probes and merges (the last block of each
+row merges its partial lists, `ticket_counters`). It counts its launches
+in ``ivf_probe_topk_cuda.launches``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import _build, _launch
 
-__all__ = ["SOURCE", "ivf_probe_topk_cuda", "library", "splits_for"]
+__all__ = [
+    "MAX_K", "SOURCE", "ivf_probe_topk_cuda", "lanes_per_row", "library",
+    "splits_for", "ticket_counters", "tile_rows",
+]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ivf_topk.cu"
 
-# H100 SXM: 132 SMs; aim for two blocks each on the probe kernel
+# the source's geometry (ivf_topk.cu)
+MAX_K = 256  # kp <= 8 * 32 top slots
+MAX_CHUNK = 1024  # list slots per block (kMaxChunk)
+_STAGE_BYTES = 40 * 1024  # one tile of live rows (kStageBytes)
+_MAX_TILE = 256  # live rows per tile (kMaxTile)
+_MERGE_ENTRIES = 2 * _STAGE_BYTES // 8  # (score, id) pairs the merge stages at once
+# H100 SXM: 132 SMs, two blocks each (the kernel's shared memory allows two)
 _TARGET_BLOCKS = 2 * 132
-_MAX_SMEM = 232_448  # the most dynamic shared memory a Hopper block can use
 
 
 @functools.cache
@@ -36,46 +45,67 @@ def library() -> ctypes.CDLL:
     """Build (first use) and load the kernel's library, with its C
     signatures declared."""
     lib = _build.load(SOURCE)
-    _launch.declare(lib, "ivf_topk_launch", "p" * 8 + "i" * 7 + "p")
-    _launch.declare(lib, "ivf_topk_smem_bytes", "iii", ctypes.c_size_t)
-    _launch.declare(lib, "ivf_topk_threads", "")
+    _launch.declare(lib, "ivf_topk_launch", "p" * 9 + "i" * 9 + "p")
+    _launch.declare(lib, "ivf_topk_capture_id", "p", ctypes.c_ulonglong)
     _launch.declare(lib, "ivf_topk_error_string", "i", ctypes.c_char_p)
     return lib
 
 
-@functools.cache
-def _launch_shape(l: int, k: int) -> int:
-    """The kernel's tile width, after checking that (L, K) fit the shared
-    memory of a Hopper block (K is never capped silently; L is streamed
-    in slices of at most 64 columns, so any L fits beside a K that does)."""
-    lib = library()
-    for which in (0, 1, 2):
-        smem = lib.ivf_topk_smem_bytes(l, k, which)
-        if smem > _MAX_SMEM:
-            raise ValueError(
-                f"k={k} (L={l}) needs {smem} bytes of shared memory per block, "
-                f"more than the {_MAX_SMEM} a Hopper block can use"
-            )
-    return lib.ivf_topk_threads()
+def tile_rows(l: int) -> int:
+    """Live rows per tile: as many whole rows of L floats as fit 40 KB,
+    at most 256. A block copies two tiles before its first wait."""
+    t = min(_MAX_TILE, _STAGE_BYTES // (4 * l))
+    if t < 1:
+        raise ValueError(f"L={l}: one row exceeds the kernel's {_STAGE_BYTES}-byte tile")
+    return t
 
 
-def splits_for(
-    batch: int, n_probe: int, capp: int, k: int, tile: int
-) -> tuple[int, int]:
-    """(splits, chunk): each probed list is cut into `splits` chunks of
-    `chunk` slots (a multiple of the kernel's tile). More splits give the
-    probe kernel more blocks (up to `_TARGET_BLOCKS`, to fill the card at a
-    small batch) but give the merge kernel, one block per row, n_probe *
-    splits * K candidates to fold. Balancing a probe block's capp / splits
-    slots against the merge's n_probe * splits * K puts splits near
-    sqrt(capp / (n_probe * K)): 4 at the serving shape (capp 2048,
-    n_probe 8, K 10), 1 at K 256."""
-    tiles = max(1, -(-capp // tile))
+def lanes_per_row(l: int) -> int:
+    """G, the lanes that score one row together: a power of two up to a
+    warp, about one per 16 of the row's words (16-byte words when L % 4
+    == 0, else floats)."""
+    words = l // 4 if l % 4 == 0 else l
+    return min(32, 1 << max(0, -(-words // 16) - 1).bit_length())
+
+
+def splits_for(batch: int, n_probe: int, capp: int, k: int, l: int) -> tuple[int, int]:
+    """(splits, chunk): each probed list is cut into `splits` ranges of
+    `chunk` slots (a multiple of 32, at most 1024), one block each.
+    Enough blocks to fill the card at a small batch (`_TARGET_BLOCKS`);
+    where it costs at most twice that, ranges short enough that their
+    live rows fit the two tiles a block copies at once; and, where the
+    fill allows it, few enough partial lists per row (n_probe * splits *
+    K pairs) that the merge stages them all at once."""
     fill = -(-_TARGET_BLOCKS // max(1, batch * n_probe))
-    balance = math.isqrt(max(1, capp // max(1, n_probe * k)))
-    want = max(1, min(fill, balance, tiles))
-    chunk = -(-tiles // want) * tile
+    by_rows = -(-capp // (2 * tile_rows(l)))
+    want = max(fill, by_rows) if by_rows <= 2 * fill else fill
+    want = min(want, max(1, _MERGE_ENTRIES // (n_probe * k)))
+    want = max(-(-capp // MAX_CHUNK), min(want, -(-capp // 32)))
+    per = -(-capp // want)
+    chunk = -(-per // 32) * 32
     return -(-capp // chunk), chunk
+
+
+_COUNTERS: dict[tuple[int, int, int, int], torch.Tensor] = {}
+
+
+def ticket_counters(device: torch.device, stream: int, b: int, capture: int = 0) -> torch.Tensor:
+    """The rows' ticket counters (int32 [B], 0 between launches), made with
+    `torch.zeros` once per (device, stream, B) for eager launches and once
+    more per CUDA-graph capture (`capture`, its id; 0 when eager).
+
+    Every launch leaves them at 0 (the last block of a row resets its
+    counter), so the next launch on the same stream, and the next replay
+    of a graph, find them at 0. Launches on two streams may overlap, so
+    each stream has its own. A capture gets its own, zeroed by a node of
+    the graph it captures (the zeroing runs when the graph is first
+    replayed, before its first launch) and kept here for as long as the
+    graph may replay them; eager launches never share them."""
+    key = (device.index or 0 if device.type == "cuda" else -1, stream, b, capture)
+    counters = _COUNTERS.get(key)
+    if counters is None:
+        counters = _COUNTERS[key] = torch.zeros(b, dtype=torch.int32, device=device)
+    return counters
 
 
 def ivf_probe_topk_cuda(
@@ -85,7 +115,8 @@ def ivf_probe_topk_cuda(
     list_embs: torch.Tensor,  # [C, capp, L] float32
     k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(scores [B, K] float32 descending, ids [B, K] int32) on the card."""
+    """(scores [B, K] float32 descending, ids [B, K] int32) on the card;
+    K <= 256."""
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"ivf_probe_topk_cuda takes CUDA tensors, got {dev}")
@@ -106,21 +137,33 @@ def ivf_probe_topk_cuda(
         raise ValueError(
             f"need k, n_probe, B, capp >= 1 (got {k}, {n_probe}, {b}, {capp})"
         )
+    if k > MAX_K:
+        raise ValueError(f"k={k} exceeds the kernel's {MAX_K} top slots")
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the grid's y limit 65535")
-    tile = _launch_shape(l, k)
-    splits, chunk = splits_for(b, n_probe, capp, k, tile)
+    t, g = tile_rows(l), lanes_per_row(l)
+    splits, chunk = splits_for(b, n_probe, capp, k, l)
+    if n_probe * splits > _MERGE_ENTRIES:
+        raise ValueError(
+            f"n_probe * splits = {n_probe * splits} partial lists exceed the merge's "
+            f"{_MERGE_ENTRIES} entries"
+        )
+    lib = library()
+    if l % 4 == 0:  # 16-byte copies: the query and every row start on 16 bytes
+        queries, list_embs = _launch.aligned16(queries), _launch.aligned16(list_embs)
+    stream = _launch.stream(dev)
+    counters = ticket_counters(dev, stream, b, lib.ivf_topk_capture_id(stream))
     part_s = torch.empty((b, n_probe * splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, n_probe * splits, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    err = library().ivf_topk_launch(
+    err = lib.ivf_topk_launch(
         queries.data_ptr(), probe.data_ptr(), lists.data_ptr(),
         list_embs.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(),
-        b, l, n_probe, capp, k, splits, chunk, _launch.stream(dev),
+        out_s.data_ptr(), out_i.data_ptr(), counters.data_ptr(),
+        b, l, n_probe, capp, k, splits, chunk, t, g, stream,
     )
-    _launch.raise_on_error(err, library(), "ivf_topk_error_string", "ivf_topk")
+    _launch.raise_on_error(err, lib, "ivf_topk_error_string", "ivf_topk")
     ivf_probe_topk_cuda.launches += 1
     return out_s, out_i
 

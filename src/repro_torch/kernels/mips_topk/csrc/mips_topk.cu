@@ -5,525 +5,639 @@
 // Replaces: repro/kernels/mips_topk/kernel.py:mips_topk_pallas.
 //
 // Computes, for each query row b: the K best (score, id) pairs over every
-// catalog row i < P, score = q[b] . items[i] in fp32 FMAs (no TF32, no
-// library GEMM), sorted in descending order. A row short of K items
-// back-fills (-3e38f, -1), the reference's NEG_INF sentinel. The [B, P]
-// score matrix is never stored.
+// catalog row i < P, score = q[b] . items[i], sorted in descending order
+// (K <= 256). A row short of K items back-fills (-3e38f, -1), the
+// reference's NEG_INF sentinel. The [B, P] score matrix is never stored.
 //
 // Bound. The function must read the catalog once (P * L * 4 bytes: 300 MB
 // at P = 750,000, L = 100, i.e. 0.0896 ms at 3.35 TB/s) and do 2 B P L
-// flops (4.8 GFLOP at B = 32, 0.0716 ms at 67 TFLOP/s fp32): at the
-// training shape it is bound by bytes, with the arithmetic close behind.
+// flops (4.8 GFLOP at B = 32): 0.0716 ms at the 67 TFLOP/s of fp32 FMAs,
+// so a kernel that scores on the CUDA cores cannot reach the byte bound.
 //
 // What the design does about that bound:
-//   * Every block scores its catalog rows against a tile of 32 queries at
-//     once (all of the training batch), so the catalog is read from device
-//     memory once, not once per query. The rows stream through shared
-//     memory in tiles of 64, copied with cp.async and double-buffered: the
-//     next tile's loads are in flight while the current one is scored.
+//   * Scores run on the tensor cores in 3xTF32 (`mma.sync` m16n8k8, the
+//     split of MmaF32 in flash_attention_common.cuh): each fp32 operand is
+//     split into big = tf32(x), rounded to nearest, and small = x - big,
+//     and a product is (small * big + big * small) + big * big, each term
+//     in its own accumulator, added in IEEE fp32 at the end of a row: ~21
+//     bits of each operand, within the fp32 gates of the plain version
+//     (`ref.mips_topk_mma` emulates this arithmetic). Three passes at 495
+//     TFLOP/s take ~0.03 ms: the bytes stay the bound.
+//   * A block scores 32 queries (all of the training batch), so the
+//     catalog is read from device memory once. Its 16 scoring warps form 4
+//     teams of 4 (one warp of each on each of the SM's schedulers): team j
+//     owns queries 8j..8j+7 (one n8 tile, whose split fragments it keeps
+//     in registers for L <= 104), and warp s of a team
+//     scores rows 16s..16s+15 of each 64-row tile (one m16 tile, read with
+//     `ldmatrix`: a row stride of L = 100 floats puts the eight rows of an
+//     ldmatrix phase on distinct banks).
+//   * A 17th warp streams the catalog: a tile of 64 contiguous rows is one
+//     run of bytes, one `cp.async.bulk` (TMA, 1-D) completing on an
+//     `mbarrier`, into a ring of up to 4 stages, so three tiles are in
+//     flight while one is scored. Each scoring warp releases a stage on
+//     its "empty" mbarrier as soon as its products are done.
 //   * A TPU grid runs in order and carries the running top-K between grid
 //     steps; GPU blocks run in no order. So the catalog is cut into about
 //     one chunk per SM (`mips_probe_kernel`), each block writes a sorted
 //     partial top-K per query to a scratch buffer, and `mips_merge_kernel`
-//     (one warp per query) merges those partial lists.
-//   * The running top-K of each query keeps its K-th score as a threshold.
-//     A candidate is appended to the query's buffer only if it beats it;
-//     when the buffer is nearly full one warp folds it into the top-K and
-//     raises the threshold. The fold does not sort: it finds the new K-th
-//     score by a radix select over the scores' bits in the warp's
-//     registers (32 rounds of a compare and a warp sum) and moves the
-//     entries above it to the top-K slots. About K (1 + ln(n / K)) of a
-//     block's n rows pass the threshold per query. Each query's top-K is
-//     sorted once, at the end (bitonic, in registers: 16 pairs a lane at
-//     K = 256, shuffles between lanes).
-//   * The merge reads the partial lists rank by rank and stops at the
-//     first rank where no entry beats the running K-th score: the lists
-//     are sorted, so no later entry can. It reads a few ranks, not
-//     chunks * K entries.
-//   * Scoring keeps 4 queries x 2 rows of sums per thread and reads rows
-//     as 16-byte words; the row stride L = 100 floats is 25 words, odd, so
-//     eight neighbouring rows fall in distinct banks. The catalog's ragged
-//     end is masked here; nothing is padded or copied on the host.
+//     (a block per query) merges those partial lists.
+//   * The running top-K of each query keeps its K-th score as a threshold
+//     (topk_select.cuh): a candidate is appended to the query's buffer only
+//     if it beats it; a buffer that could not take another tile is folded
+//     by a radix select in one warp's registers. Appends and folds of a
+//     team's 8 queries are ordered by a named barrier of that team's 128
+//     threads per tile (`bar.red.or 1 + team`, which also tells whether an
+//     append took a buffer past its fold line), and one more only when the
+//     team folds; never by a block-wide one: a team that folds holds up
+//     neither the other teams nor the copies. The team folds all 8 queries
+//     at once (2 per warp), so they stall it together, not each on its own
+//     tile. Each query's top-K is sorted once, at the end.
+//   * A floor before the scan: two small kernels score every 92nd row (at
+//     P 750,000; at most 8,192 rows) in fp32 and take each query's K-th
+//     sampled score less a margin (`mips_floor_kernel`). At least K rows
+//     score above it, so no row below it can be among the K best; the
+//     probe's gate is the larger of its threshold and the floor, and a
+//     block appends about K * 92 / 132 candidates a query instead of about
+//     K (1 + ln(5,696 / K)).
+//   * The merge (a block per query) stages the partial lists' first
+//     ranks in shared memory in one round trip, then one warp reads them
+//     rank by rank and stops at the first rank where no entry beats the
+//     running K-th score: the lists are sorted, so no later entry can. It
+//     reads a few ranks, not chunks * K entries.
+//   * The catalog's ragged end is masked here (the copy takes the tile's
+//     whole 16-byte words, the copy warp the last 0-3 floats); nothing is
+//     padded or copied on the host. The ring is zeroed once, so the
+//     columns past L that the last k-step reads are finite (their query
+//     fragments are 0).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define NEG_INF_F (-3.0e38f)
+#include "topk_select.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // threads per block (8 warps)
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileQ = 32;      // queries per probe block: 4 per warp
-constexpr int kTileItems = 64;  // catalog rows per tile: 2 per lane
+constexpr int kScoreWarps = 16;                  // 4 teams x 4 strips
+constexpr int kThreads = (kScoreWarps + 1) * 32;  // and the copy warp
+constexpr int kTileQ = 32;                        // queries per block: 8 per team
+constexpr int kTileItems = 64;                    // catalog rows per tile: 16 per strip
+constexpr int kTop = 256;                         // top slots per query (K <= 256)
+constexpr int kCap = 192;                         // append slots per query
+constexpr int kSlots = kTop + kCap;
+constexpr int kTopR = kTop / 32;                  // registers of the final sort
+constexpr int kKReg = 13;                         // k-steps held in registers (L <= 104)
+constexpr int kMaxStages = 4;
+constexpr int kSampleRows = 64;                   // sampled rows per block of the sample kernel
+constexpr int kSampleThreads = 256;
+constexpr int kSampleMax = 8192;                  // sampled rows, at most
+constexpr int kFloorThreads = 256;                // the floor kernel's block: 32 keys a thread
+// the floor's margin: 2^-12 of the largest sum of |q_l x_l| over the sampled
+// rows, 16 times a bound on how far the probe kernel's 3xTF32 score of a row
+// and the sample kernel's fp32 one can differ (each within 2^-17 of that sum
+// of the exact dot product at L <= 227)
+constexpr float kMarginRel = 1.0f / 4096.0f;
+constexpr int kMergeThreads = 256;
+constexpr int kMergeCap = 256;                    // the merge's append slots
+constexpr int kMergeRoom = 8192;                  // partial-list pairs the merge stages at once
 
-__host__ __device__ inline int next_pow2(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
+// Bytes of one ring stage: 64 rows of L floats, 32 bytes of zeros that the
+// last row's over-read finds, rounded to 128 bytes.
+__host__ __device__ inline size_t stage_bytes(int L) {
+  return ((size_t)kTileItems * L * sizeof(float) + 32 + 127) & ~(size_t)127;
 }
 
-__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
-
-// Append slots of a query's buffer (beside its Kp top slots); at least two
-// tiles of candidates, so one tile always fits after a merge check.
-__host__ __device__ inline int buffer_cap(int kp) {
-  return kp > 2 * kTileItems ? kp : 2 * kTileItems;
+__host__ __device__ inline size_t state_bytes() {
+  return (size_t)kTileQ * kSlots * (sizeof(float) + sizeof(int));
 }
 
-// Entries per query in the probe kernel's shared memory: top + buffer,
-// rounded up to the power of two the sort runs on.
-__host__ __device__ inline int probe_slots(int kp) { return next_pow2(kp + buffer_cap(kp)); }
-
-// Entries of the merge kernel's running top-K per query: Kp sorted plus
-// at least a warp's round of candidates.
-__host__ __device__ inline int merge_slots(int kp) { return next_pow2(kp + 32 > 256 ? kp + 32 : 256); }
-
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
+// ---------------------------------------------------------------------------
+// mbarriers and the bulk copy (TMA, 1-D)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
-// a sorts before b: higher score first; equal scores by lower id, with a
-// dead id (-1) after every live one
-__device__ __forceinline__ bool before(float sa, int ia, float sb, int ib) {
-  return sa > sb || (sa == sb && (unsigned)ia < (unsigned)ib);
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
 }
 
-// One pass (stage K, distance J) of a bitonic sort of the R * 32 pairs
-// the warp holds in registers, element e = r * 32 + lane, into descending
-// order. Distances below 32 pair lanes (shuffles); from 32 up they pair a
-// lane's own registers. All indices are compile-time after unrolling, so
-// the arrays stay in registers.
-template <int R, int K, int J>
-__device__ __forceinline__ void bitonic_pass(float (&s)[R], int (&id)[R], int lane) {
-  if constexpr (J >= 32) {
-    constexpr int JR = J / 32;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int p = r ^ JR;
-      if (p > r) {
-        const bool up = ((r * 32) & K) == 0;  // K > J >= 32: lane bits do not reach K
-        const bool swap = up ? before(s[p], id[p], s[r], id[r]) : before(s[r], id[r], s[p], id[p]);
-        if (swap) {
-          const float ts = s[r]; s[r] = s[p]; s[p] = ts;
-          const int ti = id[r]; id[r] = id[p]; id[p] = ti;
-        }
-      }
-    }
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// orders this thread's generic-proxy accesses to shared memory before
+// later bulk copies (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier of one team's 4 warps (ids 1-4; 0 is __syncthreads)
+__device__ __forceinline__ void team_sync(int team) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + team), "n"(128) : "memory");
+}
+
+// the same barrier, returning whether `p` held on any of the team's threads
+__device__ __forceinline__ bool team_sync_or(int team, bool p) {
+  unsigned any;
+  asm volatile(
+      "{\n"
+      ".reg .pred pin, pout;\n"
+      "setp.ne.u32 pin, %1, 0;\n"
+      "bar.red.or.pred pout, %2, 128, pin;\n"
+      "selp.u32 %0, 1, 0, pout;\n"
+      "}\n"
+      : "=r"(any)
+      : "r"((unsigned)p), "r"(1 + team)
+      : "memory");
+  return any != 0;
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32 on mma.sync m16n8k8
+// ---------------------------------------------------------------------------
+
+// big: x rounded to tf32, to nearest with ties away from zero (add half of
+// the 13 dropped bits to the magnitude, clear them); small = x - big,
+// exact, whose low 13 bits the mma drops. Integer and fp32 adds only, as
+// in MmaF32::split.
+__device__ __forceinline__ void split(uint32_t x, uint32_t& big, uint32_t& small) {
+  big = (x + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(__uint_as_float(x) - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment (rows r0.., columns k0..k0+7) of a tile of rows of L
+// floats: lane 4g + t gets (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+// With L % 4 == 0 every row starts on 16 bytes and one `ldmatrix` on
+// 32-bit elements reads it (a 16-byte "row" of four floats per lane).
+template <bool kVec>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const float* tile, int L, int r0, int k0,
+                                       int lane) {
+  if constexpr (kVec) {
+    const float* p = tile + (r0 + (lane & 15)) * L + k0 + (lane >> 4) * 4;
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                 : "r"(smem_u32(p))
+                 : "memory");
   } else {
-    const bool lower = (lane & J) == 0;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float os = __shfl_xor_sync(0xffffffffu, s[r], J);
-      const int oi = __shfl_xor_sync(0xffffffffu, id[r], J);
-      const bool up = ((r * 32 + lane) & K) == 0;
-      const bool take = (lower == up) ? before(os, oi, s[r], id[r]) : before(s[r], id[r], os, oi);
-      if (take) {
-        s[r] = os;
-        id[r] = oi;
-      }
-    }
+    const int g = lane >> 2, t = lane & 3;
+    const float* p = tile + (r0 + g) * L + k0 + t;
+    a[0] = __float_as_uint(p[0]);
+    a[1] = __float_as_uint(p[8 * L]);
+    a[2] = __float_as_uint(p[4]);
+    a[3] = __float_as_uint(p[8 * L + 4]);
   }
 }
 
-template <int R, int K, int J>
-__device__ __forceinline__ void bitonic_stage(float (&s)[R], int (&id)[R], int lane) {
-  bitonic_pass<R, K, J>(s, id, lane);
-  if constexpr (J > 1) bitonic_stage<R, K, J / 2>(s, id, lane);
-}
-
-template <int R, int K = 2>
-__device__ __forceinline__ void warp_sort_regs(float (&s)[R], int (&id)[R], int lane) {
-  bitonic_stage<R, K, K / 2>(s, id, lane);
-  if constexpr (K < R * 32) warp_sort_regs<R, K * 2>(s, id, lane);
-}
-
-// A float as a uint32 key that orders like the float (larger key, larger
-// value), and back.
-__device__ __forceinline__ unsigned order_key(float f) {
-  const unsigned u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_value(unsigned key) {
-  return __uint_as_float((key & 0x80000000u) ? (key & 0x7FFFFFFFu) : ~key);
-}
-
-// A query's R * 32 slots (kp top entries, then `count` appended ones)
-// loaded into one warp's registers, element e = r * 32 + lane; the slots
-// past the used ones read as dead (NEG_INF, -1).
-template <int R>
-__device__ __forceinline__ void load_slots(const float* s, const int* id, int used, int lane,
-                                           float (&rs)[R], int (&ri)[R]) {
+// The split B fragments of k-steps [pass * kKReg, ...) for query row
+// `qrow` (lane 4g + t: columns k0 + t and k0 + t + 4 of query g); columns
+// past L and rows past B are 0.
+__device__ __forceinline__ void load_queries(uint32_t (&bb)[kKReg][2], uint32_t (&bs)[kKReg][2],
+                                             const float* __restrict__ q, int qrow, int B, int L,
+                                             int pass, int lane) {
+  const int t = lane & 3;
+  const float* row = q + (size_t)(qrow < B ? qrow : 0) * L;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int e = r * 32 + lane;
-    const bool live = e < used;
-    rs[r] = live ? s[e] : NEG_INF_F;
-    ri[r] = live ? id[e] : -1;
+  for (int ks = 0; ks < kKReg; ++ks) {
+    const int c = (pass * kKReg + ks) * 8 + t;
+    const float x0 = (qrow < B && c < L) ? __ldg(row + c) : 0.f;
+    const float x1 = (qrow < B && c + 4 < L) ? __ldg(row + c + 4) : 0.f;
+    split(__float_as_uint(x0), bb[ks][0], bs[ks][0]);
+    split(__float_as_uint(x1), bb[ks][1], bs[ks][1]);
   }
 }
 
-// Fold a query's buffer into its top-K without sorting (one warp): find
-// the K-th largest score by a radix select over the scores' order keys
-// (32 rounds of a compare and a warp sum), move the K entries above it
-// (and enough of those equal to it, earlier slots first) to slots
-// [0, k) in any order, clear [k, kp), and raise the threshold to that
-// K-th score.
-template <int R>
-__device__ void select_query(float* s, int* id, int* count, float* theta, int k, int kp,
-                             int lane) {
-  float rs[R];
-  int ri[R];
-  load_slots<R>(s, id, kp + *count, lane, rs, ri);
-  unsigned key[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) key[r] = order_key(rs[r]);
-  unsigned kth = 0;  // the largest key with at least k keys >= it
-  for (int bit = 31; bit >= 0; --bit) {
-    const unsigned cand = kth | (1u << bit);
-    int c = 0;
-#pragma unroll
-    for (int r = 0; r < R; ++r) c += key[r] >= cand;
-    if (__reduce_add_sync(0xffffffffu, c) >= k) kth = cand;
+// grid (ceil(m / kSampleRows), ceil(B / kTileQ)), kSampleThreads threads.
+// Block (x, y) scores the sampled catalog rows s * stride, s in [64 x, 64 x
+// + 64) and below m, against queries [32 y, 32 y + 32) in fp32 FMAs, to
+// samp[b * m + s], and writes the largest sum of |q_l x_l| over its rows,
+// per query, to amax[b * gridDim.x + x]. Dynamic shared memory: the rows
+// [64][L], then the queries [32][L | 1] (an odd stride: each lane's query
+// row on its own bank).
+__global__ void __launch_bounds__(kSampleThreads) mips_sample_kernel(
+    const float* __restrict__ q, const float* __restrict__ items, float* __restrict__ samp,
+    float* __restrict__ amax, int B, int L, int m, int stride) {
+  extern __shared__ __align__(16) float xsm[];
+  const int lq = L | 1;
+  float* xs = xsm;
+  float* qs = xs + kSampleRows * L;
+  __shared__ unsigned amax_s[kTileQ];
+  __shared__ float tile_s[kTileQ * (kSampleRows + 1)];
+  const int tid = threadIdx.x;
+  const int s0 = blockIdx.x * kSampleRows;
+  const int q0 = blockIdx.y * kTileQ;
+  // every copy in flight at once (cp.async), then one wait
+  for (int e = tid; e < kSampleRows * L; e += kSampleThreads) {
+    const int r = e / L, c = e - r * L;
+    if (s0 + r < m) cp_async4(xs + e, items + (size_t)(s0 + r) * stride * L + c);
+    else xs[e] = 0.f;
   }
-  int above = 0;
-#pragma unroll
-  for (int r = 0; r < R; ++r) above += key[r] > kth;
-  const int ties = k - __reduce_add_sync(0xffffffffu, above);
-  const unsigned before_lane = (1u << lane) - 1u;
-  int written = 0, ties_seen = 0;
-  __syncwarp();  // every lane has read its slots before any is rewritten
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const unsigned eq = __ballot_sync(0xffffffffu, key[r] == kth);
-    const bool keep =
-        key[r] > kth || (key[r] == kth && ties_seen + __popc(eq & before_lane) < ties);
-    ties_seen += __popc(eq);
-    const unsigned kept = __ballot_sync(0xffffffffu, keep);
-    if (keep) {
-      const int pos = written + __popc(kept & before_lane);
-      s[pos] = rs[r];
-      id[pos] = ri[r];
-    }
-    written += __popc(kept);
-  }
-  for (int e = k + lane; e < kp; e += 32) {
-    s[e] = NEG_INF_F;
-    id[e] = -1;
-  }
-  __syncwarp();
-  if (lane == 0) {
-    *theta = key_value(kth);
-    *count = 0;
-  }
-  __syncwarp();
-}
-
-// Sort a query's slots in registers (bitonic), keep the first k in
-// descending order and clear the rest: the query's final top-K.
-template <int R>
-__device__ void sort_query(float* s, int* id, int* count, int k, int kp, int lane) {
-  float rs[R];
-  int ri[R];
-  load_slots<R>(s, id, kp + *count, lane, rs, ri);
-  warp_sort_regs<R>(rs, ri, lane);
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int e = r * 32 + lane;
-    const bool keep = e < k;
-    s[e] = keep ? rs[r] : NEG_INF_F;
-    id[e] = keep ? ri[r] : -1;
-  }
-  __syncwarp();
-  if (lane == 0) *count = 0;
-  __syncwarp();
-}
-
-// Issue the cp.async copies of one tile (m rows from row r0) into a
-// [kTileItems][Lp] buffer and commit them as one group.
-__device__ void issue_tile(float* tile, const float* items, int r0, int m, int L, int Lp) {
-  const float* src = items + (size_t)r0 * L;
-  if (L == Lp) {  // rows are 16-byte aligned: 16-byte copies
-    const int words = m * (L >> 2);
-    for (int e = threadIdx.x; e < words; e += blockDim.x)
-      cp_async16(tile + 4 * e, src + 4 * e);
-  } else {
-    for (int e = threadIdx.x; e < m * L; e += blockDim.x) {
-      const int r = e / L, c = e - r * L;
-      cp_async4(tile + r * Lp + c, src + e);
-    }
+  for (int e = tid; e < kTileQ * L; e += kSampleThreads) {
+    const int r = e / L, c = e - r * L;
+    if (q0 + r < B) cp_async4(qs + r * lq + c, q + (size_t)(q0 + r) * L + c);
+    else qs[r * lq + c] = 0.f;
   }
   cp_async_commit();
+  if (tid < kTileQ) amax_s[tid] = 0u;
+  cp_async_wait<0>();
+  __syncthreads();
+  // this thread: query tid % 32 against rows tid / 32 + 8 j (a warp's rows
+  // are one broadcast read)
+  constexpr int kRows = kSampleRows / (kSampleThreads / 32);
+  const int qq = tid & 31, r0 = tid >> 5;
+  float acc[kRows], mag[kRows];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) acc[j] = mag[j] = 0.f;
+  for (int c = 0; c < L; ++c) {
+    const float qv = qs[qq * lq + c];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const float x = xs[(r0 + 8 * j) * L + c];
+      acc[j] = fmaf(qv, x, acc[j]);
+      mag[j] = fmaf(fabsf(qv), fabsf(x), mag[j]);
+    }
+  }
+  float mmax = 0.f;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    tile_s[qq * (kSampleRows + 1) + r0 + 8 * j] = acc[j];
+    if (s0 + r0 + 8 * j < m) mmax = fmaxf(mmax, mag[j]);
+  }
+  atomicMax(&amax_s[qq], __float_as_uint(mmax));  // non-negative floats order as their bits
+  __syncthreads();
+  // each query's 64 scores as one run of samp's row
+  for (int e = tid; e < kTileQ * kSampleRows; e += kSampleThreads) {
+    const int r = e / kSampleRows, c = e - r * kSampleRows;
+    if (q0 + r < B && s0 + c < m)
+      samp[(size_t)(q0 + r) * m + s0 + c] = tile_s[r * (kSampleRows + 1) + c];
+  }
+  if (tid < kTileQ && q0 + tid < B)
+    amax[(size_t)(q0 + tid) * gridDim.x + blockIdx.x] = __uint_as_float(amax_s[tid]);
 }
 
-// grid (chunks, ceil(B / kTileQ)). Block (c, y) scores catalog rows
-// [c * per_chunk, min(P, (c + 1) * per_chunk)) against queries
-// [y * kTileQ, ...) and writes each query's top-K of that range, sorted,
-// to part_s / part_i [B, chunks, K].
-template <int R>
-__global__ void __launch_bounds__(kThreads) mips_probe_kernel(
+// grid (B), kFloorThreads threads. Block b finds T, the K-th largest of row
+// b's m sampled scores (a radix select over the block's keys, two bits a
+// round), and writes floor[b] = T - margin: at least K catalog rows (the
+// sampled ones at or above T) score above it in the probe kernel too, so
+// no row below it is among the K best. With fewer than K sampled rows
+// there is no floor (NEG_INF).
+__global__ void __launch_bounds__(kFloorThreads) mips_floor_kernel(
+    const float* __restrict__ samp, const float* __restrict__ amax, float* __restrict__ floor_out,
+    int m, int nx, int k) {
+  constexpr int R = kSampleMax / kFloorThreads;
+  constexpr int kW = kFloorThreads / 32;
+  __shared__ int part[3][kW];
+  __shared__ unsigned mag_s;
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (m < k) {
+    if (tid == 0) floor_out[b] = NEG_INF_F;
+    return;
+  }
+  unsigned key[R];  // 0 below every score's key: a slot past m
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int sr = r * kFloorThreads + tid;
+    key[r] = sr < m ? order_key(samp[(size_t)b * m + sr]) : 0u;
+  }
+  float mag = 0.f;
+  for (int x = tid; x < nx; x += kFloorThreads) mag = fmaxf(mag, amax[(size_t)b * nx + x]);
+  if (tid == 0) mag_s = 0u;
+  unsigned kth = 0;  // the largest key with at least k keys >= it
+  for (int bit = 30; bit >= 0; bit -= 2) {
+    const unsigned c1 = kth | (1u << bit), c2 = kth | (2u << bit), c3 = kth | (3u << bit);
+    int n1 = 0, n2 = 0, n3 = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      n1 += key[r] >= c1;
+      n2 += key[r] >= c2;
+      n3 += key[r] >= c3;
+    }
+    n1 = __reduce_add_sync(0xffffffffu, n1);
+    n2 = __reduce_add_sync(0xffffffffu, n2);
+    n3 = __reduce_add_sync(0xffffffffu, n3);
+    if (lane == 0) {
+      part[0][warp] = n1;
+      part[1][warp] = n2;
+      part[2][warp] = n3;
+    }
+    __syncthreads();
+    int t1 = 0, t2 = 0, t3 = 0;
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      t1 += part[0][w];
+      t2 += part[1][w];
+      t3 += part[2][w];
+    }
+    __syncthreads();  // `part` is rewritten next round
+    kth = t3 >= k ? c3 : t2 >= k ? c2 : t1 >= k ? c1 : kth;
+  }
+  atomicMax(&mag_s, __float_as_uint(mag));
+  __syncthreads();
+  if (tid == 0) floor_out[b] = key_value(kth) - kMarginRel * __uint_as_float(mag_s);
+}
+
+// grid (chunks, ceil(B / kTileQ)), kThreads threads. Block (c, y) scores
+// catalog rows [c * per_chunk, min(P, (c + 1) * per_chunk)) against
+// queries [y * kTileQ, ...) and writes each query's top-K of that range,
+// sorted, to part_s / part_i [B, chunks, K]. Dynamic shared memory: the
+// ring (stages x stage_bytes(L)), then the slots' scores and ids.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 1) mips_probe_kernel(
     const float* __restrict__ q, const float* __restrict__ items,
-    float* __restrict__ part_s, int* __restrict__ part_i,
-    int B, int L, int P, int k, int kp, int per_chunk) {
-  extern __shared__ __align__(16) float smem[];
-  const int Lp = round4(L);
-  const int Lw = Lp >> 2;  // 16-byte words per row
-  constexpr int slots = R * 32;  // == probe_slots(kp)
-  const int cap = buffer_cap(kp);
-  float* qs = smem;                                          // [kTileQ][Lp]
-  float* tiles = qs + kTileQ * Lp;                           // [2][kTileItems][Lp]
-  float* ts = tiles + 2 * kTileItems * Lp;                   // [kTileQ][slots]
-  int* ti = reinterpret_cast<int*>(ts + kTileQ * slots);     // [kTileQ][slots]
-  __shared__ float theta[kTileQ];
+    const float* __restrict__ floor_in, float* __restrict__ part_s, int* __restrict__ part_i,
+    int B, int L, int P, int k, int per_chunk, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const size_t sb = stage_bytes(L);
+  float* ts = reinterpret_cast<float*>(smem + stages * sb);  // [kTileQ][kSlots]
+  int* ti = reinterpret_cast<int*>(ts + kTileQ * kSlots);    // [kTileQ][kSlots]
+  __shared__ float theta[kTileQ], floor_s[kTileQ];
   __shared__ int cnt[kTileQ];
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.y * kTileQ;
   const int nq = min(kTileQ, B - q0);
   const int lo = blockIdx.x * per_chunk;
   const int hi = min(P, lo + per_chunk);
+  const int ntiles = (hi - lo + kTileItems - 1) / kTileItems;
 
-  for (int e = tid; e < kTileQ * Lp; e += kThreads) {
-    const int r = e / Lp, c = e - r * Lp;
-    qs[e] = (r < nq && c < L) ? q[(size_t)(q0 + r) * L + c] : 0.f;
+  {
+    float4* z = reinterpret_cast<float4*>(smem);
+    const int n4 = (int)(stages * sb / sizeof(float4));
+    for (int e = tid; e < n4; e += kThreads) z[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  if (L != Lp) {  // the pad columns are never copied into: zero them once
-    for (int e = tid; e < 2 * kTileItems * (Lp - L); e += kThreads) {
-      const int r = e / (Lp - L), c = L + e % (Lp - L);
-      tiles[r * Lp + c] = 0.f;
-    }
-  }
-  for (int e = tid; e < kTileQ * slots; e += kThreads) {
+  for (int e = tid; e < kTileQ * kSlots; e += kThreads) {
     ts[e] = NEG_INF_F;
     ti[e] = -1;
   }
   if (tid < kTileQ) {
     theta[tid] = NEG_INF_F;
+    floor_s[tid] = q0 + tid < B ? floor_in[q0 + tid] : NEG_INF_F;
     cnt[tid] = 0;
   }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kScoreWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_proxy_async();  // the zeros land before any bulk copy into the ring
   __syncthreads();
 
-  const int n = max(0, hi - lo);
-  const int ntiles = (n + kTileItems - 1) / kTileItems;
-  if (ntiles > 0) issue_tile(tiles, items, lo, min(kTileItems, n), L, Lp);
-  const float4* q4 = reinterpret_cast<const float4*>(qs);
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = t & 1;
-    const int t0 = lo + t * kTileItems;
-    const int m = min(kTileItems, hi - t0);
-    if (t + 1 < ntiles) {
-      const int n0 = t0 + kTileItems;
-      issue_tile(tiles + (buf ^ 1) * kTileItems * Lp, items, n0,
-                 min(kTileItems, hi - n0), L, Lp);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // scores: this thread's queries 4 * warp + r, rows lane and lane + 32
-    const float4* t4 = reinterpret_cast<const float4*>(tiles + buf * kTileItems * Lp);
-    float acc[4][2];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = 0.f;
-    for (int w = 0; w < Lw; ++w) {
-      const float4 a = t4[lane * Lw + w];
-      const float4 c = t4[(lane + 32) * Lw + w];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 x = q4[(4 * warp + r) * Lw + w];
-        acc[r][0] = fmaf(x.x, a.x, acc[r][0]);
-        acc[r][0] = fmaf(x.y, a.y, acc[r][0]);
-        acc[r][0] = fmaf(x.z, a.z, acc[r][0]);
-        acc[r][0] = fmaf(x.w, a.w, acc[r][0]);
-        acc[r][1] = fmaf(x.x, c.x, acc[r][1]);
-        acc[r][1] = fmaf(x.y, c.y, acc[r][1]);
-        acc[r][1] = fmaf(x.z, c.z, acc[r][1]);
-        acc[r][1] = fmaf(x.w, c.w, acc[r][1]);
+  if (warp == kScoreWarps) {  // the copy warp: one lane issues every tile
+    if (lane == 0) {
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % stages;
+        if (t >= stages) mbar_wait(&empty[s], ((t / stages) - 1) & 1);
+        float* dst = reinterpret_cast<float*>(smem + s * sb);
+        const int t0 = lo + t * kTileItems;
+        const int n = min(kTileItems, hi - t0) * L;  // floats
+        const int bulk = n & ~3;                     // whole 16-byte words
+        const float* src = items + (size_t)t0 * L;
+        for (int e = bulk; e < n; ++e) dst[e] = src[e];
+        fence_proxy_async();
+        mbar_arrive_tx(&full[s], (unsigned)bulk * sizeof(float));
+        if (bulk > 0) bulk_copy(dst, src, (unsigned)bulk * sizeof(float), &full[s]);
       }
     }
-    // offer: a candidate joins its query's buffer only if it beats the
-    // K-th score (a tie loses, as the earlier row wins a tie)
+    return;
+  }
+
+  // a team's warps sit on the SM's four schedulers (warp % 4), one each, so
+  // a team that waits at its barrier or folds leaves every scheduler the
+  // other teams' warps
+  const int team = warp >> 2, strip = warp & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  const int qa = team * 8 + 2 * tq;  // this lane's queries in the tile: qa, qa + 1
+  const bool active = team * 8 < nq;
+  const int npass = ((L + 7) / 8 + kKReg - 1) / kKReg;
+  uint32_t bb[kKReg][2], bs[kKReg][2];
+  if (active && npass == 1) load_queries(bb, bs, q, q0 + team * 8 + g, B, L, 0, lane);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % stages;
+    const int t0 = lo + t * kTileItems;
+    const int m = min(kTileItems, hi - t0);
+    mbar_wait(&full[s], (t / stages) & 1);
+    // big * big, small * big and big * small in three accumulators: three
+    // chains of 13 mma, not one of 26
+    float cm[4] = {0.f, 0.f, 0.f, 0.f}, ca[4] = {0.f, 0.f, 0.f, 0.f}, cb[4] = {0.f, 0.f, 0.f, 0.f};
+    if (active) {
+      const float* tile = reinterpret_cast<const float*>(smem + s * sb);
+      for (int pass = 0; pass < npass; ++pass) {
+        if (npass > 1) load_queries(bb, bs, q, q0 + team * 8 + g, B, L, pass, lane);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qq = 4 * warp + r;
+        for (int ks = 0; ks < kKReg; ++ks) {
+          const int k0 = (pass * kKReg + ks) * 8;
+          if (k0 < L) {
+            uint32_t a[4], ab[4], as[4];
+            load_a<kVec>(a, tile, L, strip * 16, k0, lane);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int row = lane + 32 * c;
-        if (qq < nq && row < m && acc[r][c] > theta[qq]) {
-          const int pos = kp + atomicAdd(&cnt[qq], 1);
-          ts[qq * slots + pos] = acc[r][c];
-          ti[qq * slots + pos] = t0 + row;
+            for (int i = 0; i < 4; ++i) split(a[i], ab[i], as[i]);
+            mma_tf32(ca, as, bb[ks][0], bb[ks][1]);
+            mma_tf32(cb, ab, bs[ks][0], bs[ks][1]);
+            mma_tf32(cm, ab, bb[ks][0], bb[ks][1]);
+          }
         }
       }
     }
-    __syncthreads();
-    // fold the buffers that could not take another tile
-    for (int qq = warp; qq < nq; qq += kWarps) {
-      if (cnt[qq] > cap - kTileItems)
-        select_query<R>(ts + qq * slots, ti + qq * slots, &cnt[qq], &theta[qq], k, kp, lane);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp has read the stage
+    if (!active) continue;
+
+    const float th0 = qa < nq ? fmaxf(theta[qa], floor_s[qa]) : 0.f;
+    const float th1 = qa + 1 < nq ? fmaxf(theta[qa + 1], floor_s[qa + 1]) : 0.f;
+    // accumulator i: row g + 8 (i >> 1), query qa + (i & 1); a tie with the
+    // K-th score loses, as the earlier row wins a tie. The 8 lanes of a
+    // query (lanes tq, tq + 4, ...) take their slots for both rows with
+    // one atomicAdd.
+    const unsigned mine = 0x11111111u << tq, below = (1u << lane) - 1u;
+    bool crossed = false;
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      const int qq = qa + o;
+      const float th = o ? th1 : th0;
+      const float s0 = (ca[o] + cb[o]) + cm[o], s1 = (ca[o + 2] + cb[o + 2]) + cm[o + 2];
+      const int r0 = strip * 16 + g, r1 = r0 + 8;
+      const bool w0 = qq < nq && r0 < m && s0 > th, w1 = qq < nq && r1 < m && s1 > th;
+      const unsigned g0 = __ballot_sync(0xffffffffu, w0) & mine;
+      const unsigned g1 = __ballot_sync(0xffffffffu, w1) & mine;
+      const int n = __popc(g0) + __popc(g1);
+      const int leader = __ffs(g0 | g1 | (1u << 31)) - 1;  // lane 31 when both are empty
+      int base = 0;
+      if (n && lane == leader) {
+        base = atomicAdd(&cnt[qq], n);
+        // the one append that takes the count past the fold line
+        crossed |= base <= kCap - kTileItems && base + n > kCap - kTileItems;
+      }
+      base = __shfl_sync(0xffffffffu, base, leader);
+      if (w0) {
+        const int pos = kTop + base + __popc(g0 & below);
+        ts[qq * kSlots + pos] = s0;
+        ti[qq * kSlots + pos] = t0 + r0;
+      }
+      if (w1) {
+        const int pos = kTop + base + __popc(g0) + __popc(g1 & below);
+        ts[qq * kSlots + pos] = s1;
+        ti[qq * kSlots + pos] = t0 + r1;
+      }
     }
-    __syncthreads();  // the next iteration refills the buffer just scored
+    // the team's appends are done; when one of its buffers could not take
+    // another tile, the team folds all 8 (2 per warp, at once: one stall of
+    // the team instead of one per query), and waits for the folds before
+    // its next appends. A tile that folds nothing needs no second barrier:
+    // appends from two tiles only add to the counts.
+    if (team_sync_or(team, crossed)) {
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        const int qq = team * 8 + strip * 2 + o;
+        if (qq < nq)
+          fold_if<kTopR, kCap>(ts + qq * kSlots, ti + qq * kSlots, &cnt[qq], &theta[qq], k, 1,
+                               lane);
+      }
+      team_sync(team);
+    }
   }
-  for (int qq = warp; qq < nq; qq += kWarps)
-    sort_query<R>(ts + qq * slots, ti + qq * slots, &cnt[qq], k, kp, lane);
-  __syncthreads();
-  for (int e = tid; e < nq * k; e += kThreads) {
-    const int qq = e / k, r = e - qq * k;
-    const size_t out = ((size_t)(q0 + qq) * gridDim.x + blockIdx.x) * k + r;
-    part_s[out] = ts[qq * slots + r];
-    part_i[out] = ti[qq * slots + r];
+  if (!active) return;
+  // each owner warp: the last fold, one sort, the query's partial list
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    const int qq = team * 8 + strip * 2 + o;
+    if (qq >= nq) continue;
+    const size_t out = ((size_t)(q0 + qq) * gridDim.x + blockIdx.x) * k;
+    write_top<kTopR, kCap>(ts + qq * kSlots, ti + qq * kSlots, &cnt[qq], &theta[qq], k, lane,
+                           part_s + out, part_i + out);
   }
 }
 
-// grid (ceil(B / kWarps)), one warp per query row b. Merges the row's
-// `lists` sorted partial lists of k entries, rank by rank, into its top-K
-// (a select after each rank that added something, one sort at the end),
-// and stops after the first rank none of whose entries beats the running
-// K-th score: every later rank is below it, list by list.
-template <int R>
-__global__ void __launch_bounds__(kThreads) mips_merge_kernel(
+// grid (B), kMergeThreads threads. Block b merges row b's `lists` sorted
+// partial lists of k entries into its top-K (`merge_lists`: staged in
+// shared memory at once, read rank by rank, stopped at the first rank
+// that adds nothing).
+__global__ void __launch_bounds__(kMergeThreads) mips_merge_kernel(
     const float* __restrict__ part_s, const int* __restrict__ part_i,
-    float* __restrict__ out_s, int* __restrict__ out_i, int B, int lists, int k, int kp) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int slots = R * 32;  // == merge_slots(kp)
-  __shared__ float theta[kWarps];
-  __shared__ int cnt[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * kWarps + warp;
-  if (b >= B) return;  // a whole warp; the kernel has no block barrier
-  float* ts = smem + warp * 2 * slots;
-  int* ti = reinterpret_cast<int*>(ts + slots);
-  for (int e = lane; e < slots; e += 32) {
-    ts[e] = NEG_INF_F;
-    ti[e] = -1;
-  }
-  if (lane == 0) {
-    theta[warp] = NEG_INF_F;
-    cnt[warp] = 0;
-  }
-  __syncwarp();
-  const int cap = slots - kp;
-  const float* ps = part_s + (size_t)b * lists * k;
-  const int* pi = part_i + (size_t)b * lists * k;
-  for (int r = 0; r < k; ++r) {
-    bool any = false;
-    for (int g0 = 0; g0 < lists; g0 += 32) {
-      const int g = g0 + lane;
-      float sc = NEG_INF_F;
-      int cid = -1;
-      if (g < lists) {
-        sc = ps[(size_t)g * k + r];
-        cid = pi[(size_t)g * k + r];
-      }
-      const bool wins = cid >= 0 && sc > theta[warp];
-      const unsigned mask = __ballot_sync(0xffffffffu, wins);
-      if (mask == 0) continue;
-      any = true;
-      if (cnt[warp] + __popc(mask) > cap)
-        select_query<R>(ts, ti, &cnt[warp], &theta[warp], k, kp, lane);
-      const int pos = kp + cnt[warp] + __popc(mask & ((1u << lane) - 1u));
-      if (wins) {
-        ts[pos] = sc;
-        ti[pos] = cid;
-      }
-      __syncwarp();
-      if (lane == 0) cnt[warp] += __popc(mask);
-      __syncwarp();
-    }
-    if (!any) break;
-    select_query<R>(ts, ti, &cnt[warp], &theta[warp], k, kp, lane);  // a fresh threshold
-  }
-  sort_query<R>(ts, ti, &cnt[warp], k, kp, lane);
-  for (int e = lane; e < k; e += 32) {
-    out_s[(size_t)b * k + e] = ts[e];
-    out_i[(size_t)b * k + e] = ti[e];
-  }
+    float* __restrict__ out_s, int* __restrict__ out_i, int lists, int k) {
+  extern __shared__ __align__(16) float msmem[];
+  float* ms = msmem;                                         // [kMergeRoom]
+  int* mi = reinterpret_cast<int*>(ms + kMergeRoom);         // [kMergeRoom]
+  float* ts = reinterpret_cast<float*>(mi + kMergeRoom);     // [kTop + kMergeCap]
+  int* ti = reinterpret_cast<int*>(ts + kTop + kMergeCap);   // [kTop + kMergeCap]
+  __shared__ int cnt, stop;
+  __shared__ float theta;
+  const size_t b = blockIdx.x;
+  merge_lists<kTopR, kMergeCap>(part_s + b * lists * k, part_i + b * lists * k, lists, k, ms, mi,
+                                kMergeRoom, ts, ti, &cnt, &theta, &stop, out_s + b * k,
+                                out_i + b * k);
 }
 
-// Raise a kernel's dynamic shared-memory limit on the current device when
-// a launch needs more than it was last set to.
-cudaError_t ensure_smem(int which, const void* fn, size_t bytes) {
-  static size_t set_to[4][64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (bytes <= set_to[which][dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err == cudaSuccess) set_to[which][dev] = bytes;
-  return err;
+// Dynamic shared memory of the probe kernel (which = 0) at `stages` ring
+// stages, of the merge kernel (1) and of the sample kernel (2), in bytes.
+size_t smem_bytes(int L, int stages, int which) {
+  if (which == 0) return (size_t)stages * stage_bytes(L) + state_bytes();
+  if (which == 1) return ((size_t)kMergeRoom + kTop + kMergeCap) * (sizeof(float) + sizeof(int));
+  return ((size_t)kSampleRows * L + (size_t)kTileQ * (L | 1)) * sizeof(float);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of the probe (which = 0) and merge (1) kernels.
-size_t mips_topk_smem_bytes(int L, int k, int which) {
-  const int kp = next_pow2(k);
-  if (which == 0)
-    return (size_t)(kTileQ + 2 * kTileItems) * round4(L) * sizeof(float) +
-           (size_t)kTileQ * probe_slots(kp) * (sizeof(float) + sizeof(int));
-  return (size_t)kWarps * merge_slots(kp) * (sizeof(float) + sizeof(int));
-}
-
-int mips_topk_tile_items(void) { return kTileItems; }
-
-// Launches both kernels on `stream`; returns cudaGetLastError().
-// part_s / part_i: scratch of B * chunks * k entries each.
+// Launches, on `stream`, the floor's two kernels (which & 1: every
+// stride-th row sampled, m rows; scratch samp [B, m], amax [B, ceil(m /
+// 64)], floor [B]), the probe kernel (which & 2) and the merge kernel
+// (which & 4); returns cudaGetLastError(). A call launches all (7); one
+// part alone times its share. part_s / part_i: scratch of B * chunks * k
+// entries each.
 int mips_topk_launch(const void* q, const void* items, void* part_s, void* part_i,
-                     void* out_s, void* out_i, int B, int L, int P, int k,
-                     int chunks, int per_chunk, void* stream) {
-  const int kp = next_pow2(k);
-  const int r0 = probe_slots(kp) / 32, r1 = merge_slots(kp) / 32;
-  if ((r0 != 8 && r0 != 16) || (r1 != 8 && r1 != 16)) return (int)cudaErrorInvalidValue;
+                     void* out_s, void* out_i, void* samp, void* amax, void* floor_buf, int B,
+                     int L, int P, int k, int chunks, int per_chunk, int stages, int m,
+                     int stride, int which, void* stream) {
+  if (k < 1 || k > kTop || stages < 1 || stages > kMaxStages || m < 1 || m > kSampleMax)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem0 = mips_topk_smem_bytes(L, k, 0);
-  const size_t smem1 = mips_topk_smem_bytes(L, k, 1);
-  const void* probe = r0 == 8 ? (const void*)mips_probe_kernel<8> : (const void*)mips_probe_kernel<16>;
-  const void* merge = r1 == 8 ? (const void*)mips_merge_kernel<8> : (const void*)mips_merge_kernel<16>;
-  cudaError_t err = ensure_smem(r0 == 8 ? 0 : 1, probe, smem0);
-  if (err != cudaSuccess) return (int)err;
-  err = ensure_smem(r1 == 8 ? 2 : 3, merge, smem1);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid0(chunks, (B + kTileQ - 1) / kTileQ);
+  const bool vec = L % 4 == 0;
   const float* qf = static_cast<const float*>(q);
   const float* itf = static_cast<const float*>(items);
   float* ps = static_cast<float*>(part_s);
   int* pi = static_cast<int*>(part_i);
-  if (r0 == 8)
-    mips_probe_kernel<8><<<grid0, kThreads, smem0, st>>>(qf, itf, ps, pi, B, L, P, k, kp, per_chunk);
-  else
-    mips_probe_kernel<16><<<grid0, kThreads, smem0, st>>>(qf, itf, ps, pi, B, L, P, k, kp, per_chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int grid1 = (B + kWarps - 1) / kWarps;
-  float* os = static_cast<float*>(out_s);
-  int* oi = static_cast<int*>(out_i);
-  if (r1 == 8)
-    mips_merge_kernel<8><<<grid1, kThreads, smem1, st>>>(ps, pi, os, oi, B, chunks, k, kp);
-  else
-    mips_merge_kernel<16><<<grid1, kThreads, smem1, st>>>(ps, pi, os, oi, B, chunks, k, kp);
-  return (int)cudaGetLastError();
+  float* fl = static_cast<float*>(floor_buf);
+  cudaError_t err = cudaSuccess;
+  if (which & 1) {
+    const int nx = (m + kSampleRows - 1) / kSampleRows;
+    const size_t smem2 = smem_bytes(L, stages, 2);
+    err = ensure_smem(3, (const void*)mips_sample_kernel, smem2);
+    if (err != cudaSuccess) return (int)err;
+    mips_sample_kernel<<<dim3(nx, (B + kTileQ - 1) / kTileQ), kSampleThreads, smem2, st>>>(
+        qf, itf, static_cast<float*>(samp), static_cast<float*>(amax), B, L, m, stride);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    mips_floor_kernel<<<B, kFloorThreads, 0, st>>>(static_cast<const float*>(samp),
+                                                   static_cast<const float*>(amax), fl, m, nx, k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (which & 2) {
+    const size_t smem0 = smem_bytes(L, stages, 0);
+    const void* probe = vec ? (const void*)mips_probe_kernel<true>
+                            : (const void*)mips_probe_kernel<false>;
+    err = ensure_smem(vec ? 0 : 1, probe, smem0);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid0(chunks, (B + kTileQ - 1) / kTileQ);
+    if (vec)
+      mips_probe_kernel<true><<<grid0, kThreads, smem0, st>>>(qf, itf, fl, ps, pi, B, L, P, k,
+                                                              per_chunk, stages);
+    else
+      mips_probe_kernel<false><<<grid0, kThreads, smem0, st>>>(qf, itf, fl, ps, pi, B, L, P, k,
+                                                               per_chunk, stages);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (which & 4) {
+    const size_t smem1 = smem_bytes(L, stages, 1);
+    err = ensure_smem(2, (const void*)mips_merge_kernel, smem1);
+    if (err != cudaSuccess) return (int)err;
+    mips_merge_kernel<<<B, kMergeThreads, smem1, st>>>(
+        ps, pi, static_cast<float*>(out_s), static_cast<int*>(out_i), chunks, k);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 const char* mips_topk_error_string(int err) {

@@ -8,6 +8,13 @@ scores rtol 1e-5 / atol 1e-6 (fp32 sums in another order); ids compared
 as sorted sets, exactly (ties may be broken in another order). The
 kernel itself is held to the plain version on the card by
 `chip_smoke.py`.
+
+`ref.mips_topk_mma`, the emulation of the kernel's 3xTF32 scores, is
+held to the reference by `chip_smoke.py`'s gates (`topk_err`: scores
+elementwise within rtol 1e-5 / atol 1e-6, ids as sets but for ties with
+the K-th score within that tolerance); the card's kernel is held to it
+there. The wrapper's geometry (the catalog's chunks, the ring of tiles)
+is checked here without a card.
 """
 import pytest
 
@@ -19,7 +26,7 @@ from test_torch_common import assert_topk_equal, data  # noqa: E402
 
 from repro.kernels.mips_topk import mips_topk as jax_mips_topk  # noqa: E402
 from repro.mips.streaming import topk_streaming as jax_topk_streaming  # noqa: E402
-from repro_torch.kernels.mips_topk import kernel, mips_topk, ops  # noqa: E402
+from repro_torch.kernels.mips_topk import kernel, mips_topk, ops, ref  # noqa: E402
 from repro_torch.mips.streaming import topk_streaming  # noqa: E402
 
 
@@ -84,3 +91,80 @@ def test_chunks_cover_the_catalog_about_once_per_sm(p):
     chunks, per = kernel.chunks_for(p, 64, 132)
     assert 1 <= chunks <= 132 and per % 64 == 0
     assert (chunks - 1) * per < p <= chunks * per
+
+
+def _within_chip_gates(out, ref_topk):
+    """`chip_smoke.topk_err` on the CPU: sorted scores within rtol 1e-5 /
+    atol 1e-6 elementwise; ids equal as sets per row, but for ids whose
+    score ties the K-th within that tolerance; dead slots at -3e38."""
+    ks, ki = out[0].numpy(), out[1].numpy()
+    rs, ri = np.asarray(ref_topk.scores), np.asarray(ref_topk.indices)
+    np.testing.assert_allclose(ks, rs, rtol=1e-5, atol=1e-6)
+    assert (ks[:, :-1] >= ks[:, 1:]).all()
+    for row in range(ks.shape[0]):
+        kth = float(rs[row, -1])
+        tol = 1e-6 + 1e-5 * abs(kth)
+        a, b = set(ki[row].tolist()), set(ri[row].tolist())
+        for ids, scores, only in ((ki, ks, a - b), (ri, rs, b - a)):
+            for i in only:
+                pos = ids[row].tolist().index(i)
+                assert abs(float(scores[row, pos]) - kth) <= tol, (row, i)
+    assert (ks[ki < 0] == np.float32(-3e38)).all()
+
+
+@pytest.mark.parametrize(
+    "b,p,l,k",
+    [
+        (40, 3001, 17, 100),  # B > 32 (two query tiles), P ragged, L odd, K not a power of 2
+        (5, 777, 100, 256),   # the training width L 100, P ragged
+        (33, 2000, 24, 37),   # B = 33, L a multiple of 8, K odd
+        (3, 70, 7, 96),       # P below one tile, L < 8, K above P
+    ],
+)
+def test_mma_emulation_within_chip_gates(b, p, l, k):
+    """The 3xTF32 scores (each operand split into tf32 big and small, the
+    small products summed apart) stay within the fp32 gates of the
+    reference's exact top-K."""
+    items, q = data(p, l, b, seed=b * p + k)
+    want = jax_mips_topk(jnp.asarray(q), jnp.asarray(items), k, interpret=True)
+    got = ref.mips_topk_mma(torch.from_numpy(q), torch.from_numpy(items), k)
+    assert got[1].dtype == torch.int32 and got[0].shape == (b, k)
+    _within_chip_gates(got, want)
+
+
+def test_mma_emulation_splits_the_products():
+    """The emulation is not the fp32 product: the small part of x = 1 +
+    2^-12 + 2^-23 is cut to tf32 (2^-12) and small * small is dropped,
+    so x * x comes out as 1 + 2^-11; fp32 keeps 2 * 2^-23 and more."""
+    x = torch.tensor([[1.0 + 2.0**-12 + 2.0**-23]])
+    s, i = ref.mips_topk_mma(x, x, 1)
+    assert float(s[0, 0]) == 1.0 + 2.0**-11 and int(i[0, 0]) == 0
+    assert float((x @ x.T)[0, 0]) > 1.0 + 2.0**-11 + 2.0**-22
+
+
+@pytest.mark.parametrize("l,stages", [(8, 4), (24, 4), (100, 4), (150, 3), (227, 2)])
+def test_ring_stages_fit_beside_the_top_k_state(l, stages):
+    """The ring holds as many 64-row tiles as fit beside the 32 queries'
+    top-K state (448 slots of 8 bytes each), up to 4 and at least 2, and
+    the whole block stays within a Hopper block's shared memory."""
+    assert kernel.ring_stages(l) == stages
+    sb = kernel.stage_bytes(l)
+    assert sb % 128 == 0 and sb >= kernel.TILE_ITEMS * l * 4 + 32
+    assert stages * sb + 32 * 448 * 8 <= 232_448 - 1024
+
+
+def test_ring_stages_refuse_a_width_two_tiles_cannot_take():
+    with pytest.raises(ValueError, match="L=228"):
+        kernel.ring_stages(228)
+
+
+@pytest.mark.parametrize("p", [1, 700, 8192 * 64, 750_000, 10**7])
+def test_floor_samples_every_stride_th_row(p):
+    """The floor's sample: every stride-th row (stride >= 64) of the
+    catalog, at most 8192 rows, every sampled row inside it; at P 750,000
+    every 92nd row."""
+    stride, m = kernel.sample_rows(p)
+    assert stride >= 64 and 1 <= m <= 8192
+    assert (m - 1) * stride < p <= m * stride
+    if p == 750_000:
+        assert (stride, m) == (92, 8153)

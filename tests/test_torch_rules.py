@@ -179,15 +179,39 @@ def test_build_is_cached_by_source_hash(monkeypatch, tmp_path):
 
 
 def test_kernel_wrapper_splits_lists_to_fill_the_card():
-    """At the serving shape (B=8, n_probe=8, K=10) each list is cut into
-    chunks so the probe kernel has >= 132 blocks; at K=256 the merge's
-    candidate count keeps lists whole; a short list is one chunk."""
-    splits, chunk = kernel.splits_for(8, 8, 2048, 10, 128)
-    assert 8 * 8 * splits >= 132 and chunk % 128 == 0
+    """At the serving shape (B=8, n_probe=8, K=10, L 50) each list is cut
+    into ranges so the kernel has >= 132 blocks; at K=256 the merge's
+    partial lists stay within one staging of its shared memory; a short
+    list is one range; a large batch cuts a list only to the 1024 slots
+    a block takes."""
+    splits, chunk = kernel.splits_for(8, 8, 2048, 10, 50)
+    assert 8 * 8 * splits >= 132 and chunk % 32 == 0
     assert (splits - 1) * chunk < 2048 <= splits * chunk
-    assert kernel.splits_for(8, 8, 2048, 256, 128) == (1, 2048)
-    assert kernel.splits_for(8, 8, 8, 10, 128) == (1, 128)
-    assert kernel.splits_for(4096, 8, 2048, 10, 128) == (1, 2048)
+    assert kernel.splits_for(8, 8, 2048, 256, 50) == (5, 416)
+    assert kernel.splits_for(8, 8, 8, 10, 50) == (1, 32)
+    assert kernel.splits_for(4096, 8, 2048, 10, 50) == (2, 1024)
+
+
+def test_shared_header_edit_rebuilds_both_topk_kernels(monkeypatch, tmp_path):
+    """The retrieval kernels include `kernels/csrc/topk_select.cuh`: an
+    edit there changes the library name of both sources (and of every
+    other, since each is built with that directory on its include path),
+    so no stale library is loaded. A copy of the tree; no nvcc runs."""
+    import shutil
+
+    tree = tmp_path / "kernels"
+    shutil.copytree(PKG / "kernels", tree, ignore=shutil.ignore_patterns("_build", "*.py*"))
+    monkeypatch.setattr(_build, "SHARED_DIR", tree / "csrc")
+    sources = [tree / "mips_topk" / "csrc" / "mips_topk.cu",
+               tree / "ivf_topk" / "csrc" / "ivf_topk.cu"]
+    for src in sources:
+        assert '#include "topk_select.cuh"' in src.read_text()
+    before = [_build._target(src) for src in sources]
+    header = tree / "csrc" / "topk_select.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = [_build._target(src) for src in sources]
+    assert all(a != b for a, b in zip(after, before))
+    assert [t.name.split("-")[0] for t in after] == ["mips_topk", "ivf_topk"]
 
 
 def test_flash_attention_never_takes_the_plain_version_on_cuda(monkeypatch):
