@@ -21,7 +21,12 @@ more each:
                   also against the emulation of its 3xTF32 arithmetic, and
                   its floor, probe and merge kernels timed apart; the covgrad
                   kernels also at L 18, 50 and 260, their wide path,
-                  checked and timed),
+                  checked and timed; the sampler with repeated ids, id -1
+                  at K > P, odd K, the largest K a block holds, eps 0 and
+                  0.999, timed also at eps 1 and 0, its bound from its
+                  SASS instruction count; the backward bitwise over
+                  repeated launches and after graph replays, with its
+                  ticket counters back at 0),
                   within the CPU parity tests' tolerances; times of
                   the kernel and the plain version (device time per call
                   from a replayed CUDA graph, and time per eager call),
@@ -44,7 +49,7 @@ more each:
                   counters show one launch of each training kernel per
                   step and no plain-version call; step time p50 / p99;
                   a profiled window splits a step's device time by
-                  kernel. Then the first 3 steps again on the CPU through
+                  kernel (and shows the backward as one kernel a step). Then the first 3 steps again on the CPU through
                   the plain versions, from the same theta, Adam state and
                   seeds: the CPU's top-K held to the card's at every step,
                   then the step run on the card's draws and its loss,
@@ -267,11 +272,11 @@ def topk_err(out, ref, tag: str) -> float:
     return float((ks - rs).abs().max())
 
 
-def roof(nbytes: float, nops: float) -> tuple[float, str]:
-    """The least time for `nbytes` moved and `nops` fp32 operations:
-    (ms, "bytes" or "operations")."""
+def roof(nbytes: float, nops: float, op_rate: float = FP32_FLOPS) -> tuple[float, str]:
+    """The least time for `nbytes` moved and `nops` operations at `op_rate`
+    a second (fp32 by default): (ms, "bytes" or "operations")."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = nops / FP32_FLOPS * 1e3
+    t_o = nops / op_rate * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
@@ -468,17 +473,18 @@ def stage_times(route, payloads, records, tag: str = "serve") -> None:
 
 
 def timed(tag: str, kernel_fn, plain_fn, sets: list, nbytes: float, nops: float,
-          library_fn=None, library_note: str = "") -> dict:
+          library_fn=None, library_note: str = "", op_rate: float = FP32_FLOPS) -> dict:
     """Device ms per call (CUDA graph) of the kernel, its plain version and
-    the library call; eager ms of the first two; the bound."""
+    the library call; eager ms of the first two; the bound (operations at
+    `op_rate` a second)."""
     t_k, t_p = device_ms(kernel_fn, sets), device_ms(plain_fn, sets)
     e_k, e_p = time_ms(kernel_fn, sets, 50), time_ms(plain_fn, sets, 10)
     t_l = device_ms(library_fn, sets) if library_fn is not None else None
-    b_ms, b_by = roof(nbytes, nops)
+    b_ms, b_by = roof(nbytes, nops, op_rate)
     lib = f"; library {t_l:.4f} ({library_note})" if t_l is not None else ""
     log(f"  time {tag}: device ms per call (CUDA graph) kernel {t_k:.4f}, plain "
         f"{t_p:.4f}{lib}; eager ms per call kernel {e_k:.4f}, plain {e_p:.4f}; bound "
-        f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.3f} MB, {nops / 1e9:.3f} Gop); "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.3f} MB, {nops / 1e9:.4f} Gop); "
         f"kernel device time at {100 * b_ms / t_k:.1f}% of the bound")
     return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
 
@@ -564,6 +570,7 @@ def training_kernel_phase(beta, h0, positives) -> dict:
     import torch
 
     from repro_torch.constants import LOG_Q_PAD
+    from repro_torch.kernels import _launch
     from repro_torch.kernels.fused_sampler import kernel as fk, ref as fr
     from repro_torch.kernels.mips_topk import kernel as mk, ref as mr
     from repro_torch.kernels.snis_covgrad import kernel as sk, ops as so, ref as sr
@@ -605,19 +612,49 @@ def training_kernel_phase(beta, h0, positives) -> dict:
     res["mips_topk"].update(mips_split_times(hs[0], beta, k))
 
     # -- fused_sampler --------------------------------------------------------
+    # the wrapper's geometry against the library's; the largest K a block
+    # holds (its row and a membership table of 2^bits > K buckets)
+    lib = fk.library()
+    check(lib.fused_sampler_tile() == fk.TILE, "fused_sampler: kernel.TILE is not the source's")
+    k_max = max(kk for kk in range(1, 40_000)
+                if lib.fused_sampler_smem_bytes(kk) <= fk._MAX_SMEM)
     err, agree_min = 0.0, 1.0
+    cases = []
     for bb, ss, ts, kk, pp, eps, off in [(3, 37, 8, 6, 40, 0.4, 0), (4, 100, 16, 16, 300, 0.8, 3),
-                                         (2, 50, 1, 6, 40, 0.25, 5)]:
+                                         (2, 50, 1, 6, 40, 0.25, 5), (4, 500, 8, 37, 1000, 0.5, 0),
+                                         (2, 3000, 8, 100, 100_000, 0.3, 7),
+                                         (3, 300, 8, 256, p, 0.0, 0), (3, 300, 8, 256, p, 0.999, 0),
+                                         (2, 200, 8, k_max, 100_000, 0.5, 0)]:
         sc = 2 * torch.randn((bb, kk), generator=gen, device=dev)
         ids = torch.stack([torch.randperm(pp, generator=gen, device=dev)[:kk]
                            for _ in range(bb)]).int()
+        cases.append((f"K={kk} eps={eps}", bb, ss, ts, kk, pp, eps, off, ids, sc))
+    # ids that repeat in a row; K > P with the empty slots at id -1, scored
+    # as the retrieval leaves them (-3e38) and as a caller might
+    ids = torch.randint(0, 12, (4, 40), generator=gen, device=dev).int()
+    cases.append(("duplicate ids", 4, 300, 8, 40, 12, 0.5, 0, ids,
+                  2 * torch.randn((4, 40), generator=gen, device=dev)))
+    ids = torch.stack([torch.cat([torch.randperm(20, generator=gen, device=dev),
+                                  torch.full((12,), -1, device=dev)]) for _ in range(3)]).int()
+    sc = 2 * torch.randn((3, 32), generator=gen, device=dev)
+    cases.append(("K>P, -1 ids scored", 3, 300, 8, 32, 20, 0.3, 0, ids, sc))
+    cases.append(("K>P, -1 ids at -3e38", 3, 300, 8, 32, 20, 0.3, 0, ids,
+                  torch.where(ids < 0, -3.0e38, sc)))
+    for tag, bb, ss, ts, kk, pp, eps, off, ids, sc in cases:
         ev = torch.full((), eps, device=dev)
         kw = dict(num_samples=ss, num_items=pp, sample_tile=ts, row_offset=off)
         e, a = sampler_err(fk.fused_sampler_cuda(12345, ev, ids, sc, **kw),
-                           fr.fused_sampler_ref(12345, ev, ids, sc, **kw), f"sampler small {ss}")
+                           fr.fused_sampler_ref(12345, ev, ids, sc, **kw), f"sampler {tag}")
         err, agree_min = max(err, e), min(agree_min, a)
-        log(f"  fused_sampler small: B={bb} S={ss} TS={ts} K={kk} offset={off} "
+        log(f"  fused_sampler small ({tag}): B={bb} S={ss} TS={ts} K={kk} P={pp} offset={off} "
             f"max_abs_err(log q)={e:.3g} kappa agreement {a:.6f} ok")
+    try:
+        fk.fused_sampler_cuda(0, ev, ids[:, :1].repeat(1, k_max + 1), sc[:, :1].repeat(1, k_max + 1),
+                              num_samples=8, num_items=20, sample_tile=8)
+        check(False, f"fused_sampler took K={k_max + 1}, past a block's shared memory")
+    except ValueError:
+        log(f"  fused_sampler: K up to {k_max} ({lib.fused_sampler_smem_bytes(k_max)} bytes of "
+            f"shared memory a block), K={k_max + 1} refused")
     tops = [mk.mips_topk_cuda(h, beta, k) for h in hs]
     eps = torch.full((), 0.8, device=dev)
     kw = dict(num_samples=s, num_items=p, sample_tile=TS)
@@ -627,19 +664,46 @@ def training_kernel_phase(beta, h0, positives) -> dict:
         err, agree_min = max(err, e), min(agree_min, a)
         log(f"  fused_sampler full: B={b} S={s} TS={TS} K={k} P={p} (training top-K) "
             f"max_abs_err(log q)={e:.3g} kappa agreement {a:.6f} ok")
-    # the operations these draws need: 23 per (kappa-arm draw, slot) for the
-    # Gumbel noise (hash, two logs, the add and compare), 1 per (draw, slot)
-    # for the membership compare; uniform-arm draws need no Gumbel noise
+    # a slot can never win where it lies below the row's best by more than
+    # the range of the Gumbel noise over u in [0, 1 - 2^-24], in fp32
+    u = torch.tensor([0.0, 1.0 - 2.0**-24])
+    g = -torch.log(-torch.log(u + 1e-12) + 1e-12)
+    spread = max(float((ts_[:, 0] - ts_[:, -1]).max()) for ts_, _ in tops)
+    log(f"  fused_sampler: the training top-K rows span at most {spread:.4f} in score, the "
+        f"Gumbel noise {float(g[1] - g[0]):.4f}: no slot can be skipped")
+    # the bound: 32-bit instructions, counted in the kernel's SASS, at the
+    # card's rate for them (SMs x 128 lanes x its highest SM clock), for the
+    # kappa-arm draws of the timed inputs
+    per_slot, per_draw = sampler_instructions(fk.SOURCE)
+    clock = max_sm_clock_hz()
+    rate = _launch.sm_count(dev.index or 0) * 128 * clock
     sets = [(2000 + i, ti_, ts_) for i, (ts_, ti_) in enumerate(tops)]
     n_kappa = sum(int((fk.fused_sampler_cuda(sd, eps, ti_, ts_, **kw)[2] >= 0).sum())
                   for sd, ti_, ts_ in sets) / len(sets)
+    nops = n_kappa * k * per_slot + b * s * per_draw
     log(f"  fused_sampler: {n_kappa:.1f} of {b * s} draws per call on the kappa arm "
-        f"({n_kappa / (b * s):.4f}), mean over the timed inputs")
-    res["fused_sampler"] = dict(max_abs_err=err, kappa_agreement=agree_min, **timed(
+        f"({n_kappa / (b * s):.4f}), mean over the timed inputs; SASS: {per_slot:.2f} "
+        f"instructions per Gumbel slot, {per_draw} per draw after the last barrier; "
+        f"{nops / 1e6:.2f} M instructions at {rate / 1e12:.2f} T/s ({clock / 1e6:.0f} MHz); "
+        f"the former count (23 fp32 operations per slot, 1 per membership compare at "
+        f"{FP32_FLOPS / 1e12:.0f} TFLOP/s) gave "
+        f"{(n_kappa * k * 23 + b * s * k) / FP32_FLOPS * 1e3:.4f} ms")
+    res["fused_sampler"] = dict(max_abs_err=err, kappa_agreement=agree_min,
+                                instructions_per_slot=per_slot, instructions_per_draw=per_draw,
+                                **timed(
         f"fused_sampler B={b} S={s} K={k}",
         lambda sd, ti_, ts_: fk.fused_sampler_cuda(sd, eps, ti_, ts_, **kw),
         lambda sd, ti_, ts_: fr.fused_sampler_ref(sd, eps, ti_, ts_, **kw),
-        sets, b * k * 8 + b * s * 12, n_kappa * k * 23 + b * s * k))
+        sets, b * k * 8 + b * s * 12, nops, op_rate=rate))
+    # what the draws' arms cost: no kappa-arm draw (eps 1: the row, the
+    # table and the outputs alone), every draw on the kappa arm (eps 0)
+    for e_, key in ((1.0, "ms_eps1"), (0.0, "ms_eps0")):
+        ev_ = torch.full((), e_, device=dev)
+        res["fused_sampler"][key] = device_ms(
+            lambda sd, ti_, ts_, ev_=ev_: fk.fused_sampler_cuda(sd, ev_, ti_, ts_, **kw), sets)
+    log(f"  time fused_sampler at eps 1 (no kappa-arm draw) "
+        f"{res['fused_sampler']['ms_eps1']:.4f} ms, at eps 0 (every draw) "
+        f"{res['fused_sampler']['ms_eps0']:.4f} ms, device ms per call (CUDA graph)")
 
     # -- snis_covgrad forward and backward ------------------------------------
     ferr = berr = 0.0
@@ -687,6 +751,23 @@ def training_kernel_phase(beta, h0, positives) -> dict:
                                    sr.snis_bwd_ref(cf, a, beta), "full bwd", sums=True))
         log(f"  snis_covgrad full: B={b} S={s} L={l} TS={ts} (training draws), both modes "
             f"and the backward: ok")
+    # the backward's one launch: scheduling-independent bits, and ticket
+    # counters that every launch leaves at 0, eager or replayed in a graph
+    h, a, lq, r, cf = steps[0]
+    g0 = sk.snis_bwd_cuda(cf, a, beta)
+    check(all(torch.equal(sk.snis_bwd_cuda(cf, a, beta), g0) for _ in range(8)),
+          "snis_covgrad_bwd: repeated launches differ")
+    device_ms(lambda h, a, lq, r, cf: sk.snis_bwd_cuda(cf, a, beta), steps[:2], calls=4,
+              replays=2)
+    berr = max(berr, close_err(sk.snis_bwd_cuda(cf, a, beta), sr.snis_bwd_ref(cf, a, beta),
+                               "bwd eager after graph replays", sums=True))
+    torch.cuda.synchronize()
+    check(all(not bool(c.any()) for c in _launch._COUNTERS.values()),
+          "a launch left a ticket counter nonzero")
+    log(f"  snis_covgrad_bwd: one launch a call ({sk.bwd_splits_for(b, s, l, _launch.sm_count(0))} "
+        f"(splits, chunk)); 8 repeated launches bitwise equal; an eager launch after graph "
+        f"replays at B={b} matches the plain version; every ticket counter back at 0 "
+        f"({len(_launch._COUNTERS)} buffers)")
     rows = b * s * l * 4
     res["snis_covgrad_wide"] = covgrad_wide_times(steps, beta, gen)
     res["snis_covgrad_fwd"] = dict(max_abs_err=ferr, **timed(
@@ -707,6 +788,17 @@ def training_kernel_phase(beta, h0, positives) -> dict:
         library_fn=lambda h, a, lq, r, cf: torch.nn.functional.embedding_bag(
             a, beta, per_sample_weights=cf, mode="sum"),
         library_note="embedding_bag(actions, beta, per_sample_weights=coeff, mode='sum')"))
+    # the backward's fixed cost (every action dead: the launch, the
+    # coefficients, the partials and the ticket) and its time with the rows
+    # in the 50 MB L2 (one input set replayed)
+    dead = [(h, torch.full_like(a, -1), lq, r, cf) for h, a, lq, r, cf in steps]
+    res["snis_covgrad_bwd"]["ms_all_dead"] = device_ms(
+        lambda h, a, lq, r, cf: sk.snis_bwd_cuda(cf, a, beta), dead)
+    res["snis_covgrad_bwd"]["ms_l2_hot"] = device_ms(
+        lambda h, a, lq, r, cf: sk.snis_bwd_cuda(cf, a, beta), steps[:1])
+    log(f"  time snis_covgrad_bwd with every action dead "
+        f"{res['snis_covgrad_bwd']['ms_all_dead']:.4f} ms, with one input set's rows in L2 "
+        f"{res['snis_covgrad_bwd']['ms_l2_hot']:.4f} ms, device ms per call (CUDA graph)")
     w = res["snis_covgrad_wide"][l]
     log(f"  snis_covgrad at L={l}, device ms, wide path / register layout: scores-only "
         f"{w['fwd']['ms']:.4f} / {res['snis_covgrad_fwd']['ms']:.4f}, covgrad mode "
@@ -751,7 +843,7 @@ def covgrad_wide_only():
 
     fl, bl = sk.fwd_library(), sk.bwd_library()
     _launch.declare(fl, "snis_fwd_launch_wide", "pppppppp" + "iiiiii" + "p")
-    _launch.declare(bl, "snis_bwd_launch_wide", "ppppp" + "iiiii" + "p")
+    _launch.declare(bl, "snis_bwd_launch_wide", "pppppp" + "iiiii" + "p")
     saved = fl.snis_fwd_launch, bl.snis_bwd_launch
     fl.snis_fwd_launch, bl.snis_bwd_launch = fl.snis_fwd_launch_wide, bl.snis_bwd_launch_wide
     try:
@@ -911,6 +1003,7 @@ def train_phase(ds, theta0) -> dict:
 
     groups = {"mips_topk": 0.0, "fused_sampler": 0.0, "snis_fwd": 0.0, "snis_bwd": 0.0,
               "other": 0.0}
+    bwd_kernels = 0
     for ev in prof.key_averages():
         dt = device_us(ev) / PROFILED_STEPS / 1e3
         if dt <= 0:
@@ -920,8 +1013,12 @@ def train_phase(ds, theta0) -> dict:
                  else "snis_fwd" if "snis_fwd" in name else "snis_bwd" if "snis_bwd" in name
                  else "other")
         groups[group] += dt
+        bwd_kernels += ev.count if group == "snis_bwd" else 0
     busy = sum(groups.values())
     if busy > 0:
+        check(bwd_kernels == PROFILED_STEPS,
+              f"the backward ran {bwd_kernels} kernels in {PROFILED_STEPS} steps, not one a step")
+        log(f"[train] the backward: {bwd_kernels} kernel(s) in {PROFILED_STEPS} profiled steps")
         log(f"[train] profiled {PROFILED_STEPS} steps: device ms per step by kernel: "
             + ", ".join(f"{k} {v:.4f}" for k, v in groups.items())
             + f"; busy {busy:.4f} of {wall:.4f} ms wall per step (profiled), device idle "
@@ -2179,20 +2276,67 @@ def lm_train_phase(cfg=None, dev=None) -> dict:
                 idle=idle, gate=gate)
 
 
-def hmma_count(source) -> int:
-    """The tensor-core instructions (`HMMA`) in the SASS of a built
-    library (`cuobjdump -sass`): what shows that its products run on the
-    tensor cores."""
-    import re
+def sass_of(source) -> str:
+    """The SASS of a built library (`cuobjdump -sass`)."""
     import shutil
 
     from repro_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build._target(source))], capture_output=True,
+    return subprocess.run([tool, "-sass", str(_build._target(source))], capture_output=True,
                           text=True, check=True).stdout
-    return len(re.findall(r"\bHMMA\.", sass))
+
+
+def hmma_count(source) -> int:
+    """The tensor-core instructions (`HMMA`) in the SASS of a built
+    library: what shows that its products run on the tensor cores."""
+    import re
+
+    return len(re.findall(r"\bHMMA\.", sass_of(source)))
+
+
+def sampler_instructions(source) -> tuple[float, int]:
+    """K5's instructions, from the SASS of its built library: per Gumbel
+    slot, the body of the innermost loop that holds the splitmix32 hash's
+    0x21f0aaad multiply most often (the unrolled slot loop), over that
+    count (one hash a slot); per draw, the instructions after the kernel's
+    last barrier, where each draw's action and log q are made (both arms'
+    code, counted once)."""
+    import re
+
+    sass = sass_of(source)
+    fn = sass[sass.index("fused_sampler_kernel"):]
+    nxt = fn.find("Function :", 1)
+    fn = fn if nxt < 0 else fn[:nxt]
+    ins = [(int(a, 16), text.strip()) for a, text in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+    loops = []
+    for addr, text in ins:
+        m = re.search(r"\bBRA\S*\s+(?:`\()?\(?.*?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    best = None
+    for lo, hi in loops:
+        if any(lo <= a < b <= hi and (a, b) != (lo, hi) for a, b in loops):
+            continue  # not innermost
+        body = [t for a, t in ins if lo <= a <= hi]
+        hashes = sum("0x21f0aaad" in t for t in body)
+        if hashes and (best is None or hashes > best[1]):
+            best = (len(body), hashes)
+    check(best is not None, "fused_sampler: no Gumbel loop found in its SASS")
+    last_bar = max(i for i, (_, t) in enumerate(ins) if "BAR.SYNC" in t)
+    last_exit = max(i for i, (_, t) in enumerate(ins) if t.split()[-1:] == ["EXIT"]
+                    or t.endswith("EXIT"))
+    return best[0] / best[1], last_exit - last_bar
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as `nvidia-smi` reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def percentile(values: list[float], p: float) -> float:
@@ -2425,6 +2569,11 @@ def main() -> int:
         if name == "mips_topk":
             entries[-1].update(floor_ms=r["floor_ms"], probe_ms=r["probe_ms"],
                                merge_ms=r["merge_ms"])
+        if name == "fused_sampler":
+            entries[-1].update({key: r[key] for key in (
+                "ms_eps1", "ms_eps0", "instructions_per_slot", "instructions_per_draw")})
+        if name == "snis_covgrad_bwd":
+            entries[-1].update(ms_all_dead=r["ms_all_dead"], ms_l2_hot=r["ms_l2_hot"])
         if name.startswith("snis_covgrad"):  # the wide path, B 32, S 1000
             modes = ("fwd", "covgrad") if name.endswith("fwd") else ("bwd",)
             entries[-1]["wide_l"] = {

@@ -5,9 +5,12 @@ with ctypes.
 computes, with the same splitmix32 integer stream. See the source for
 the design and its bound.
 
-The wrapper checks device, dtype, shape and contiguity, allocates the
-three [B, Sp] outputs with `torch.empty`, launches on PyTorch's current
-stream without synchronising, and raises if the launch is refused. eps
+The wrapper checks device, dtype, shape and contiguity, refuses a K
+whose row and membership table exceed a block's shared memory (the
+library's `fused_sampler_smem_bytes`), allocates the three [B, Sp]
+outputs with `torch.empty`, launches on PyTorch's current stream
+without synchronising (grid `grid`), and raises if the launch is
+refused. eps
 stays on the card (a 0-d tensor): no host read. It counts its launches
 in ``fused_sampler_cuda.launches``.
 """
@@ -21,11 +24,20 @@ import torch
 
 from repro_torch.kernels import _build, _launch
 
-__all__ = ["SOURCE", "fused_sampler_cuda", "library"]
+__all__ = ["GROUP", "SOURCE", "THREADS", "TILE", "fused_sampler_cuda", "grid", "library"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_sampler.cu"
 
-_MAX_SMEM = 232_448
+# the source's geometry (fused_sampler.cu)
+THREADS = 512  # a block (kThreads)
+TILE = 128  # draws per block (kTile)
+GROUP = 16  # lanes per kappa-arm draw (kGroup)
+_MAX_SMEM = 232_448  # a Hopper block's opt-in shared memory (kMaxSmem)
+
+
+def grid(b: int, sp: int) -> tuple[int, int]:
+    """The launch grid: (draw tiles of a row, rows)."""
+    return -(-sp // TILE), b
 
 
 @functools.cache
@@ -35,6 +47,7 @@ def library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     _launch.declare(lib, "fused_sampler_launch", "ipi" + "ppppp" + "iiiii" + "p")
     _launch.declare(lib, "fused_sampler_smem_bytes", "i", ctypes.c_size_t)
+    _launch.declare(lib, "fused_sampler_tile", "")
     _launch.declare(lib, "fused_sampler_error_string", "i", ctypes.c_char_p)
     return lib
 

@@ -10,8 +10,8 @@ launch (`splits_for`, `tile_rows`, `lanes_per_row`), allocates the
 outputs and the partial top-K scratch with `torch.empty`, launches on
 PyTorch's current stream without synchronising, and raises if the
 launch is refused. One launch probes and merges (the last block of each
-row merges its partial lists, `ticket_counters`). It counts its launches
-in ``ivf_probe_topk_cuda.launches``.
+row merges its partial lists; `_launch.ticket_counters`). It counts its
+launches in ``ivf_probe_topk_cuda.launches``.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from repro_torch.kernels import _build, _launch
 
 __all__ = [
     "MAX_K", "SOURCE", "ivf_probe_topk_cuda", "lanes_per_row", "library",
-    "splits_for", "ticket_counters", "tile_rows",
+    "splits_for", "tile_rows",
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ivf_topk.cu"
@@ -86,28 +86,6 @@ def splits_for(batch: int, n_probe: int, capp: int, k: int, l: int) -> tuple[int
     return -(-capp // chunk), chunk
 
 
-_COUNTERS: dict[tuple[int, int, int, int], torch.Tensor] = {}
-
-
-def ticket_counters(device: torch.device, stream: int, b: int, capture: int = 0) -> torch.Tensor:
-    """The rows' ticket counters (int32 [B], 0 between launches), made with
-    `torch.zeros` once per (device, stream, B) for eager launches and once
-    more per CUDA-graph capture (`capture`, its id; 0 when eager).
-
-    Every launch leaves them at 0 (the last block of a row resets its
-    counter), so the next launch on the same stream, and the next replay
-    of a graph, find them at 0. Launches on two streams may overlap, so
-    each stream has its own. A capture gets its own, zeroed by a node of
-    the graph it captures (the zeroing runs when the graph is first
-    replayed, before its first launch) and kept here for as long as the
-    graph may replay them; eager launches never share them."""
-    key = (device.index or 0 if device.type == "cuda" else -1, stream, b, capture)
-    counters = _COUNTERS.get(key)
-    if counters is None:
-        counters = _COUNTERS[key] = torch.zeros(b, dtype=torch.int32, device=device)
-    return counters
-
-
 def ivf_probe_topk_cuda(
     queries: torch.Tensor,  # [B, L] float32
     probe: torch.Tensor,  # [B, n_probe] int32 cluster ids
@@ -152,7 +130,7 @@ def ivf_probe_topk_cuda(
     if l % 4 == 0:  # 16-byte copies: the query and every row start on 16 bytes
         queries, list_embs = _launch.aligned16(queries), _launch.aligned16(list_embs)
     stream = _launch.stream(dev)
-    counters = ticket_counters(dev, stream, b, lib.ivf_topk_capture_id(stream))
+    counters = _launch.ticket_counters(dev, stream, b, lib.ivf_topk_capture_id(stream))
     part_s = torch.empty((b, n_probe * splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, n_probe * splits, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)

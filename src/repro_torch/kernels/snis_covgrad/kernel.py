@@ -11,9 +11,11 @@ chunks) for every other L. See the sources for the designs and their
 bounds.
 
 The wrappers check device, dtype, shape and contiguity, split S across
-blocks (`splits_for`), allocate outputs and scratch with `torch.empty`,
-launch on PyTorch's current stream without synchronising, and raise if
-a launch is refused. They count their launches in
+blocks (`splits_for`, `bwd_splits_for`), allocate outputs and scratch
+with `torch.empty`, launch on PyTorch's current stream without
+synchronising, and raise if a launch is refused. The backward is one
+launch: the last block of a row adds the row's partials
+(`_launch.ticket_counters`). They count their launches in
 ``snis_fwd_cuda.launches`` and ``snis_bwd_cuda.launches``.
 """
 from __future__ import annotations
@@ -27,8 +29,8 @@ import torch
 from repro_torch.kernels import _build, _launch
 
 __all__ = [
-    "BWD_SOURCE", "FWD_SOURCE", "bwd_library", "fwd_library", "snis_bwd_cuda",
-    "snis_fwd_cuda", "splits_for",
+    "BWD_SOURCE", "FWD_SOURCE", "bwd_library", "bwd_splits_for", "fwd_library",
+    "snis_bwd_cuda", "snis_fwd_cuda", "splits_for",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -49,7 +51,8 @@ def fwd_library() -> ctypes.CDLL:
 @functools.cache
 def bwd_library() -> ctypes.CDLL:
     lib = _build.load(BWD_SOURCE)
-    _launch.declare(lib, "snis_bwd_launch", "ppppp" + "iiiii" + "p")
+    _launch.declare(lib, "snis_bwd_launch", "pppppp" + "iiiii" + "p")
+    _launch.declare(lib, "snis_bwd_capture_id", "p", ctypes.c_ulonglong)
     _launch.declare(lib, "snis_bwd_error_string", "i", ctypes.c_char_p)
     return lib
 
@@ -59,6 +62,21 @@ def splits_for(b: int, s: int, sms: int) -> tuple[int, int]:
     multiple of the block's 32 groups), so that about four blocks per SM
     gather rows at once even when B alone would light few SMs."""
     want = max(1, -(-4 * sms // max(1, b)))
+    chunk = max(_GROUPS, -(-(-(-s // want)) // _GROUPS) * _GROUPS)
+    return -(-s // chunk), chunk
+
+
+def bwd_splits_for(b: int, s: int, l: int, sms: int) -> tuple[int, int]:
+    """(splits, chunk) of the backward: S cut into chunks of whole 32-sample
+    rounds. The register layout (L a multiple of 4 up to 256) takes about
+    two blocks per SM: every block is resident at once (its registers
+    allow three a SM) and issues all its rows' words before its first add,
+    and fewer, longer chunks leave fewer partials for the last block of a
+    row to add (B 32, S 1000: 8 chunks of 128). The wide path, whose warps
+    add two rows at a time, keeps `splits_for`'s four blocks per SM."""
+    if l % 4 or l > 256:
+        return splits_for(b, s, sms)
+    want = max(1, -(-2 * sms // max(1, b)))
     chunk = max(_GROUPS, -(-(-(-s // want)) // _GROUPS) * _GROUPS)
     return -(-s // chunk), chunk
 
@@ -130,12 +148,14 @@ def snis_bwd_cuda(
         raise ValueError(f"need 1 <= B <= 65535, S >= 1 and L >= 1 (got {b}, {s}, {l})")
     lib = bwd_library()
     beta = _launch.aligned16(beta)
-    splits, chunk = splits_for(b, s, _launch.sm_count(dev.index or 0))
+    splits, chunk = bwd_splits_for(b, s, l, _launch.sm_count(dev.index or 0))
+    stream = _launch.stream(dev)
+    counters = _launch.ticket_counters(dev, stream, b, lib.snis_bwd_capture_id(stream))
     part = torch.empty((b, splits, l), dtype=torch.float32, device=dev)
     grad = torch.empty((b, l), dtype=torch.float32, device=dev)
     err = lib.snis_bwd_launch(
         coeff.data_ptr(), actions.data_ptr(), beta.data_ptr(), part.data_ptr(),
-        grad.data_ptr(), b, s, l, splits, chunk, _launch.stream(dev),
+        grad.data_ptr(), counters.data_ptr(), b, s, l, splits, chunk, stream,
     )
     _launch.raise_on_error(err, lib, "snis_bwd_error_string", "snis_covgrad_bwd")
     snis_bwd_cuda.launches += 1

@@ -23,7 +23,7 @@ import numpy as np  # noqa: E402
 from repro.kernels.fused_sampler.kernel import _hash_u32, fused_sampler_pallas  # noqa: E402
 from repro_torch.constants import LOG_Q_PAD  # noqa: E402
 from repro_torch.core.proposals import MixtureProposal  # noqa: E402
-from repro_torch.kernels.fused_sampler import fused_mixture_sample, ops, ref  # noqa: E402
+from repro_torch.kernels.fused_sampler import fused_mixture_sample, kernel, ops, ref  # noqa: E402
 
 
 def _topk_problem(b, p, k, seed):
@@ -138,3 +138,87 @@ def test_cpu_tensors_take_the_plain_version():
     assert ops._kernel.fused_sampler_cuda.launches == kernel_before
     assert ops._ref.fused_sampler_ref.calls == plain_before + 1
 
+
+
+def _membership_problem(case):
+    """(ids [B, K], scores [B, K], P) for the membership cases: ids that
+    repeat in a row; K > P with the empty slots at id -1 (what `mips_topk`
+    gives there), scored as the retrieval scores them and as a caller
+    might; an odd K."""
+    rng = np.random.default_rng(7)
+    if case == "duplicates":
+        p, ids = 12, rng.integers(0, 12, (3, 40))
+    elif case.startswith("k_above_p"):
+        p = 20
+        ids = np.stack([np.concatenate([rng.permutation(p), np.full(12, -1)]) for _ in range(3)])
+    else:  # odd K
+        p, ids = 500, np.stack([rng.permutation(500)[:37] for _ in range(3)])
+    scores = (2 * rng.standard_normal(ids.shape)).astype(np.float32)
+    if case == "k_above_p_dead":
+        scores[ids < 0] = -3.0e38
+    return ids.astype(np.int32), scores, p
+
+
+@pytest.mark.parametrize("fill", ["quarter", "fullest"])
+@pytest.mark.parametrize("case", ["duplicates", "k_above_p_dead", "k_above_p_scored", "odd_k"])
+def test_membership_table_matches_the_compares_and_the_reference(case, fill):
+    """The kernel's membership lookup in plain torch (`ref.membership_table`:
+    the open-addressing table, duplicate flags, each slot's log kappa summed
+    over its id in slot order) against the plain version's K compares, on
+    the plain version's draws and on every id of the row, in a table a
+    quarter full (the kernel's where shared memory allows) and in the
+    smallest it takes (2^bits > K: long probe chains); and the log q it
+    gives against the reference's (interpret mode) where the draws agree."""
+    ids, scores, p = _membership_problem(case)
+    b, k = ids.shape
+    bits = (4 * k - 1).bit_length() if fill == "quarter" else k.bit_length()
+    s, ts, eps, seed = 300, 8, 0.4, 99
+    ids_t, sc_t = torch.from_numpy(ids), torch.from_numpy(scores)
+    ta, tq, tsl = ref.fused_sampler_ref(seed, torch.tensor(eps), ids_t, sc_t, num_samples=s,
+                                        num_items=p, sample_tile=ts)
+    acts = torch.cat([ta[:, :s], ids_t, torch.full((b, 1), p)], dim=1)  # p: never in the row
+    in_topk, log_kappa = ref.membership_table(ids_t, sc_t, acts, bits)
+    hit = acts[:, :, None] == ids_t[:, None, :]
+    np.testing.assert_array_equal(in_topk.numpy(), hit.any(-1).numpy())
+    assert not in_topk[:, -1].any()
+    dense = torch.where(hit, ref._log_kappa_full(sc_t)[:, None, :], 0.0).sum(-1)
+    torch.testing.assert_close(log_kappa, dense, rtol=1e-6, atol=1e-6)
+    if case == "duplicates":
+        assert (hit.sum(-1) > 1).any()
+    if case == "k_above_p_scored":
+        assert ((ta == -1) & (tsl >= 0)).any()  # a kappa draw of id -1, summed over 12 slots
+    lq = ref.mixture_log_q(in_topk[:, :s], log_kappa[:, :s], torch.tensor(eps), p)
+    np.testing.assert_allclose(lq.numpy(), tq[:, :s].numpy(), rtol=1e-6, atol=1e-6)
+
+    ja, jq, _ = map(np.asarray, fused_sampler_pallas(
+        jnp.int32(seed), jnp.float32(eps), jnp.asarray(ids), jnp.asarray(scores),
+        num_samples=s, num_items=p, sample_tile=ts, interpret=True,
+    ))
+    same = ta[:, :s].numpy() == ja[:, :s]
+    assert same.mean() >= 0.999
+    np.testing.assert_allclose(lq.numpy()[same], jq[:, :s][same], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,sp", [(32, 1000), (3, 40), (2, 64), (1, 1), (2, 3000)])
+def test_launch_geometry_covers_every_draw(b, sp):
+    """TILE draws a block, a grid of (ceil(Sp / TILE), B): 256 blocks at the
+    training shape, two for each of the card's 132 SMs; a block's groups
+    of GROUP lanes fill it, and its tile's kappa-arm ballots are whole
+    warps."""
+    tiles, rows = kernel.grid(b, sp)
+    assert rows == b and (tiles - 1) * kernel.TILE < sp <= tiles * kernel.TILE
+    if (b, sp) == (32, 1000):
+        assert tiles * rows == 256
+    assert kernel.THREADS % kernel.GROUP == 0 and kernel.TILE <= kernel.THREADS
+    assert kernel.TILE % 32 == 0
+
+
+def test_geometry_mirrors_the_source():
+    """kernel.py's TILE, GROUP and THREADS are the source's constants (the
+    card run also holds TILE to the library's `fused_sampler_tile`)."""
+    import re
+
+    src = kernel.SOURCE.read_text()
+    for name, value in (("kTile", kernel.TILE), ("kGroup", kernel.GROUP),
+                        ("kThreads", kernel.THREADS)):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) == str(value)

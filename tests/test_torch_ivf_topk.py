@@ -19,6 +19,7 @@ from test_torch_common import assert_topk_equal, data, jax_index, to_port  # noq
 
 from repro.kernels.ivf_topk import ivf_topk as jax_ivf_topk  # noqa: E402
 from repro_torch.kernels.ivf_topk import ivf_topk, kernel, ops, tile_align_index  # noqa: E402
+from repro_torch.kernels import _launch  # noqa: E402
 
 
 @pytest.mark.parametrize(
@@ -116,14 +117,15 @@ def test_tile_rows_refuse_a_row_wider_than_a_tile():
 def test_ticket_counters_are_zero_and_kept_per_stream_and_capture(monkeypatch):
     """One zeroed int32 [B] buffer per (device, stream, B), reused by the
     next launch (each launch leaves it at 0); another stream, batch or
-    CUDA-graph capture gets its own."""
-    monkeypatch.setattr(kernel, "_COUNTERS", {})
+    CUDA-graph capture gets its own. K7 takes them from `_launch`, which
+    keeps them for every kernel whose last block of a row finishes it."""
+    monkeypatch.setattr(_launch, "_COUNTERS", {})
     dev = torch.device("cpu")
-    a = kernel.ticket_counters(dev, 11, 8)
+    a = _launch.ticket_counters(dev, 11, 8)
     assert a.dtype == torch.int32 and a.shape == (8,) and not a.any()
-    assert kernel.ticket_counters(dev, 11, 8) is a
-    others = [kernel.ticket_counters(dev, 12, 8), kernel.ticket_counters(dev, 11, 4),
-              kernel.ticket_counters(dev, 11, 8, capture=5)]
+    assert _launch.ticket_counters(dev, 11, 8) is a
+    others = [_launch.ticket_counters(dev, 12, 8), _launch.ticket_counters(dev, 11, 4),
+              _launch.ticket_counters(dev, 11, 8, capture=5)]
     assert all(o is not a for o in others) and len({id(o) for o in others}) == 3
-    assert kernel.ticket_counters(dev, 11, 8, capture=5) is others[2]
-    assert kernel.ticket_counters(dev, 11, 8) is a  # eager launches never take a capture's
+    assert _launch.ticket_counters(dev, 11, 8, capture=5) is others[2]
+    assert _launch.ticket_counters(dev, 11, 8) is a  # eager launches never take a capture's

@@ -156,3 +156,57 @@ def test_splits_cover_the_samples(b, s):
     splits, chunk = kernel.splits_for(b, s, 132)
     assert chunk % 32 == 0 and (splits - 1) * chunk < s <= splits * chunk
     assert b * splits >= min(3 * 132, b * -(-s // 32))
+
+
+def test_bwd_is_one_launch_on_the_shared_ticket_counters(monkeypatch):
+    """The backward launches one kernel a call (no finalize kernel: the last
+    block of a row adds its partials) on the ticket counters that
+    `_launch` keeps for K7 and the backward alike: one zeroed int32 [B]
+    buffer per (device, stream, B), another per CUDA-graph capture; both
+    wrappers ask their library which capture is under way."""
+    import re
+
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.ivf_topk import kernel as ivf_kernel
+
+    src = kernel.BWD_SOURCE.read_text()
+    assert "snis_bwd_finalize" not in src
+    for fn in ("launch_nv", "launch_wide"):
+        body = src[src.index(f"cudaError_t {fn}("):]
+        body = body[:body.index("\n}\n")]
+        assert len(re.findall(r"<<<", body)) == 1, fn
+    assert "snis_bwd_capture_id" in src
+    for wrapper, capture in ((kernel.snis_bwd_cuda, "snis_bwd_capture_id"),
+                             (ivf_kernel.ivf_probe_topk_cuda, "ivf_topk_capture_id")):
+        code = inspect.getsource(wrapper)
+        assert "_launch.ticket_counters(" in code and capture in code
+    assert not hasattr(ivf_kernel, "ticket_counters")
+
+    monkeypatch.setattr(_launch, "_COUNTERS", {})
+    dev = torch.device("cpu")
+    eager = _launch.ticket_counters(dev, 7, 32)
+    assert eager.dtype == torch.int32 and eager.shape == (32,) and not eager.any()
+    assert _launch.ticket_counters(dev, 7, 32) is eager  # K7 and K3/K4 on one stream
+    captured = [_launch.ticket_counters(dev, 7, 32, capture=c) for c in (3, 4)]
+    assert captured[0] is not captured[1] and all(c is not eager for c in captured)
+    assert _launch.ticket_counters(dev, 7, 32, capture=3) is captured[0]
+    assert _launch.ticket_counters(dev, 8, 32) is not eager
+    assert len(_launch._COUNTERS) == 4
+
+
+@pytest.mark.parametrize("b,s", [(32, 1000), (4, 24), (1, 1), (512, 1000), (1, 100_000), (264, 7)])
+@pytest.mark.parametrize("l", [100, 256, 18, 260])
+def test_bwd_splits_cover_the_samples(b, s, l):
+    """The backward cuts S into chunks of whole 32-sample rounds covering
+    every sample once: about two blocks per SM where the samples allow in
+    the register layout (at the training shape 8 chunks of 128), four in
+    the wide path (L not a multiple of 4, or over 256), as the forward."""
+    splits, chunk = kernel.bwd_splits_for(b, s, l, 132)
+    assert chunk % 32 == 0 and (splits - 1) * chunk < s <= splits * chunk
+    assert b * splits >= min(132, b * -(-s // 32))
+    if l % 4 or l > 256:
+        assert (splits, chunk) == kernel.splits_for(b, s, 132)
+    else:
+        assert b * splits <= max(b, 2 * 132 + b)
+    if (b, s, l) == (32, 1000, 100):
+        assert (splits, chunk) == (8, 128)
