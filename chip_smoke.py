@@ -24,7 +24,7 @@ more each:
                   checked and timed; the sampler with repeated ids, id -1
                   at K > P, odd K, the largest K a block holds, eps 0 and
                   0.999, timed also at eps 1 and 0, its bound from its
-                  SASS instruction count; the backward bitwise over
+                  SASS instructions a draw of each arm and a slot; the backward bitwise over
                   repeated launches and after graph replays, with its
                   ticket counters back at 0),
                   within the CPU parity tests' tolerances; times of
@@ -146,6 +146,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -612,10 +613,9 @@ def training_kernel_phase(beta, h0, positives) -> dict:
     res["mips_topk"].update(mips_split_times(hs[0], beta, k))
 
     # -- fused_sampler --------------------------------------------------------
-    # the wrapper's geometry against the library's; the largest K a block
-    # holds (its row and a membership table of 2^bits > K buckets)
+    # the largest K a block holds (its row and a membership table at most
+    # half full)
     lib = fk.library()
-    check(lib.fused_sampler_tile() == fk.TILE, "fused_sampler: kernel.TILE is not the source's")
     k_max = max(kk for kk in range(1, 40_000)
                 if lib.fused_sampler_smem_bytes(kk) <= fk._MAX_SMEM)
     err, agree_min = 0.0, 1.0
@@ -672,24 +672,25 @@ def training_kernel_phase(beta, h0, positives) -> dict:
     log(f"  fused_sampler: the training top-K rows span at most {spread:.4f} in score, the "
         f"Gumbel noise {float(g[1] - g[0]):.4f}: no slot can be skipped")
     # the bound: 32-bit instructions, counted in the kernel's SASS, at the
-    # card's rate for them (SMs x 128 lanes x its highest SM clock), for the
-    # kappa-arm draws of the timed inputs
-    per_slot, per_draw = sampler_instructions(fk.SOURCE)
+    # card's rate for them (SMs x 128 lanes x its highest SM clock), each
+    # draw charged its own arm's path, the kappa-arm draws of the timed
+    # inputs their K slots
+    per_slot, per_kappa, per_uniform = sampler_instructions(sass_of(fk.SOURCE))
     clock = max_sm_clock_hz()
     rate = _launch.sm_count(dev.index or 0) * 128 * clock
     sets = [(2000 + i, ti_, ts_) for i, (ts_, ti_) in enumerate(tops)]
     n_kappa = sum(int((fk.fused_sampler_cuda(sd, eps, ti_, ts_, **kw)[2] >= 0).sum())
                   for sd, ti_, ts_ in sets) / len(sets)
-    nops = n_kappa * k * per_slot + b * s * per_draw
+    nops = n_kappa * (k * per_slot + per_kappa) + (b * s - n_kappa) * per_uniform
     log(f"  fused_sampler: {n_kappa:.1f} of {b * s} draws per call on the kappa arm "
         f"({n_kappa / (b * s):.4f}), mean over the timed inputs; SASS: {per_slot:.2f} "
-        f"instructions per Gumbel slot, {per_draw} per draw after the last barrier; "
-        f"{nops / 1e6:.2f} M instructions at {rate / 1e12:.2f} T/s ({clock / 1e6:.0f} MHz); "
-        f"the former count (23 fp32 operations per slot, 1 per membership compare at "
-        f"{FP32_FLOPS / 1e12:.0f} TFLOP/s) gave "
-        f"{(n_kappa * k * 23 + b * s * k) / FP32_FLOPS * 1e3:.4f} ms")
+        f"instructions per Gumbel slot, {per_kappa} per kappa-arm and {per_uniform} per "
+        f"uniform-arm draw after the last barrier (the fewest on any path through the arm); "
+        f"{nops / 1e6:.2f} M instructions at {rate / 1e12:.2f} T/s ({clock / 1e6:.0f} MHz)")
     res["fused_sampler"] = dict(max_abs_err=err, kappa_agreement=agree_min,
-                                instructions_per_slot=per_slot, instructions_per_draw=per_draw,
+                                instructions_per_slot=per_slot,
+                                instructions_per_kappa_draw=per_kappa,
+                                instructions_per_uniform_draw=per_uniform,
                                 **timed(
         f"fused_sampler B={b} S={s} K={k}",
         lambda sd, ti_, ts_: fk.fused_sampler_cuda(sd, eps, ti_, ts_, **kw),
@@ -764,7 +765,7 @@ def training_kernel_phase(beta, h0, positives) -> dict:
     torch.cuda.synchronize()
     check(all(not bool(c.any()) for c in _launch._COUNTERS.values()),
           "a launch left a ticket counter nonzero")
-    log(f"  snis_covgrad_bwd: one launch a call ({sk.bwd_splits_for(b, s, l, _launch.sm_count(0))} "
+    log(f"  snis_covgrad_bwd: one launch a call ({sk.splits_for(b, s, _launch.sm_count(0), 2)} "
         f"(splits, chunk)); 8 repeated launches bitwise equal; an eager launch after graph "
         f"replays at B={b} matches the plain version; every ticket counter back at 0 "
         f"({len(_launch._COUNTERS)} buffers)")
@@ -2291,44 +2292,80 @@ def sass_of(source) -> str:
 def hmma_count(source) -> int:
     """The tensor-core instructions (`HMMA`) in the SASS of a built
     library: what shows that its products run on the tensor cores."""
-    import re
-
     return len(re.findall(r"\bHMMA\.", sass_of(source)))
 
 
-def sampler_instructions(source) -> tuple[float, int]:
-    """K5's instructions, from the SASS of its built library: per Gumbel
-    slot, the body of the innermost loop that holds the splitmix32 hash's
-    0x21f0aaad multiply most often (the unrolled slot loop), over that
-    count (one hash a slot); per draw, the instructions after the kernel's
-    last barrier, where each draw's action and log q are made (both arms'
-    code, counted once)."""
-    import re
+# SASS that moves control or data but computes nothing on a draw's
+# values: branches and convergence, moves, constant and special-register
+# reads, the uniform datapath, barriers and the exit
+_NOT_WORK = re.compile(r"^(?:BRA|BSSY|BSYNC|BREAK|WARPSYNC|NOP|EXIT|BAR|MOV|IMAD\.MOV|HFMA2\.MMA"
+                       r"|PLOP3|LDC|ULDC|S2R|S2UR|CS2R|U[A-Z])")
 
-    sass = sass_of(source)
+
+def sampler_instructions(sass: str) -> tuple[float, int, int]:
+    """K5's work in 32-bit instructions, from the SASS of its kernel
+    (`_NOT_WORK` left out): per Gumbel slot, the body of the innermost
+    loop that holds the splitmix32 hash's 0x21f0aaad multiply most often
+    (the unrolled slot loop) over that count (one hash a slot); per
+    kappa-arm and per uniform-arm draw, the fewest that any draw of the
+    arm issues after the kernel's last barrier (the shortest path to the
+    exit through its arm's code: a kappa-arm draw's rank (`POPC`) and its
+    log q in the row (the `MUFU.EX2` of its logaddexp); a uniform-arm
+    draw's hash, missing the table, as all but ~K / P of them do)."""
+    import heapq
+
     fn = sass[sass.index("fused_sampler_kernel"):]
     nxt = fn.find("Function :", 1)
     fn = fn if nxt < 0 else fn[:nxt]
     ins = [(int(a, 16), text.strip()) for a, text in
            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
-    loops = []
-    for addr, text in ins:
-        m = re.search(r"\bBRA\S*\s+(?:`\()?\(?.*?0x([0-9a-f]+)", text)
-        if m and int(m.group(1), 16) < addr:
-            loops.append((int(m.group(1), 16), addr))
+    op = [re.sub(r"^@!?U?P\w+\s+", "", t) for _, t in ins]
+    work = [0 if _NOT_WORK.match(o) else 1 for o in op]
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    target = [None] * len(ins)
+    for i, o in enumerate(op):
+        m = re.match(r"BRA\S*\s+(?:\S+,\s*)?(?:`\()?(?:\.L_x_\d+\))?\s*0x([0-9a-f]+)", o)
+        if m:
+            target[i] = at.get(int(m.group(1), 16))
+    loops = [(target[i], i) for i in range(len(ins)) if target[i] is not None and target[i] < i]
     best = None
     for lo, hi in loops:
         if any(lo <= a < b <= hi and (a, b) != (lo, hi) for a, b in loops):
             continue  # not innermost
-        body = [t for a, t in ins if lo <= a <= hi]
-        hashes = sum("0x21f0aaad" in t for t in body)
+        hashes = sum("0x21f0aaad" in op[i] for i in range(lo, hi + 1))
         if hashes and (best is None or hashes > best[1]):
-            best = (len(body), hashes)
+            best = (sum(work[lo:hi + 1]), hashes)
     check(best is not None, "fused_sampler: no Gumbel loop found in its SASS")
-    last_bar = max(i for i, (_, t) in enumerate(ins) if "BAR.SYNC" in t)
-    last_exit = max(i for i, (_, t) in enumerate(ins) if t.split()[-1:] == ["EXIT"]
-                    or t.endswith("EXIT"))
-    return best[0] / best[1], last_exit - last_bar
+
+    def shortest(marks) -> int:
+        # Dijkstra over (instruction, marks passed); an edge costs the
+        # instruction it leaves, the exit ends a path with every mark
+        first = max(i for i, t in enumerate(op) if t.startswith("BAR.SYNC")) + 1
+        full = (1 << len(marks)) - 1
+        seen, heap = set(), [(0, first, 0)]
+        while heap:
+            cost, i, got = heapq.heappop(heap)
+            if (i, got) in seen:
+                continue
+            seen.add((i, got))
+            got |= sum(1 << j for j, mk in enumerate(marks) if mk(op[i]))
+            if op[i].startswith("EXIT") and got == full:
+                return cost
+            uncond = ins[i][1] == op[i]  # no guard predicate
+            nexts = []
+            if target[i] is not None:
+                nexts.append(target[i])
+            if not (uncond and (op[i].startswith("EXIT") or
+                                (target[i] is not None and not op[i].startswith("BRA.DIV")))):
+                nexts.append(i + 1)
+            for j in nexts:
+                if j < len(ins):
+                    heapq.heappush(heap, (cost + work[i], j, got))
+        check(False, "fused_sampler: no path through an arm's code in its SASS")
+
+    kappa = shortest([lambda o: o.startswith("POPC"), lambda o: o.startswith("MUFU.EX2")])
+    uniform = shortest([lambda o: "0x21f0aaad" in o])
+    return best[0] / best[1], kappa, uniform
 
 
 def max_sm_clock_hz() -> float:
@@ -2571,7 +2608,8 @@ def main() -> int:
                                merge_ms=r["merge_ms"])
         if name == "fused_sampler":
             entries[-1].update({key: r[key] for key in (
-                "ms_eps1", "ms_eps0", "instructions_per_slot", "instructions_per_draw")})
+                "ms_eps1", "ms_eps0", "instructions_per_slot", "instructions_per_kappa_draw",
+                "instructions_per_uniform_draw")})
         if name == "snis_covgrad_bwd":
             entries[-1].update(ms_all_dead=r["ms_all_dead"], ms_l2_hot=r["ms_l2_hot"])
         if name.startswith("snis_covgrad"):  # the wide path, B 32, S 1000

@@ -37,7 +37,8 @@
 //     reference's first slot on ties.
 //   * Membership is a lookup, not K compares a draw: the block builds an
 //     open-addressing table of the row's ids (slot + 1 a bucket, linear
-//     probing, a quarter full where shared memory allows). A second slot
+//     probing, a quarter full where shared memory allows, at most half).
+//     A second slot
 //     of an id flags the first one's bucket; a draw whose bucket is
 //     flagged sums log kappa over the row in slot order, any other reads
 //     one score.
@@ -101,12 +102,14 @@ __host__ __device__ inline size_t dynamic_bytes(int K, int tab_bits) {
 constexpr size_t kStaticBytes =
     (2 * kWarps) * sizeof(float) + (kTile / 32) * sizeof(unsigned) + kTile * sizeof(int);
 
-// The table's size, 2^bits > K: four buckets a slot where that fits the
-// block's shared memory, fewer where it does not.
+// The table's size, 2^bits >= 2K: four buckets a slot where that fits the
+// block's shared memory, never fewer than two (a fuller table's probe
+// chains grow long), so a block holds K up to 12590.
 inline int table_bits(int K) {
   int bits = 1;
   while ((1ll << bits) < 4ll * K) ++bits;
-  while ((1ll << (bits - 1)) > K && dynamic_bytes(K, bits) + kStaticBytes > kMaxSmem) --bits;
+  while ((1ll << (bits - 1)) >= 2ll * K && dynamic_bytes(K, bits) + kStaticBytes > kMaxSmem)
+    --bits;
   return bits;
 }
 
@@ -322,9 +325,6 @@ extern "C" {
 
 // Shared memory one block needs at this K, static arrays included.
 size_t fused_sampler_smem_bytes(int K) { return dynamic_bytes(K, table_bits(K)) + kStaticBytes; }
-
-// Draws per block: the grid is (ceil(Sp / this), B).
-int fused_sampler_tile() { return kTile; }
 
 // Launches the sampler on `stream`; returns cudaGetLastError().
 int fused_sampler_launch(int seed, const void* eps, int row_offset, const void* topk_ids,

@@ -6,13 +6,12 @@ computes, with the same splitmix32 integer stream. See the source for
 the design and its bound.
 
 The wrapper checks device, dtype, shape and contiguity, refuses a K
-whose row and membership table exceed a block's shared memory (the
-library's `fused_sampler_smem_bytes`), allocates the three [B, Sp]
-outputs with `torch.empty`, launches on PyTorch's current stream
-without synchronising (grid `grid`), and raises if the launch is
-refused. eps
-stays on the card (a 0-d tensor): no host read. It counts its launches
-in ``fused_sampler_cuda.launches``.
+whose row and membership table (at most half full) exceed a block's
+shared memory (the library's `fused_sampler_smem_bytes`: K <= 12590),
+allocates the three [B, Sp] outputs with `torch.empty`, launches on
+PyTorch's current stream without synchronising, and raises if the
+launch is refused. eps stays on the card (a 0-d tensor): no host read.
+It counts its launches in ``fused_sampler_cuda.launches``.
 """
 from __future__ import annotations
 
@@ -24,20 +23,20 @@ import torch
 
 from repro_torch.kernels import _build, _launch
 
-__all__ = ["GROUP", "SOURCE", "THREADS", "TILE", "fused_sampler_cuda", "grid", "library"]
+__all__ = ["SOURCE", "fused_sampler_cuda", "library"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_sampler.cu"
 
-# the source's geometry (fused_sampler.cu)
-THREADS = 512  # a block (kThreads)
-TILE = 128  # draws per block (kTile)
-GROUP = 16  # lanes per kappa-arm draw (kGroup)
 _MAX_SMEM = 232_448  # a Hopper block's opt-in shared memory (kMaxSmem)
 
 
-def grid(b: int, sp: int) -> tuple[int, int]:
-    """The launch grid: (draw tiles of a row, rows)."""
-    return -(-sp // TILE), b
+def _largest_k(lib: ctypes.CDLL) -> int:
+    """The largest K whose row and table fit a block (the bytes grow with K)."""
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if lib.fused_sampler_smem_bytes(mid) <= _MAX_SMEM else (lo, mid - 1)
+    return lo
 
 
 @functools.cache
@@ -47,7 +46,6 @@ def library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     _launch.declare(lib, "fused_sampler_launch", "ipi" + "ppppp" + "iiiii" + "p")
     _launch.declare(lib, "fused_sampler_smem_bytes", "i", ctypes.c_size_t)
-    _launch.declare(lib, "fused_sampler_tile", "")
     _launch.declare(lib, "fused_sampler_error_string", "i", ctypes.c_char_p)
     return lib
 
@@ -86,7 +84,8 @@ def fused_sampler_cuda(
         raise ValueError(f"batch {b} exceeds the grid's y limit 65535")
     lib = library()
     if lib.fused_sampler_smem_bytes(k) > _MAX_SMEM:
-        raise ValueError(f"k={k} does not fit the shared memory of a Hopper block")
+        raise ValueError(f"k={k} does not fit the shared memory of a Hopper block (the row "
+                         f"and a table at most half full: K <= {_largest_k(lib)})")
     sp = -(-num_samples // sample_tile) * sample_tile
     actions = torch.empty((b, sp), dtype=torch.int32, device=dev)
     log_q = torch.empty((b, sp), dtype=torch.float32, device=dev)

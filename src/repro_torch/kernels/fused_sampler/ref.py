@@ -87,12 +87,13 @@ def membership_table(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(in_topk [B, N] bool, log kappa [B, N] float32, 0 where not in the
     row) of each action, as the kernel finds them: a table of 2^bits > K
-    buckets holding slot + 1 (0 empty), each id entered by linear probing
-    from `bucket_of`; a second slot of an id flags the first one's bucket
-    as repeated; a slot's log kappa is summed over every slot of its id in
-    slot order where its bucket is flagged; an action reads the log kappa
-    of the slot its probe finds, or misses at an empty bucket. The order
-    in which slots are entered changes no lookup."""
+    buckets (the kernel's has at least 2K) holding slot + 1 (0 empty),
+    each id entered by linear probing from `bucket_of`; a second slot of
+    an id flags the first one's bucket as repeated; a slot's log kappa is
+    summed over every slot of its id in slot order where its bucket is
+    flagged; an action reads the log kappa of the slot its probe finds, or
+    misses at an empty bucket. The order in which slots are entered
+    changes no lookup."""
     b, k = topk_ids.shape
     size = 1 << bits
     if size <= k:

@@ -11,7 +11,7 @@ chunks) for every other L. See the sources for the designs and their
 bounds.
 
 The wrappers check device, dtype, shape and contiguity, split S across
-blocks (`splits_for`, `bwd_splits_for`), allocate outputs and scratch
+blocks (`splits_for`, `bwd_per_sm`), allocate outputs and scratch
 with `torch.empty`, launch on PyTorch's current stream without
 synchronising, and raise if a launch is refused. The backward is one
 launch: the last block of a row adds the row's partials
@@ -29,7 +29,7 @@ import torch
 from repro_torch.kernels import _build, _launch
 
 __all__ = [
-    "BWD_SOURCE", "FWD_SOURCE", "bwd_library", "bwd_splits_for", "fwd_library",
+    "BWD_SOURCE", "FWD_SOURCE", "bwd_library", "bwd_per_sm", "fwd_library",
     "snis_bwd_cuda", "snis_fwd_cuda", "splits_for",
 ]
 
@@ -57,28 +57,22 @@ def bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def splits_for(b: int, s: int, sms: int) -> tuple[int, int]:
+def splits_for(b: int, s: int, sms: int, per_sm: int = 4) -> tuple[int, int]:
     """(splits, chunk): S cut into `splits` chunks of `chunk` samples (a
-    multiple of the block's 32 groups), so that about four blocks per SM
-    gather rows at once even when B alone would light few SMs."""
-    want = max(1, -(-4 * sms // max(1, b)))
+    multiple of the block's 32 groups), so that about `per_sm` blocks per
+    SM gather rows at once even when B alone would light few SMs."""
+    want = max(1, -(-per_sm * sms // max(1, b)))
     chunk = max(_GROUPS, -(-(-(-s // want)) // _GROUPS) * _GROUPS)
     return -(-s // chunk), chunk
 
 
-def bwd_splits_for(b: int, s: int, l: int, sms: int) -> tuple[int, int]:
-    """(splits, chunk) of the backward: S cut into chunks of whole 32-sample
-    rounds. The register layout (L a multiple of 4 up to 256) takes about
-    two blocks per SM: every block is resident at once (its registers
-    allow three a SM) and issues all its rows' words before its first add,
-    and fewer, longer chunks leave fewer partials for the last block of a
-    row to add (B 32, S 1000: 8 chunks of 128). The wide path, whose warps
-    add two rows at a time, keeps `splits_for`'s four blocks per SM."""
-    if l % 4 or l > 256:
-        return splits_for(b, s, sms)
-    want = max(1, -(-2 * sms // max(1, b)))
-    chunk = max(_GROUPS, -(-(-(-s // want)) // _GROUPS) * _GROUPS)
-    return -(-s // chunk), chunk
+def bwd_per_sm(l: int) -> int:
+    """The backward's blocks per SM: two in its register layout (L a
+    multiple of 4 up to 256), where every block is resident at once and
+    issues all its rows' words before its first add, and fewer, longer
+    chunks leave fewer partials for the last block of a row to add (B 32,
+    S 1000: 8 chunks of 128); four in the wide path, as the forward."""
+    return 2 if l % 4 == 0 and l <= 256 else 4
 
 
 def _check_rows(name, t, b, s, dtype, dev):
@@ -148,7 +142,7 @@ def snis_bwd_cuda(
         raise ValueError(f"need 1 <= B <= 65535, S >= 1 and L >= 1 (got {b}, {s}, {l})")
     lib = bwd_library()
     beta = _launch.aligned16(beta)
-    splits, chunk = bwd_splits_for(b, s, l, _launch.sm_count(dev.index or 0))
+    splits, chunk = splits_for(b, s, _launch.sm_count(dev.index or 0), bwd_per_sm(l))
     stream = _launch.stream(dev)
     counters = _launch.ticket_counters(dev, stream, b, lib.snis_bwd_capture_id(stream))
     part = torch.empty((b, splits, l), dtype=torch.float32, device=dev)

@@ -23,7 +23,7 @@ import numpy as np  # noqa: E402
 from repro.kernels.fused_sampler.kernel import _hash_u32, fused_sampler_pallas  # noqa: E402
 from repro_torch.constants import LOG_Q_PAD  # noqa: E402
 from repro_torch.core.proposals import MixtureProposal  # noqa: E402
-from repro_torch.kernels.fused_sampler import fused_mixture_sample, kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.fused_sampler import fused_mixture_sample, ops, ref  # noqa: E402
 
 
 def _topk_problem(b, p, k, seed):
@@ -167,8 +167,9 @@ def test_membership_table_matches_the_compares_and_the_reference(case, fill):
     over its id in slot order) against the plain version's K compares, on
     the plain version's draws and on every id of the row, in a table a
     quarter full (the kernel's where shared memory allows) and in the
-    smallest it takes (2^bits > K: long probe chains); and the log q it
-    gives against the reference's (interpret mode) where the draws agree."""
+    smallest the lookup takes (2^bits > K, fuller than the kernel's half:
+    long probe chains); and the log q it gives against the reference's
+    (interpret mode) where the draws agree."""
     ids, scores, p = _membership_problem(case)
     b, k = ids.shape
     bits = (4 * k - 1).bit_length() if fill == "quarter" else k.bit_length()
@@ -199,26 +200,48 @@ def test_membership_table_matches_the_compares_and_the_reference(case, fill):
     np.testing.assert_allclose(lq.numpy()[same], jq[:, :s][same], rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("b,sp", [(32, 1000), (3, 40), (2, 64), (1, 1), (2, 3000)])
-def test_launch_geometry_covers_every_draw(b, sp):
-    """TILE draws a block, a grid of (ceil(Sp / TILE), B): 256 blocks at the
-    training shape, two for each of the card's 132 SMs; a block's groups
-    of GROUP lanes fill it, and its tile's kappa-arm ballots are whole
-    warps."""
-    tiles, rows = kernel.grid(b, sp)
-    assert rows == b and (tiles - 1) * kernel.TILE < sp <= tiles * kernel.TILE
-    if (b, sp) == (32, 1000):
-        assert tiles * rows == 256
-    assert kernel.THREADS % kernel.GROUP == 0 and kernel.TILE <= kernel.THREADS
-    assert kernel.TILE % 32 == 0
+# A kernel's SASS as cuobjdump prints it, cut down: a slot loop of two
+# hashes, the last barrier, a padded-tail exit, the two arms, and log q's
+# exp that only a draw in the row reaches.
+_SASS = """
+        Function : _ZN4anon20fused_sampler_kernelEiPKfiPKiS1_PiPfS4_iiiii
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   IMAD R2, R2, 0x21f0aaad, RZ ;
+        /*0020*/                   FFMA R3, R3, R3, R3 ;
+        /*0030*/                   IMAD R4, R4, 0x21f0aaad, RZ ;
+        /*0040*/                   IMAD R5, R5, 0x21f0aaad, RZ ;
+        /*0050*/                   IMAD.MOV.U32 R6, RZ, RZ, R7 ;
+        /*0060*/               @P0 BRA 0x20 ;
+        /*0070*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0080*/               @P0 EXIT ;
+        /*0090*/               @P1 BRA 0xd0 ;
+        /*00a0*/                   POPC R8, R9 ;
+        /*00b0*/                   IADD3 R8, R8, 0x1, RZ ;
+        /*00c0*/                   BRA 0xf0 ;
+        /*00d0*/                   IMAD R10, R10, 0x21f0aaad, RZ ;
+        /*00e0*/                   LOP3.LUT R10, R10, R11, RZ, 0x3c, !PT ;
+        /*00f0*/               @P2 BRA 0x120 ;
+        /*0100*/                   MUFU.EX2 R12, R12 ;
+        /*0110*/                   FADD R12, R12, 1 ;
+        /*0120*/                   STG.E desc[UR4][R2.64], R12 ;
+        /*0130*/                   EXIT ;
+        /*0140*/                   BRA 0x140;
+"""
 
 
-def test_geometry_mirrors_the_source():
-    """kernel.py's TILE, GROUP and THREADS are the source's constants (the
-    card run also holds TILE to the library's `fused_sampler_tile`)."""
-    import re
+def test_bound_charges_each_arm_its_own_path():
+    """`chip_smoke.sampler_instructions`, K5's bound's count: a slot is the
+    slot loop's computing instructions (no moves, no branch) over its
+    hashes, 3 / 2; a kappa-arm draw the fewest after the last barrier on
+    a path through its rank's POPC and log q's MUFU.EX2 (5: POPC, IADD3,
+    MUFU, FADD, STG); a uniform-arm draw on a path through its hash (3:
+    IMAD, LOP3, STG, skipping the exp as a draw outside the row does)."""
+    import importlib
+    import sys
+    from pathlib import Path
 
-    src = kernel.SOURCE.read_text()
-    for name, value in (("kTile", kernel.TILE), ("kGroup", kernel.GROUP),
-                        ("kThreads", kernel.THREADS)):
-        assert re.search(rf"constexpr int {name} = (\d+);", src).group(1) == str(value)
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    chip_smoke = importlib.import_module("chip_smoke")
+    assert chip_smoke.sampler_instructions(_SASS) == (1.5, 5, 3)
+    with pytest.raises(chip_smoke.CheckFailed, match="no path"):
+        chip_smoke.sampler_instructions(_SASS.replace("POPC", "IADD3"))

@@ -201,10 +201,12 @@ def test_bwd_splits_cover_the_samples(b, s, l):
     every sample once: about two blocks per SM where the samples allow in
     the register layout (at the training shape 8 chunks of 128), four in
     the wide path (L not a multiple of 4, or over 256), as the forward."""
-    splits, chunk = kernel.bwd_splits_for(b, s, l, 132)
+    per_sm = kernel.bwd_per_sm(l)
+    assert per_sm == (2 if l in (100, 256) else 4)
+    splits, chunk = kernel.splits_for(b, s, 132, per_sm)
     assert chunk % 32 == 0 and (splits - 1) * chunk < s <= splits * chunk
     assert b * splits >= min(132, b * -(-s // 32))
-    if l % 4 or l > 256:
+    if per_sm == 4:
         assert (splits, chunk) == kernel.splits_for(b, s, 132)
     else:
         assert b * splits <= max(b, 2 * 132 + b)
