@@ -26,7 +26,10 @@ more each:
                   0.999, timed also at eps 1 and 0, its bound from its
                   SASS instructions a draw of each arm and a slot; the backward bitwise over
                   repeated launches and after graph replays, with its
-                  ticket counters back at 0),
+                  ticket counters back at 0; the covgrad forward timed in
+                  both modes also with one input set in L2, past L2 and
+                  with every action dead, the covgrad kernels' bounds
+                  over each call's distinct rows),
                   within the CPU parity tests' tolerances; times of
                   the kernel and the plain version (device time per call
                   from a replayed CUDA graph, and time per eager call),
@@ -61,9 +64,11 @@ more each:
                   initial tower (`generate_sessions` cannot make a
                   750,000-item catalog in a smoke run)
   6. embedding    the embedding-bag kernel (K8) against its plain version,
-                  bit for bit: small shapes (D 1, 18, 32, 128, 130; T 1, 7,
-                  100; fp32 and bf16; sum and mean; all-padding bags, ids
-                  >= V, a table whose rows do not start on a 16-byte word),
+                  bit for bit: small shapes (D 1, 18, 32, 128, 130, 132,
+                  264; T 1, 7, 100, 129, 300: past a round of 128 ids;
+                  fp32 and bf16; sum and mean; all-padding bags beside live
+                  ones, ids >= V, a table whose rows do not start on a
+                  16-byte word),
                   then the DLRM shape (one table at the MLPerf DLRM-DCNv2
                   row cap, 40,000,000 x 128, in fp32 (20.48 GB), then bf16;
                   B 4096 bags of T 100, ragged (lengths 1-100) and full;
@@ -71,7 +76,10 @@ more each:
                   `ops.embedding_bag` sum and mean, runs with the counts set
                   to 0 just before and read just after; times of the
                   kernel, its plain version and F.embedding_bag, and the
-                  byte bound. The tables are freed before the LM phases
+                  byte bound over the distinct rows; also, logged only, for
+                  ragged bags of Zipf-skewed ids (an illustrative skew,
+                  exponent 1.05; held bit for bit, timed, not gated). The
+                  tables are freed before the LM phases
   7. recsys       DIN, DIEN and Wide&Deep serving at their full CONFIG widths
                   (random weights from a seed): a `ServingEngine` with
                   max_batch 8 answers 32 requests with K 10; DIEN through
@@ -708,9 +716,14 @@ def training_kernel_phase(beta, h0, positives) -> dict:
 
     # -- snis_covgrad forward and backward ------------------------------------
     ferr = berr = 0.0
-    # L 18, 50 (not multiples of 4) and 260 (over 256) take the wide path
+    # L 18, 50 (not multiples of 4) and 260 (over 256) take the wide path;
+    # the rest reach every word count a lane of scores mode's register layout
+    # (1-8) and lane counts that are not powers of 2 (5, 6, 10)
     for bb, ss, ll, pp in [(4, 24, 16, 300), (3, 40, 256, 500), (5, 1000, 100, 2000),
-                           (4, 300, 18, 500), (4, 300, 50, 500), (3, 300, 260, 500)]:
+                           (4, 300, 18, 500), (4, 300, 50, 500), (3, 300, 260, 500),
+                           (3, 300, 24, 500), (3, 300, 36, 500), (3, 300, 48, 500),
+                           (3, 300, 64, 500), (3, 300, 96, 500), (3, 300, 112, 500),
+                           (3, 300, 200, 500)]:
         h = torch.randn((bb, ll), generator=gen, device=dev)
         bt = 0.3 * torch.randn((pp, ll), generator=gen, device=dev)
         a = torch.randint(0, pp, (bb, ss), generator=gen, device=dev).int()
@@ -730,8 +743,11 @@ def training_kernel_phase(beta, h0, positives) -> dict:
             cf[a < 0] = float("nan")
             berr = max(berr, close_err(so.snis_covgrad_bwd(cf, a, bt, sample_tile=ts),
                                        sr.snis_bwd_ref(cf, a, bt), "bwd", sums=True))
-        log(f"  snis_covgrad small: B={bb} S={ss} L={ll} TS in (1, 8, 5), both modes, masked "
-            f"slots, an all-masked row, NaN coefficients on dead lanes: ok")
+        lanes = sk.fwd_lanes(ll)
+        layout = (f"a sample {lanes} lanes x {-(-ll // 4 // lanes)} words" if lanes
+                  else "the wide path")
+        log(f"  snis_covgrad small: B={bb} S={ss} L={ll} ({layout}) TS in (1, 8, 5), both "
+            "modes, masked slots, an all-masked row, NaN coefficients on dead lanes: ok")
     # the training shapes: the sampler's draws over the training top-K
     steps = []
     for i, (ts_, ti_) in enumerate(tops):
@@ -769,30 +785,58 @@ def training_kernel_phase(beta, h0, positives) -> dict:
         f"(splits, chunk)); 8 repeated launches bitwise equal; an eager launch after graph "
         f"replays at B={b} matches the plain version; every ticket counter back at 0 "
         f"({len(_launch._COUNTERS)} buffers)")
-    rows = b * s * l * 4
     res["snis_covgrad_wide"] = covgrad_wide_times(steps, beta, gen)
-    res["snis_covgrad_fwd"] = dict(max_abs_err=ferr, **timed(
-        f"snis_covgrad_fwd scores-only B={b} S={s} L={l}",
-        lambda h, a, lq, r, cf: sk.snis_fwd_cuda(h, beta, a, lq, r, covgrad=False),
-        lambda h, a, lq, r, cf: sr.snis_fwd_ref(h, beta, a, lq, r, covgrad=False),
-        steps, rows + b * s * 8 + b * l * 4, 2 * b * s * l))
-    res["snis_covgrad_fwd_covgrad_mode"] = timed(
-        f"snis_covgrad_fwd covgrad mode B={b} S={s} L={l}",
-        lambda h, a, lq, r, cf: sk.snis_fwd_cuda(h, beta, a, lq, r, covgrad=True),
-        lambda h, a, lq, r, cf: sr.snis_fwd_ref(h, beta, a, lq, r, covgrad=True),
-        steps, rows + b * s * 16 + b * l * 8, 6 * b * s * l)
+    # the bounds count each call's distinct gathered rows once (a masked
+    # slot reads row 0 in the forward, nothing in the backward), averaged
+    # over the timed sets
+    fwd_rows = covgrad_row_bytes(steps, l, live_only=False)
+    bwd_rows = covgrad_row_bytes(steps, l, live_only=True)
+    fwd_io = {False: b * s * 8 + b * l * 4, True: b * s * 16 + b * l * 8}
+    for key, cg in (("snis_covgrad_fwd", False), ("snis_covgrad_fwd_covgrad_mode", True)):
+        res[key] = timed(
+            f"snis_covgrad_fwd {'covgrad mode' if cg else 'scores-only'} B={b} S={s} L={l} "
+            f"(4 input sets, {fwd_rows / 1e6:.2f} MB of distinct rows a call)",
+            lambda h, a, lq, r, cf, cg=cg: sk.snis_fwd_cuda(h, beta, a, lq, r, covgrad=cg),
+            lambda h, a, lq, r, cf, cg=cg: sr.snis_fwd_ref(h, beta, a, lq, r, covgrad=cg),
+            steps, fwd_rows + fwd_io[cg], (6 if cg else 2) * b * s * l)
+    res["snis_covgrad_fwd"]["max_abs_err"] = ferr
     res["snis_covgrad_bwd"] = dict(max_abs_err=berr, **timed(
-        f"snis_covgrad_bwd B={b} S={s} L={l}",
+        f"snis_covgrad_bwd B={b} S={s} L={l} ({bwd_rows / 1e6:.2f} MB of distinct live rows "
+        "a call)",
         lambda h, a, lq, r, cf: sk.snis_bwd_cuda(cf, a, beta),
         lambda h, a, lq, r, cf: sr.snis_bwd_ref(cf, a, beta),
-        steps, rows + b * s * 8 + b * l * 4, 2 * b * s * l,
+        steps, bwd_rows + b * s * 8 + b * l * 4, 2 * b * s * l,
         library_fn=lambda h, a, lq, r, cf: torch.nn.functional.embedding_bag(
             a, beta, per_sample_weights=cf, mode="sum"),
         library_note="embedding_bag(actions, beta, per_sample_weights=coeff, mode='sum')"))
-    # the backward's fixed cost (every action dead: the launch, the
-    # coefficients, the partials and the ticket) and its time with the rows
-    # in the 50 MB L2 (one input set replayed)
+    # the fixed costs (every action dead: the launch, the actions, the
+    # partials, the ticket; the forward reads row 0 for every slot), the
+    # time with one input set's rows in the 50 MB L2, and the forward's past
+    # L2 (nine sets of further training draws, over 100 MB of rows)
     dead = [(h, torch.full_like(a, -1), lq, r, cf) for h, a, lq, r, cf in steps]
+    far = []
+    for i in range(9):
+        h = h0[(4 + i) * b:(5 + i) * b].contiguous()
+        ts_, ti_ = mk.mips_topk_cuda(h, beta, k)
+        a, lq, _ = fk.fused_sampler_cuda(5000 + i, eps, ti_, ts_, **kw)
+        r = (torch.rand((b, s), generator=gen, device=dev) < 0.01).float()
+        far.append((h, a, lq, r, steps[0][4]))
+    far_rows = covgrad_row_bytes(far, l, live_only=False) * len(far)
+    check(far_rows > 100e6, f"the past-L2 sets gather only {far_rows / 1e6:.1f} MB")
+    for key, cg in (("snis_covgrad_fwd", False), ("snis_covgrad_fwd_covgrad_mode", True)):
+        fn = lambda h, a, lq, r, cf, cg=cg: sk.snis_fwd_cuda(h, beta, a, lq, r, covgrad=cg)
+        t = res[key]
+        t["ms_all_dead"] = device_ms(fn, dead)
+        t["ms_l2_hot"] = device_ms(fn, steps[:1])
+        t["ms_past_l2"] = device_ms(fn, far)
+        t["bound_ms_all_dead"] = roof(l * 4 + fwd_io[cg], 0)[0]
+        t["bound_ms_past_l2"] = roof(far_rows / len(far) + fwd_io[cg], 0)[0]
+        log(f"  time snis_covgrad_fwd {'covgrad mode' if cg else 'scores-only'}, device ms per "
+            f"call (CUDA graph): 4 input sets {t['ms']:.4f} (the timing kept from the first port; bound "
+            f"{t['bound_ms']:.4f}), one set in L2 {t['ms_l2_hot']:.4f}, past L2 "
+            f"{t['ms_past_l2']:.4f} (9 sets, {far_rows / 1e6:.1f} MB of distinct rows; bound "
+            f"{t['bound_ms_past_l2']:.4f}), every action dead {t['ms_all_dead']:.4f} (row 0 "
+            f"alone; bound {t['bound_ms_all_dead']:.4f})")
     res["snis_covgrad_bwd"]["ms_all_dead"] = device_ms(
         lambda h, a, lq, r, cf: sk.snis_bwd_cuda(cf, a, beta), dead)
     res["snis_covgrad_bwd"]["ms_l2_hot"] = device_ms(
@@ -806,6 +850,18 @@ def training_kernel_phase(beta, h0, positives) -> dict:
         f"{w['covgrad']['ms']:.4f} / {res['snis_covgrad_fwd_covgrad_mode']['ms']:.4f}, bwd "
         f"{w['bwd']['ms']:.4f} / {res['snis_covgrad_bwd']['ms']:.4f}")
     return res
+
+
+def covgrad_row_bytes(sets, l: int, live_only: bool) -> float:
+    """Bytes of beta rows one covgrad call must read, each distinct row
+    once, averaged over the input sets (h, actions, ...): the forward
+    scores a masked slot against row 0 (`live_only` False), the backward
+    reads no row for it."""
+    import torch
+
+    n = [torch.unique(a[a >= 0] if live_only else a.clamp(min=0)).numel()
+         for _, a, *_ in sets]
+    return sum(n) / len(n) * l * 4
 
 
 def mips_split_times(h, beta, k) -> dict:
@@ -843,7 +899,7 @@ def covgrad_wide_only():
     from repro_torch.kernels.snis_covgrad import kernel as sk
 
     fl, bl = sk.fwd_library(), sk.bwd_library()
-    _launch.declare(fl, "snis_fwd_launch_wide", "pppppppp" + "iiiiii" + "p")
+    _launch.declare(fl, "snis_fwd_launch_wide", "pppppppp" + "iiiiiii" + "p")
     _launch.declare(bl, "snis_bwd_launch_wide", "pppppp" + "iiiii" + "p")
     saved = fl.snis_fwd_launch, bl.snis_bwd_launch
     fl.snis_fwd_launch, bl.snis_bwd_launch = fl.snis_fwd_launch_wide, bl.snis_bwd_launch_wide
@@ -1123,6 +1179,25 @@ def dlrm_bags(b: int, t: int, v: int, gen, full: bool):
     return torch.where(torch.arange(t, device=dev)[None, :] < lens, idx, -1)
 
 
+def zipf_bags(b: int, t: int, v: int, gen, alpha: float = 1.05):
+    """[B, T] int32 ragged bags (lengths uniform in 1..T, the rest -1)
+    with an illustrative skew of ids: the rank of an id is Zipf-distributed
+    with exponent `alpha` over V ranks (inverse CDF of the continuous power
+    law), and rank r is row r * 2654435761 mod V, so the hot rows lie
+    scattered over the table. The exponent is not taken from a measurement
+    of a real feature's ids: these times show how K8 behaves when rows
+    repeat, not what a production ranker would see."""
+    import torch
+
+    dev = gen.device
+    u = torch.rand((b, t), generator=gen, device=dev, dtype=torch.float64)
+    x = 1.0 + u * (v ** (1.0 - alpha) - 1.0)
+    rank = (x ** (1.0 / (1.0 - alpha))).long().clamp(1, v) - 1
+    idx = (rank * 2654435761 % v).int()
+    lens = torch.randint(1, t + 1, (b, 1), generator=gen, device=dev)
+    return torch.where(torch.arange(t, device=dev)[None, :] < lens, idx, -1)
+
+
 def eb_library_args(table, idx) -> tuple:
     """(the live ids, flat in bag order, their bags' offsets, table): the
     library call's inputs for the same bags."""
@@ -1143,13 +1218,16 @@ def eb_library(flat, offsets, table):
 
 
 def embedding_bag_phase() -> dict:
-    """K8 against its plain version: small shapes (D 1, 18, 32, 128, 130;
-    T 1, 7, 100; all-padding bags, ids >= V; a misaligned table), then the
-    DLRM shape (40,000,000 x 128, B 4096, T 100, ragged and full bags) in
-    fp32, then bf16; the main path (`ops.embedding_bag`, sum and mean)
-    driven there with the counts set to 0 just before and read just after;
-    times of the kernel, its plain version and F.embedding_bag, and the
-    bound. The tables are freed at the end."""
+    """K8 against its plain version: small shapes (D 1, 18, 32, 128, 130,
+    132, 264; T 1, 7, 100, 129, 300; all-padding bags, ids >= V; a
+    misaligned table), then the DLRM shape
+    (40,000,000 x 128, B 4096, T 100, ragged and full bags) in fp32, then
+    bf16; the main path (`ops.embedding_bag`, sum and mean) driven there
+    with the counts set to 0 just before and read just after; times of the
+    kernel, its plain version and F.embedding_bag, and the bound, also
+    for ragged bags of Zipf-skewed ids (an illustrative skew, not on the
+    main path; logged, not in the kernels line). The tables are freed at
+    the end."""
     import torch
 
     from repro_torch.kernels.embedding_bag import kernel, ops, ref
@@ -1160,32 +1238,37 @@ def embedding_bag_phase() -> dict:
     max_err = 0.0
     n_small = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (1, 18, 32, 128, 130):
+        for d in (1, 18, 32, 128, 130, 132, 264):
             table = (torch.randn((1000, d), generator=gen, device=dev) * 10).to(dtype)
-            for t in (1, 7, 100):
+            for t in (1, 7, 100, 129, 300):
                 idx = torch.randint(-1, 1000, (37, t), generator=gen, device=dev,
                                     dtype=torch.int32)
                 idx[torch.rand((37, t), generator=gen, device=dev) < 0.3] = -1
                 idx[0] = -1  # an all-padding bag: 0
+                idx[5:8] = -1  # all-padding bags beside live ones in one block
                 idx[1:5, 0] = 1000 + torch.arange(4, device=dev, dtype=torch.int32)  # >= V
+                idx[8] = torch.randint(0, 1000, (t,), generator=gen, device=dev,
+                                       dtype=torch.int32)  # every id live
                 out = ops.embedding_bag(table, idx, "sum")
                 max_err = max(max_err, eb_same(out, ref.embedding_bag_ref(table, idx),
                                                f"D={d} T={t} {dtype} sum"))
-                check(not bool(out[0].any()), f"D={d} T={t}: an all-padding bag is not 0")
+                check(not bool(out[[0, 5, 6, 7]].any()),
+                      f"D={d} T={t}: an all-padding bag is not 0")
                 eb_same(ops.embedding_bag(table, idx, "mean"), eb_mean_plain(table, idx),
                         f"D={d} T={t} {dtype} mean")
                 n_small += 2
         # a table whose rows do not start on a word: the scalar path at D 128
         buf = torch.randn((1000 * 128 + 1,), generator=gen, device=dev).to(dtype)
         table = buf[1:].view(1000, 128)
-        idx = torch.randint(-1, 1000, (37, 7), generator=gen, device=dev, dtype=torch.int32)
+        idx = torch.randint(-1, 1000, (37, 300), generator=gen, device=dev, dtype=torch.int32)
         check(kernel.vec_width(table) == 1, "the misaligned table took the word path")
         eb_same(ops.embedding_bag(table, idx), ref.embedding_bag_ref(table, idx),
                 f"misaligned {dtype}")
         n_small += 1
-    log(f"  small shapes: {n_small} cases (D 1 / 18 / 32 / 128 / 130, T 1 / 7 / 100, "
-        "fp32 and bf16, sum and mean, all-padding bags, ids >= V, a misaligned table): "
-        "bit for bit")
+    log(f"  small shapes: {n_small} cases (D 1 / 18 / 32 / 128 / 130 / 132 / 264, T 1 / 7 / "
+        "100 / 129 / 300 (past a round of 128 ids, and bags of many register batches), fp32 "
+        "and bf16, sum and mean, all-padding bags beside live ones in a block, bags with "
+        "every id live, ids >= V, a misaligned table): bit for bit")
 
     # the DLRM shape: one table at the MLPerf DLRM-DCNv2 row cap, B 4096
     v, d, b, t = 40_000_000, 128, 4096, 100
@@ -1197,6 +1280,7 @@ def embedding_bag_phase() -> dict:
         table = torch.randn((v, d), generator=gen, device=dev, dtype=dtype)
         sets = {kind: [dlrm_bags(b, t, v, gen, full=kind == "full") for _ in range(3)]
                 for kind in ("ragged", "full")}
+        sets["skewed"] = [zipf_bags(b, t, v, gen) for _ in range(3)]
         torch.cuda.synchronize()
         log(f"  DLRM table {v} x {d} {name} ({table.numel() * table.element_size() / 1e9:.2f} "
             f"GB) made in {time.perf_counter() - t0:.2f} s")
@@ -1216,7 +1300,12 @@ def embedding_bag_phase() -> dict:
                                        f"DLRM {name} ragged sum"))
         eb_same(outs[1], eb_mean_plain(table, sets["ragged"][0]), f"DLRM {name} ragged mean")
         eb_same(outs[2], ref.embedding_bag_ref(table, sets["full"][0]), f"DLRM {name} full sum")
-        for kind, out in (("ragged", outs[0]), ("full", outs[2])):
+        # the illustrative skewed (Zipf) bags, timed beside the uniform ones; not on
+        # the main path
+        outs.append(kernel.embedding_bag_cuda(table, sets["skewed"][0]))
+        eb_same(outs[3], ref.embedding_bag_ref(table, sets["skewed"][0]),
+                f"DLRM {name} skewed sum")
+        for kind, out in (("ragged", outs[0]), ("full", outs[2]), ("skewed", outs[3])):
             args = [(table, idx) for idx in sets[kind]]
             lib_sets = [eb_library_args(table, idx) for idx in sets[kind]]
             # the yardstick computes the same sums: fp32 to rounding; bf16
@@ -1235,10 +1324,12 @@ def embedding_bag_phase() -> dict:
                 t_l, how = time_ms(eb_library, lib_sets, 50), "eager"
             e_k = time_ms(kernel.embedding_bag_cuda, args, 50)
             b_ms, b_by, nbytes = eb_bound(table, sets[kind][0])
-            live = int((sets[kind][0] >= 0).sum())
+            live = sets[kind][0][sets[kind][0] >= 0]
+            rows = int(torch.unique(live).numel())
             timing[f"{kind} {name}"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                                             library_ms=t_l)
-            log(f"  time DLRM {kind} {name} (B {b}, T {t}, {live} live ids): device ms per call "
+            log(f"  time DLRM {kind} {name} (B {b}, T {t}, {live.numel()} live ids, {rows} "
+                "distinct rows): device ms per call "
                 f"(CUDA graph) kernel {t_k:.4f}, plain {t_p:.4f}, F.embedding_bag (live ids "
                 f"with offsets, {how}) {t_l:.4f} (its max |diff| {lib_err:.3g}); eager kernel "
                 f"{e_k:.4f}; bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB); kernel "
@@ -2612,6 +2703,13 @@ def main() -> int:
                 "instructions_per_uniform_draw")})
         if name == "snis_covgrad_bwd":
             entries[-1].update(ms_all_dead=r["ms_all_dead"], ms_l2_hot=r["ms_l2_hot"])
+        if name == "snis_covgrad_fwd":  # ms: scores mode over the 4 input sets
+            extra = ("ms_l2_hot", "ms_past_l2", "ms_all_dead", "bound_ms_past_l2",
+                     "bound_ms_all_dead")
+            entries[-1].update({key: r[key] for key in extra})
+            cm = tk["snis_covgrad_fwd_covgrad_mode"]
+            entries[-1]["covgrad_mode"] = {key: cm[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", *extra)}
         if name.startswith("snis_covgrad"):  # the wide path, B 32, S 1000
             modes = ("fwd", "covgrad") if name.endswith("fwd") else ("bwd",)
             entries[-1]["wide_l"] = {

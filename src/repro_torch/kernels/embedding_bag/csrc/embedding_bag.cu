@@ -17,7 +17,10 @@
 // element of a live row: far below one operation per byte, so the kernel is
 // bound by device-memory bytes. The rows are scattered over the table (at
 // the DLRM shape, 40,000,000 rows of 512 bytes), so what counts is how many
-// row reads are in flight at once.
+// row reads are in flight and how long a chain of round trips the longest
+// bag waits through: with ragged bags the short ones finish early and the
+// card drains on the long ones. The table's size does not count: 40,000,000
+// rows time as 2,000,000 (tools/probe_embedding_bag.py).
 //
 // What the design does about that bound:
 //   * A TPU grid carries the bag's sum from one grid step (one t) to the
@@ -29,11 +32,20 @@
 //     (bf16) boundaries, so a row is read as whole words; else N = 1, the
 //     scalar path for D such as 18 or 1). A warp covers 32 * N columns; a
 //     wider D takes several chunks, each its own warp.
-//   * The bag's ids are read 32 at a time, coalesced, one per lane; a ballot
-//     marks the live ones, so padding costs no row read, and the row ids are
-//     broadcast with shuffles. kAhead live rows are loaded into registers
-//     before any of them is added: kAhead independent row reads in flight per
-//     warp, added afterwards in t order.
+//   * One round trip for the ids: a warp reads 128 of its bag's ids at once
+//     (four a lane, coalesced; a longer bag takes more such rounds) and
+//     lists the live ones, in t order and clamped to V - 1, in shared
+//     memory with ballots. No row read waits on an id read after the first.
+//   * Rows in two register batches of kBatch: the next batch's reads are
+//     issued before the current batch is added, so kBatch to 2 kBatch rows
+//     are in flight a warp at every moment. Deeper did not pay on an H100
+//     at the DLRM shape (PERF.md, the K8 redesign): batches of 8 or 16
+//     rows were slower, and so was a per-warp ring of 16 or 32 rows
+//     streamed by `cp.async` into shared memory (16-byte copies; kept as
+//     tools/embedding_bag_ring.cu) at every uniform shape but ragged bf16,
+//     where 16 rows gained 3.8 %: more rows in flight lengthen every
+//     row's queue, and the trip through shared memory adds latency to
+//     each row.
 //   * Row offsets are 64-bit: at the DLRM shape idx * D reaches 5.12e9
 //     elements, past int32.
 
@@ -44,45 +56,44 @@
 namespace {
 
 constexpr int kWarps = 8;   // warps per block, one (bag, chunk) each
-constexpr int kAhead = 8;   // live rows loaded before they are added
+constexpr int kIds = 128;   // ids a warp reads in one round trip, four a lane
+constexpr int kBatch = 4;   // rows a register batch
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
-  return __uint_as_float(bits16 << 16);
-}
-
-// N elements of a row, from `p` (aligned to N elements when N > 1), as fp32.
+// The bits of a lane's N elements of a row, in 32-bit words (a bf16
+// scalar in the low half of one).
 template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* p, float (&v)[N]);
+struct Bits {
+  uint32_t w[(N * (int)sizeof(T) + 3) / 4];
+};
 
-template <>
-__device__ __forceinline__ void load_row<float, 1>(const float* p, float (&v)[1]) {
-  v[0] = __ldg(p);
+template <typename T, int N>
+__device__ __forceinline__ void load_bits(const T* p, Bits<T, N>& v) {
+  if constexpr (N * sizeof(T) == 16) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+    v.w[0] = x.x; v.w[1] = x.y; v.w[2] = x.z; v.w[3] = x.w;
+  } else if constexpr (N * sizeof(T) == 8) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+    v.w[0] = x.x; v.w[1] = x.y;
+  } else if constexpr (sizeof(T) == 4) {
+    v.w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+  } else {
+    v.w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
 }
 
-template <>
-__device__ __forceinline__ void load_row<float, 4>(const float* p, float (&v)[4]) {
-  const float4 w = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+// Element i of the bits, as fp32.
+template <typename T, int N>
+__device__ __forceinline__ float element(const Bits<T, N>& v, int i) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(v.w[i]);
+  } else {
+    const uint32_t w = v.w[i >> 1];
+    return __uint_as_float((i & 1 ? w >> 16 : w & 0xffffu) << 16);
+  }
 }
 
-template <>
-__device__ __forceinline__ void load_row<__nv_bfloat16, 1>(const __nv_bfloat16* p,
-                                                          float (&v)[1]) {
-  v[0] = __bfloat162float(p[0]);
-}
-
-template <>
-__device__ __forceinline__ void load_row<__nv_bfloat16, 4>(const __nv_bfloat16* p,
-                                                          float (&v)[4]) {
-  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = bf16_bits_to_float(w.x & 0xffffu);
-  v[1] = bf16_bits_to_float(w.x >> 16);
-  v[2] = bf16_bits_to_float(w.y & 0xffffu);
-  v[3] = bf16_bits_to_float(w.y >> 16);
-}
-
-// acc += x in the table's dtype: fp32 as is, bf16 rounded after the add.
+// acc + x in the table's dtype: fp32 as is, bf16 rounded after the add.
 template <typename T>
 __device__ __forceinline__ float accumulate(float acc, float x);
 
@@ -111,6 +122,7 @@ template <typename T, int N>
 __global__ void __launch_bounds__(kWarps * 32)
 embedding_bag_kernel(const T* __restrict__ table, const int* __restrict__ idx,
                      T* __restrict__ out, int B, int Tn, int V, int D, int chunks) {
+  __shared__ int lists[kWarps][kIds];
   const int lane = threadIdx.x & 31;
   const long long item = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (item >= (long long)B * chunks) return;  // the whole warp leaves together
@@ -118,42 +130,55 @@ embedding_bag_kernel(const T* __restrict__ table, const int* __restrict__ idx,
   const int col = ((int)(item % chunks) * 32 + lane) * N;  // this lane's first column
   const bool active = col < D;  // D is a multiple of N on the N > 1 path
   const int* bag = idx + (long long)b * Tn;
+  int* ids = lists[threadIdx.x >> 5];
+  const unsigned lower = (1u << lane) - 1u;
 
   float acc[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] = 0.0f;
-
-  for (int t0 = 0; t0 < Tn; t0 += 32) {
-    const int id = t0 + lane < Tn ? bag[t0 + lane] : -1;
-    unsigned live = __ballot_sync(kFull, id >= 0);  // bit j: id t0 + j is live
-    while (live) {  // warp-uniform
-      int rows[kAhead];
+  Bits<T, N> v0[kBatch], v1[kBatch];
+  // rows j0 .. j0 + kBatch - 1 of the list (those below n) into v
+  auto load = [&](Bits<T, N> (&v)[kBatch], int j0, int n) {
 #pragma unroll
-      for (int j = 0; j < kAhead; ++j) {
-        rows[j] = -1;
-        if (live) {  // warp-uniform
-          const int src = __ffs(live) - 1;
-          live &= live - 1;
-          rows[j] = min(__shfl_sync(kFull, id, src), V - 1);
-        }
-      }
-      float v[kAhead][N];
-#pragma unroll
-      for (int j = 0; j < kAhead; ++j) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) v[j][i] = 0.0f;
-        if (rows[j] >= 0 && active) {
-          load_row<T, N>(table + (long long)rows[j] * D + col, v[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kAhead; ++j) {
-        if (rows[j] >= 0) {
-#pragma unroll
-          for (int i = 0; i < N; ++i) acc[i] = accumulate<T>(acc[i], v[j][i]);
-        }
+    for (int j = 0; j < kBatch; ++j) {
+      if (j0 + j < n && active) {
+        load_bits<T, N>(table + (long long)ids[j0 + j] * D + col, v[j]);
       }
     }
+  };
+  auto add = [&](const Bits<T, N> (&v)[kBatch], int j0, int n) {
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (j0 + j < n) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) acc[i] = accumulate<T>(acc[i], element<T, N>(v[j], i));
+      }
+    }
+  };
+
+  for (int t0 = 0; t0 < Tn; t0 += kIds) {
+    int id[kIds / 32];
+#pragma unroll
+    for (int k = 0; k < kIds / 32; ++k) {
+      const int t = t0 + 32 * k + lane;
+      id[k] = t < Tn ? __ldg(bag + t) : -1;
+    }
+    int n = 0;  // live ids of the round, listed in t order
+#pragma unroll
+    for (int k = 0; k < kIds / 32; ++k) {
+      const unsigned live = __ballot_sync(kFull, id[k] >= 0);
+      if (id[k] >= 0) ids[n + __popc(live & lower)] = min(id[k], V - 1);
+      n += __popc(live);
+    }
+    __syncwarp();
+    load(v0, 0, n);
+    for (int j = 0; j < n; j += 2 * kBatch) {  // warp-uniform
+      load(v1, j + kBatch, n);
+      add(v0, j, n);
+      load(v0, j + 2 * kBatch, n);
+      add(v1, j + kBatch, n);
+    }
+    __syncwarp();  // the list is read: the next round may overwrite it
   }
 
   if (active) {
@@ -164,8 +189,8 @@ embedding_bag_kernel(const T* __restrict__ table, const int* __restrict__ idx,
 }
 
 template <typename T, int N>
-cudaError_t launch(const void* table, const int* idx, void* out, int B, int Tn, int V,
-                   int D, cudaStream_t stream) {
+cudaError_t launch(const void* table, const int* idx, void* out, int B, int Tn, int V, int D,
+                   cudaStream_t stream) {
   const int chunks = (D + 32 * N - 1) / (32 * N);
   const long long warps = (long long)B * chunks;
   const long long blocks = (warps + kWarps - 1) / kWarps;

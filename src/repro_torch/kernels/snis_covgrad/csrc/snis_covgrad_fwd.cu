@@ -15,28 +15,43 @@
 //   g_b = (A - (R / z') C) / z',  z' = max(z, 1e-30)
 // so a row whose slots are all masked gives g = 0 exactly.
 //
-// Bound. Scores only (the training forward): the gathered rows,
-// B * S * L * 4 bytes (12.8 MB at B 32, S 1000, L 100: 3.8 us at
-// 3.35 TB/s), plus the actions read and the scores written; 2 L flops per
-// row, far below the card's balance point. Bound by bytes; but the rows
-// are scattered 400-byte reads, so the memory system must be kept busy
-// with many independent reads in flight.
+// Bound. Scores only (the training forward): the gathered rows, each
+// distinct row once (at most B * S * L * 4 bytes: 12.8 MB at B 32, S
+// 1000, L 100, 3.8 us at 3.35 TB/s), plus the actions read and the scores
+// written; 2 L flops per row, far below the card's balance point. Bound
+// by bytes; but the rows are scattered 400-byte reads, each behind the
+// read of its action, so what sets the time is how many of them are in
+// flight and how many round trips lie in series before the last score.
 //
 // What the design does about that bound:
 //   * The [B, S, L] gathered tensor never exists: each row is read once,
 //     as 16-byte words, straight into registers and scored there.
-//   * Eight lanes share one sample (a row of L = 100 floats is 25 words),
-//     so a warp reads four rows at once and a block of 256 threads 32.
-//   * S is split across blocks, grid (splits, B), so at B = 32 the card
-//     has several hundred blocks in flight, not 32 (one per row would
-//     leave 100 of 132 SMs idle).
-//   * In covgrad mode each 8-lane group folds its samples into an online
-//     softmax held in registers (m, z, R and its slices of A and C); the
-//     block combines its 32 groups through shared memory and writes one
+//   * Scores mode, three round trips a warp: its samples' actions (with
+//     h) in one read, a lane each, passed round by shuffles; then every
+//     row word of its samples, issued before the first FMA (each group of
+//     lanes holds two samples' rows); then the scores written. No barrier:
+//     each warp goes on as soon as its own actions are in.
+//   * A row of L = 100 floats is 25 words. `lanes` lanes share a sample,
+//     each holding NV = ceil(L / 4 / lanes) words: the wrapper picks the
+//     lanes that leave the fewest of a warp's 32 x NV load slots idle
+//     (`kernel.fwd_lanes`: 5 lanes x 5 words at L 100, six samples a warp,
+//     150 of its 160 load slots busy; 8 lanes x 4 words would fill 100 of
+//     128). A group's partial dot products are added in a fixed order by a
+//     shuffle tree into its first lane.
+//   * S is split across blocks, grid (splits, B), each chunk one pass of
+//     the block where S allows (`kernel.splits_for`: 11 chunks of 96 at
+//     B 32, S 1000, 352 blocks, all resident at once).
+//   * Covgrad mode keeps its own kernel, `snis_fwd_covgrad`: 8 lanes a
+//     sample, a group reading a sample's action, log q and reward, then
+//     its row, one sample at a time, and folding it into an online softmax
+//     held in registers (m, z, R and its slices of A and C). The front end
+//     above, at 5 or 8 lanes a sample and one or two samples a group, made
+//     this mode slower on the card (PERF.md, the K1/K2 redesign). The
+//     block combines its groups through shared memory and writes one
 //     partial per (row, split); `snis_fwd_finalize` folds the splits'
 //     partials (they combine associatively after rescaling to a common
 //     max) and finalises g.
-//   * That register layout (8 lanes x at most 8 words) takes L a multiple
+//   * Those register layouts (at most 8 words a lane) take L a multiple
 //     of 4 up to 256, fopo-paper's L 100 among them. Any other L takes
 //     the wide path, `snis_fwd_wide`: one warp per sample, a row read in
 //     32-word chunks (16-byte words where L is a multiple of 4, 4-byte
@@ -65,8 +80,10 @@ using snis_wide::zero_word;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kGroup = 8;                    // lanes per sample
-constexpr int kGroups = kThreads / kGroup;   // samples in flight per block
+constexpr int kGroup = 8;                    // covgrad mode: lanes per sample
+constexpr int kGroups = kThreads / kGroup;   // covgrad mode: samples in flight per block
+constexpr int kBatch = 2;     // scores mode: samples a group's lanes hold at once
+constexpr int kMaxWords = 8;  // scores mode: 16-byte words of a row a lane holds (NV)
 
 __device__ __forceinline__ float group_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 4);
@@ -88,12 +105,81 @@ __device__ __forceinline__ float4 axpby(float4 x, float a, float4 y, float c) {
                      fmaf(a, x.z, c * y.z), fmaf(a, x.w, c * y.w));
 }
 
-// grid (splits, B). NV = 16-byte words per lane (L / 4 <= 8 * NV).
-// Block (j, b) handles samples [j * chunk, min(S, (j + 1) * chunk)) of
-// row b; in covgrad mode it writes its partial (m, z, R, A[L], C[L]) to
+// Scores mode. grid (splits, B). NV = 16-byte words per lane, g =
+// `lanes` lanes per sample (L / 4 <= g * NV), 32 / g samples per warp,
+// kBatch samples per group in a pass of groups * kBatch samples. Block
+// (j, b) scores samples [j * chunk, min(S, (j + 1) * chunk)) of row b,
+// pass by pass; the pass's sample q * groups + grp is group grp's q-th.
+template <int NV>
+__global__ void __launch_bounds__(kThreads, NV <= 5 ? 3 : 2) snis_fwd_scores(
+    const float* __restrict__ h, const float* __restrict__ beta,
+    const int* __restrict__ actions, float* __restrict__ scores, int S, int L, int chunk,
+    int lanes) {
+  const int b = blockIdx.y, split = blockIdx.x;
+  const int lo = split * chunk, n = min(S, lo + chunk) - lo;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lanes, spw = 32 / g;
+  const int gw = lane / g, gl = lane - gw * g;
+  const bool in_group = gw < spw;  // the lanes past spw * g idle
+  const int groups = (kThreads / 32) * spw;
+  const int pass = groups * kBatch;
+  const int L4 = L >> 2;
+  const float4* beta4 = reinterpret_cast<const float4*>(beta);
+  // the warp's samples of a pass: lane k < spw * kBatch reads the action of
+  // its group k % spw's (k / spw)-th
+  const int mine = (lane / spw) * groups + warp * spw + lane % spw;
+  const bool reads = lane < spw * kBatch;
+
+  float4 hv[NV];
+  {
+    const float4* h4 = reinterpret_cast<const float4*>(h) + (size_t)b * L4;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int f = gl + g * v;
+      hv[v] = in_group && f < L4 ? __ldg(h4 + f) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  for (int p0 = 0; p0 < n; p0 += pass) {  // the same passes for every warp
+    const int np = min(pass, n - p0);
+    const size_t at0 = (size_t)b * S + lo + p0;
+    // the warp's actions in one round trip (beside h's, the first pass)
+    const int a_mine = reads && mine < np ? __ldg(actions + at0 + mine) : -1;
+    // every row word of the warp's samples issued before the first FMA
+    float4 bv[kBatch][NV];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int a = __shfl_sync(0xffffffffu, a_mine, q * spw + (in_group ? gw : 0));
+      const bool active = in_group && q * groups + warp * spw + gw < np;
+      const float4* row = beta4 + (size_t)max(a, 0) * L4;  // a masked slot scores row 0
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int f = gl + g * v;
+        bv[q][v] = active && f < L4 ? __ldg(row + f) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int i = q * groups + warp * spw + gw;
+      float d = 0.f;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) d = dot4(hv[v], bv[q][v], d);
+      // the group's sum in a fixed order into its first lane
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_down_sync(0xffffffffu, d, o);
+        if (o < g && gl + o < g) d += y;
+      }
+      if (in_group && gl == 0 && i < np) scores[at0 + i] = d;
+    }
+  }
+}
+
+// Covgrad mode. grid (splits, B). NV = 16-byte words per lane (L / 4 <=
+// 8 * NV). Block (j, b) handles samples [j * chunk, min(S, (j + 1) *
+// chunk)) of row b and writes its partial (m, z, R, A[L], C[L]) to
 // part[(b * splits + j) * (3 + 2L)].
-template <int NV, bool COVGRAD>
-__global__ void __launch_bounds__(kThreads) snis_fwd_kernel(
+template <int NV>
+__global__ void __launch_bounds__(kThreads) snis_fwd_covgrad(
     const float* __restrict__ h, const float* __restrict__ beta,
     const int* __restrict__ actions, const float* __restrict__ log_q,
     const float* __restrict__ rewards, float* __restrict__ scores,
@@ -138,26 +224,23 @@ __global__ void __launch_bounds__(kThreads) snis_fwd_kernel(
     const float score = group_sum(part_dot);
     if (!active) continue;
     if (gl == 0) scores[at] = score;
-    if (COVGRAD) {
-      const float lq = log_q[at];
-      const float r = rewards[at];
-      const bool valid = lq < LOG_Q_VALID_MAX_F;
-      const float logw = valid ? score - lq : NEG_INF_F;
-      const float m_new = fmaxf(m, logw);
-      const float alpha = expf(m - m_new);
-      const float w = valid ? expf(logw - m_new) : 0.f;
-      const float wr = w * r;
-      z = z * alpha + w;
-      rs = rs * alpha + wr;
+    const float lq = log_q[at];
+    const float r = rewards[at];
+    const bool valid = lq < LOG_Q_VALID_MAX_F;
+    const float logw = valid ? score - lq : NEG_INF_F;
+    const float m_new = fmaxf(m, logw);
+    const float alpha = expf(m - m_new);
+    const float w = valid ? expf(logw - m_new) : 0.f;
+    const float wr = w * r;
+    z = z * alpha + w;
+    rs = rs * alpha + wr;
 #pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        A[v] = axpby(bv[v], wr, A[v], alpha);
-        C[v] = axpby(bv[v], w, C[v], alpha);
-      }
-      m = m_new;
+    for (int v = 0; v < NV; ++v) {
+      A[v] = axpby(bv[v], wr, A[v], alpha);
+      C[v] = axpby(bv[v], w, C[v], alpha);
     }
+    m = m_new;
   }
-  if (!COVGRAD) return;
 
   // combine the block's groups at a common max, in group order
   float* gm = smem;                       // [kGroups]
@@ -246,7 +329,7 @@ __device__ __forceinline__ float axpby(float x, float a, float y, float c) {
 // scores samples lo + w, lo + w + warps, ... of row b; lane owns the
 // words lane + 32 k. In covgrad mode the warp folds its samples into
 // (m, z, R) in registers and A, C in shared memory, and the block writes
-// the same partial as `snis_fwd_kernel`.
+// the same partial as `snis_fwd_covgrad`.
 template <int VEC, bool COVGRAD>
 __global__ void __launch_bounds__(kThreads) snis_fwd_wide(
     const float* __restrict__ h, const float* __restrict__ beta,
@@ -339,24 +422,27 @@ __global__ void __launch_bounds__(kThreads) snis_fwd_wide(
 }
 
 template <int NV>
-cudaError_t launch_nv(const float* h, const float* beta, const int* actions,
-                      const float* log_q, const float* rewards, float* scores,
-                      float* part, float* grad, int B, int S, int L, int splits,
-                      int chunk, bool covgrad, cudaStream_t st) {
-  dim3 grid(splits, B);
-  if (!covgrad) {
-    snis_fwd_kernel<NV, false><<<grid, kThreads, 0, st>>>(
-        h, beta, actions, log_q, rewards, scores, part, S, L, chunk);
-    return cudaGetLastError();
-  }
+cudaError_t launch_scores(const float* h, const float* beta, const int* actions, float* scores,
+                          int B, int S, int L, int splits, int chunk, int lanes,
+                          cudaStream_t st) {
+  snis_fwd_scores<NV><<<dim3(splits, B), kThreads, 0, st>>>(h, beta, actions, scores, S, L,
+                                                             chunk, lanes);
+  return cudaGetLastError();
+}
+
+template <int NV>
+cudaError_t launch_covgrad(const float* h, const float* beta, const int* actions,
+                           const float* log_q, const float* rewards, float* scores,
+                           float* part, float* grad, int B, int S, int L, int splits,
+                           int chunk, cudaStream_t st) {
   const size_t smem = (size_t)(3 * kGroups + 2 * kGroups * L) * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute((const void*)snis_fwd_kernel<NV, true>,
+    cudaError_t err = cudaFuncSetAttribute((const void*)snis_fwd_covgrad<NV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
   }
-  snis_fwd_kernel<NV, true><<<grid, kThreads, smem, st>>>(
+  snis_fwd_covgrad<NV><<<dim3(splits, B), kThreads, smem, st>>>(
       h, beta, actions, log_q, rewards, scores, part, S, L, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -392,27 +478,54 @@ cudaError_t launch_wide(const float* h, const float* beta, const int* actions,
   return cudaGetLastError();
 }
 
-// The forward at any L: the register layout where it holds L (unless
-// `wide_only`), else the wide path.
+// The forward at any L: in scores mode the register layout at `lanes`
+// lanes a sample (L a multiple of 4, L / 4 <= lanes * kMaxWords), in
+// covgrad mode the register layout at 8 lanes a sample (L a multiple of 4
+// up to 256); the wide path where `lanes` is 0, L is not a multiple of 4,
+// or `wide_only`.
 int launch(const void* h, const void* beta, const void* actions, const void* log_q,
            const void* rewards, void* scores, void* part, void* grad, int B, int S,
-           int L, int splits, int chunk, int covgrad, void* stream, bool wide_only) {
+           int L, int splits, int chunk, int lanes, int covgrad, void* stream,
+           bool wide_only) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nv = (L / 4 + kGroup - 1) / kGroup;
-#define SNIS_ARGS                                                              \
-  static_cast<const float*>(h), static_cast<const float*>(beta),               \
-      static_cast<const int*>(actions), static_cast<const float*>(log_q),      \
-      static_cast<const float*>(rewards), static_cast<float*>(scores),         \
-      static_cast<float*>(part), static_cast<float*>(grad), B, S, L, splits,   \
-      chunk, covgrad != 0, st
+  if (lanes < 0 || lanes > 32) return (int)cudaErrorInvalidValue;
+  const auto* hp = static_cast<const float*>(h);
+  const auto* bp = static_cast<const float*>(beta);
+  const auto* ap = static_cast<const int*>(actions);
+  auto* sp = static_cast<float*>(scores);
   cudaError_t err;
-  if (L % 4) err = launch_wide<1>(SNIS_ARGS);
-  else if (wide_only || nv > 8) err = launch_wide<4>(SNIS_ARGS);
-  else if (nv <= 1) err = launch_nv<1>(SNIS_ARGS);
-  else if (nv <= 2) err = launch_nv<2>(SNIS_ARGS);
-  else if (nv <= 4) err = launch_nv<4>(SNIS_ARGS);
-  else err = launch_nv<8>(SNIS_ARGS);
-#undef SNIS_ARGS
+  if (wide_only || lanes == 0 || L % 4 != 0) {
+#define WIDE_ARGS hp, bp, ap, static_cast<const float*>(log_q), \
+      static_cast<const float*>(rewards), sp, static_cast<float*>(part), \
+      static_cast<float*>(grad), B, S, L, splits, chunk, covgrad != 0, st
+    err = L % 4 ? launch_wide<1>(WIDE_ARGS) : launch_wide<4>(WIDE_ARGS);
+#undef WIDE_ARGS
+  } else if (covgrad) {
+    const int nv = (L / 4 + kGroup - 1) / kGroup;
+#define COV_ARGS hp, bp, ap, static_cast<const float*>(log_q), \
+      static_cast<const float*>(rewards), sp, static_cast<float*>(part), \
+      static_cast<float*>(grad), B, S, L, splits, chunk, st
+    if (nv > kMaxWords) return (int)cudaErrorInvalidValue;
+    else if (nv <= 1) err = launch_covgrad<1>(COV_ARGS);
+    else if (nv <= 2) err = launch_covgrad<2>(COV_ARGS);
+    else if (nv <= 4) err = launch_covgrad<4>(COV_ARGS);
+    else err = launch_covgrad<8>(COV_ARGS);
+#undef COV_ARGS
+  } else {
+#define SC_ARGS hp, bp, ap, sp, B, S, L, splits, chunk, lanes, st
+    switch ((L / 4 + lanes - 1) / lanes) {
+      case 1: err = launch_scores<1>(SC_ARGS); break;
+      case 2: err = launch_scores<2>(SC_ARGS); break;
+      case 3: err = launch_scores<3>(SC_ARGS); break;
+      case 4: err = launch_scores<4>(SC_ARGS); break;
+      case 5: err = launch_scores<5>(SC_ARGS); break;
+      case 6: err = launch_scores<6>(SC_ARGS); break;
+      case 7: err = launch_scores<7>(SC_ARGS); break;
+      case 8: err = launch_scores<8>(SC_ARGS); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef SC_ARGS
+  }
   return (int)err;
 }
 
@@ -420,17 +533,19 @@ int launch(const void* h, const void* beta, const void* actions, const void* log
 
 extern "C" {
 
-// Launches the forward on `stream`, any L >= 1; returns
-// cudaGetLastError(), or cudaErrorInvalidValue where covgrad mode's A and
-// C for one warp exceed the block's shared memory. In
-// covgrad mode `part` is scratch of B * splits * (3 + 2L) floats and
-// `grad` the [B, L] output; otherwise both are unused.
+// Launches the forward on `stream`, any L >= 1: the register layout at
+// `lanes` lanes a sample (`kernel.fwd_lanes`), or the wide path where
+// `lanes` is 0; returns cudaGetLastError(), or cudaErrorInvalidValue where
+// `lanes` cannot hold L or covgrad mode's A and C for one warp exceed the
+// block's shared memory. In covgrad mode `part` is scratch of
+// B * splits * (3 + 2L) floats and `grad` the [B, L] output; otherwise
+// both are unused.
 int snis_fwd_launch(const void* h, const void* beta, const void* actions,
                     const void* log_q, const void* rewards, void* scores, void* part,
-                    void* grad, int B, int S, int L, int splits, int chunk,
+                    void* grad, int B, int S, int L, int splits, int chunk, int lanes,
                     int covgrad, void* stream) {
   return launch(h, beta, actions, log_q, rewards, scores, part, grad, B, S, L, splits,
-                chunk, covgrad, stream, false);
+                chunk, lanes, covgrad, stream, false);
 }
 
 // The same through the wide path at every L: `chip_smoke.py` times it
@@ -438,9 +553,9 @@ int snis_fwd_launch(const void* h, const void* beta, const void* actions,
 int snis_fwd_launch_wide(const void* h, const void* beta, const void* actions,
                          const void* log_q, const void* rewards, void* scores,
                          void* part, void* grad, int B, int S, int L, int splits,
-                         int chunk, int covgrad, void* stream) {
+                         int chunk, int lanes, int covgrad, void* stream) {
   return launch(h, beta, actions, log_q, rewards, scores, part, grad, B, S, L, splits,
-                chunk, covgrad, stream, true);
+                chunk, lanes, covgrad, stream, true);
 }
 
 const char* snis_fwd_error_string(int err) {

@@ -6,12 +6,13 @@ and `snis_covgrad_fwd_tiled_pallas` compute (sampled scores, and in
 covgrad mode the SNIS covariance gradient); `snis_bwd_cuda` what
 `snis_covgrad_bwd_pallas` and `snis_covgrad_bwd_tiled_pallas` compute
 (the coefficient-weighted gather-reduce), at any L: a register layout
-for L a multiple of 4 up to 256, a wide path (one warp per row, read in
-chunks) for every other L. See the sources for the designs and their
+for L a multiple of 4 up to 256 (the forward's lanes a sample from
+`fwd_lanes`), a wide path (one warp per row, read in chunks) for every
+other L. See the sources for the designs and their
 bounds.
 
 The wrappers check device, dtype, shape and contiguity, split S across
-blocks (`splits_for`, `bwd_per_sm`), allocate outputs and scratch
+blocks (`splits_for`, `fwd_pass`, `bwd_per_sm`), allocate outputs and scratch
 with `torch.empty`, launch on PyTorch's current stream without
 synchronising, and raise if a launch is refused. The backward is one
 launch: the last block of a row adds the row's partials
@@ -29,21 +30,22 @@ import torch
 from repro_torch.kernels import _build, _launch
 
 __all__ = [
-    "BWD_SOURCE", "FWD_SOURCE", "bwd_library", "bwd_per_sm", "fwd_library",
-    "snis_bwd_cuda", "snis_fwd_cuda", "splits_for",
+    "BWD_SOURCE", "FWD_SOURCE", "bwd_library", "bwd_per_sm", "fwd_lanes", "fwd_library",
+    "fwd_pass", "snis_bwd_cuda", "snis_fwd_cuda", "splits_for",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 FWD_SOURCE = _CSRC / "snis_covgrad_fwd.cu"
 BWD_SOURCE = _CSRC / "snis_covgrad_bwd.cu"
 
-_GROUPS = 32  # samples in flight per block (256 threads, 8 lanes each)
+_ROUND = 32  # samples a round of the 8-lane layouts (the backward, covgrad mode), the wide path
+_WARPS, _BATCH, _MAX_WORDS = 8, 2, 8  # the forward's warps a block, samples a group, words a lane
 
 
 @functools.cache
 def fwd_library() -> ctypes.CDLL:
     lib = _build.load(FWD_SOURCE)
-    _launch.declare(lib, "snis_fwd_launch", "pppppppp" + "iiiiii" + "p")
+    _launch.declare(lib, "snis_fwd_launch", "pppppppp" + "iiiiiii" + "p")
     _launch.declare(lib, "snis_fwd_error_string", "i", ctypes.c_char_p)
     return lib
 
@@ -57,13 +59,39 @@ def bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def splits_for(b: int, s: int, sms: int, per_sm: int = 4) -> tuple[int, int]:
+def splits_for(b: int, s: int, sms: int, per_sm: int = 4,
+               multiple: int = _ROUND) -> tuple[int, int]:
     """(splits, chunk): S cut into `splits` chunks of `chunk` samples (a
-    multiple of the block's 32 groups), so that about `per_sm` blocks per
-    SM gather rows at once even when B alone would light few SMs."""
+    multiple of `multiple`: the block's samples a round or a pass), so that
+    about `per_sm` blocks per SM gather rows at once even when B alone
+    would light few SMs."""
     want = max(1, -(-per_sm * sms // max(1, b)))
-    chunk = max(_GROUPS, -(-(-(-s // want)) // _GROUPS) * _GROUPS)
+    chunk = max(multiple, -(-(-(-s // want)) // multiple) * multiple)
     return -(-s // chunk), chunk
+
+
+def fwd_lanes(l: int) -> int:
+    """Lanes a sample in the forward's register layout in scores mode,
+    which takes L a multiple of 4 up to 256 (0: the wide path; covgrad
+    mode's register layout gives a sample 8 lanes). Each lane holds
+    ceil(L / 4 / lanes) <= 8 of the row's 16-byte words, and a warp
+    32 // lanes <= 8 samples; the lanes chosen leave the fewest of the
+    warp's load slots idle (5 at L 100: six samples of 25 words in 30
+    lanes x 5 words), the fewest among equals (more words in flight a
+    lane)."""
+    words = l // 4
+    if l % 4 or l > 256 or words < 1:
+        return 0
+    fits = [g for g in range(4, 33) if -(-words // g) <= _MAX_WORDS]
+    return max(fits, key=lambda g: ((32 // g) * words / (32 * -(-words // g)), -g))
+
+
+def fwd_pass(l: int) -> int:
+    """Samples a block of the forward's register layout scores in one pass
+    in scores mode (every row word of the pass in flight at once): 96 at
+    L 100. Covgrad mode and the wide path take rounds of 32."""
+    lanes = fwd_lanes(l)
+    return _WARPS * (32 // lanes) * _BATCH if lanes else _ROUND
 
 
 def bwd_per_sm(l: int) -> int:
@@ -107,7 +135,8 @@ def snis_fwd_cuda(
         raise ValueError(f"need 1 <= B <= 65535, S >= 1 and L >= 1 (got {b}, {s}, {l})")
     lib = fwd_library()
     h, beta = _launch.aligned16(h), _launch.aligned16(beta)
-    splits, chunk = splits_for(b, s, _launch.sm_count(dev.index or 0))
+    step = _ROUND if covgrad else fwd_pass(l)
+    splits, chunk = splits_for(b, s, _launch.sm_count(dev.index or 0), multiple=step)
     scores = torch.empty((b, s), dtype=torch.float32, device=dev)
     part = grad = None
     if covgrad:
@@ -117,7 +146,7 @@ def snis_fwd_cuda(
         h.data_ptr(), beta.data_ptr(), actions.data_ptr(), log_q.data_ptr(),
         rewards.data_ptr(), scores.data_ptr(),
         part.data_ptr() if covgrad else None, grad.data_ptr() if covgrad else None,
-        b, s, l, splits, chunk, int(covgrad), _launch.stream(dev),
+        b, s, l, splits, chunk, fwd_lanes(l), int(covgrad), _launch.stream(dev),
     )
     _launch.raise_on_error(err, lib, "snis_fwd_error_string", "snis_covgrad_fwd")
     snis_fwd_cuda.launches += 1

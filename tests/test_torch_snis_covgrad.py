@@ -149,13 +149,41 @@ def test_cpu_tensors_take_the_plain_versions():
     assert after == (before[0], before[1], before[2] + 1, before[3] + 1)
 
 
-@pytest.mark.parametrize("b,s", [(32, 1000), (4, 24), (1, 1), (512, 1000)])
-def test_splits_cover_the_samples(b, s):
-    """S is cut into chunks of whole 32-sample rounds covering every
-    sample once, with about four blocks per SM at small B."""
-    splits, chunk = kernel.splits_for(b, s, 132)
-    assert chunk % 32 == 0 and (splits - 1) * chunk < s <= splits * chunk
-    assert b * splits >= min(3 * 132, b * -(-s // 32))
+@pytest.mark.parametrize("b,s", [(32, 1000), (4, 24), (1, 1), (512, 1000), (1, 100_000), (264, 7)])
+@pytest.mark.parametrize("l", [100, 16, 128, 200, 256, 18, 260])
+def test_splits_cover_the_samples(b, s, l):
+    """The forward cuts S into chunks of whole passes of its block (the
+    samples whose rows are in flight at once; 32-sample rounds in the wide
+    path) covering every sample once, with at least two blocks per SM at
+    small B where S allows (three for the 32-sample rounds, as before the
+    passes); at the training shape one pass of 96 a block, 352 blocks."""
+    step = kernel.fwd_pass(l)
+    splits, chunk = kernel.splits_for(b, s, 132, multiple=step)
+    assert chunk % step == 0 and (splits - 1) * chunk < s <= splits * chunk
+    per_sm = 3 if step == 32 else 2
+    assert b * splits >= min(per_sm * 132, b * -(-s // step))
+    if (b, s, l) == (32, 1000, 100):
+        assert (splits, chunk) == (11, 96)
+
+
+@pytest.mark.parametrize("l", range(4, 257, 4))
+def test_fwd_lanes_leave_fewer_load_slots_idle(l):
+    """The forward's register layout gives a sample `fwd_lanes(L)` lanes of
+    at most 8 16-byte words each, at most eight samples a warp, and
+    leaves no more of a warp's load slots idle than the first design's 8
+    lanes a sample (5 lanes of 5 words at L 100: 150 of 160 slots busy,
+    not 100 of 128); any other L takes the wide path (0)."""
+    words = l // 4
+    lanes = kernel.fwd_lanes(l)
+    nv = -(-words // lanes)
+    assert 4 <= lanes <= 32 and nv <= 8 and lanes * nv >= words
+    busy = (32 // lanes) * words / (32 * nv)
+    assert busy >= (32 // 8) * words / (32 * -(-words // 8))
+    assert kernel.fwd_pass(l) == 8 * (32 // lanes) * 2
+    if l == 100:
+        assert (lanes, nv, kernel.fwd_pass(l)) == (5, 5, 96) and busy == 150 / 160
+    for wide in (l + 2, l + 256):
+        assert kernel.fwd_lanes(wide) == 0 and kernel.fwd_pass(wide) == 32
 
 
 def test_bwd_is_one_launch_on_the_shared_ticket_counters(monkeypatch):
