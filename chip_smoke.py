@@ -63,6 +63,54 @@ more each:
                   per context drawn from its exact top-64 under the
                   initial tower (`generate_sessions` cannot make a
                   750,000-item catalog in a smoke run)
+  5b. maintain    fopo-paper on the maintained index: `FOPOTrainer` with
+                  retriever="ivf_pallas" over the port's `build_ivf` of
+                  the catalog (C 1024 by the default rule, cap from the
+                  largest cluster) and `RefreshConfig()`'s defaults
+                  (refresh every step, minibatch 1024, compaction every
+                  64, delta_cap 64, decay 0.95), fused, fused_sampler,
+                  TS 8, for 80 steps; every 8 steps `update_items`
+                  re-embeds 512 catalog rows onto other rows, half from
+                  the exact top-256 of 128 held users, plus noise. Gates:
+                  zero staleness after every churn (each churned id the
+                  delta buffers took in one live slot, a delta slot with
+                  its new embedding; the rest counted in overflow); recall@64
+                  of the 128 held users against exact search on the
+                  current beta, right after a churn (step 56) and after
+                  the compaction at step 64, within 0.02 of a fresh
+                  `build_ivf` (same C and n_probe) and above the stale
+                  build-time index; K7 held to its plain version (main
+                  and delta pass, and the merged route against
+                  `refresh_query`) with live, tombstoned and overflowed
+                  delta slots; 2 K7 launches a step and no plain version;
+                  then the device times of `refresh_step`, `delta_append`,
+                  `compact` and `rebuild` (CUDA graphs) beside a full
+                  `build_ivf`; then 3 steps replayed on the CPU with
+                  injected seeds and refresh rows and one `update_items`,
+                  on the card's draws, each step from the card's theta
+                  and Adam state: loss, diagnostics, Adam's first
+                  moment, theta (but for entries whose gradient is
+                  under 1e-4 of the largest, within 2 lr) and the
+                  index's state held to the card's
+  5c. guard       on the same configuration, 6-step runs: two unguarded
+                  runs from the same seeds agree bitwise (or the first
+                  kernel whose output differs is named); a guarded run
+                  that never trips equals them bitwise; NaN gradients at
+                  one step skip it with theta and Adam state bitwise
+                  unchanged; two in a row roll back to the snapshot;
+                  recall_floor 1.01 walks compact -> rebuild -> fallback
+                  and training goes on through the exact fallback
+  5d. checkpoint  the maintained trainer's state (its RefreshState, the
+                  generators) saved and restored bitwise at full width,
+                  seconds and bytes logged; a bit-flipped latest
+                  checkpoint falls back to the one before
+  4b. ladder      the serving fault drill at full SASRec width: a route
+                  with 64 held probe histories serves a batch,
+                  `corrupt_index_state`, then 32 requests with the ladder
+                  armed (probe every batch, probe_k 8, floor 1.01):
+                  actions exactly compact, rebuild, fallback; every
+                  request answered; the batch after the fallback equal
+                  to exact search on the CPU; compact and rebuild timed
   6. embedding    the embedding-bag kernel (K8) against its plain version,
                   bit for bit: small shapes (D 1, 18, 32, 128, 130, 132,
                   264; T 1, 7, 100, 129, 300: past a round of 128 ids;
@@ -170,6 +218,10 @@ TF32_FLOPS = 495e12  # H100 SXM tf32 tensor cores, dense
 RTOL, ATOL = 1e-5, 1e-6  # the CPU parity tests' score tolerances
 N_PROBE, K_SERVE, MAX_BATCH, REQUESTS, RECSYS_REQUESTS = 8, 10, 8, 64, 32
 TRAIN_STEPS, REPLAY_STEPS, PROFILED_STEPS, TS = 20, 3, 3, 8
+# the maintained index: steps, churn cadence and rows, held users, recall@K;
+# the guard drills' steps; the serving ladder's requests
+MAINTAIN_STEPS, CHURN_EVERY, CHURN_ROWS, HELD_USERS, RECALL_K = 80, 8, 512, 128, 64
+GUARD_STEPS, LADDER_REQUESTS = 6, 32
 LM_PROMPT, LM_GEN, LM_BATCH, LM_REQUESTS, LM_TOP_K = 2048, 16, 8, 16, 4
 BF16_RTOL = 2.0**-7  # one bf16 ulp at the bottom of a binade
 LM_HIDDEN_REL = 5e-2  # bf16 prefill hidden states, kernel vs plain path (relative L2)
@@ -1122,6 +1174,673 @@ def train_phase(ds, theta0) -> dict:
         f"{top_same}); the CPU's own draws: kappa-arm agreement {kappa_agree} (held >= "
         f"0.99), uniform arm exact")
     return dict(counts=counts, p50_ms=p50, p99_ms=p99, kappa_agreement=min(kappa_agree))
+
+
+# ---------------------------------------------------------------------------
+# the maintained index, the guard, checkpoints and the serving ladder
+# ---------------------------------------------------------------------------
+
+def maintained_config(health=None):
+    """fopo-paper through the maintained-index route: `ivf_topk` (K7) over
+    a `RefreshState` with `RefreshConfig()`'s defaults, the fused sampler
+    and the fused covgrad kernels, TS 8."""
+    from repro_torch.configs import get_arch
+    from repro_torch.mips.refresh import RefreshConfig
+    from repro_torch.train import TrainerConfig
+
+    paper = get_arch("fopo-paper").CONFIG
+    fopo = dataclasses.replace(paper.fopo, retriever="ivf_pallas", fused=True,
+                               fused_sampler=True, sample_tile=TS,
+                               index_refresh=RefreshConfig())
+    return TrainerConfig(estimator="fopo", fopo=fopo, batch_size=paper.batch_size,
+                         learning_rate=paper.learning_rate, num_steps=MAINTAIN_STEPS, seed=0,
+                         health=health)
+
+
+def churn_batch(beta, h_held, gen):
+    """(ids, embs): CHURN_ROWS unique catalog rows re-embedded onto other
+    rows' embeddings plus noise; half of the other rows are drawn from
+    the exact top-256 of the held user vectors, so that churn reaches
+    the lists those users probe, half from the whole catalog."""
+    import torch
+
+    p, l = beta.shape
+    dev = beta.device
+    ids = torch.randperm(p, generator=gen, device=dev)[:CHURN_ROWS]
+    near = torch.topk(h_held @ beta.T, 256).indices.reshape(-1)
+    half = CHURN_ROWS // 2
+    src = torch.cat([
+        near[torch.randint(0, near.numel(), (half,), generator=gen, device=dev)],
+        torch.randint(0, p, (CHURN_ROWS - half,), generator=gen, device=dev),
+    ])
+    noise = torch.randn((CHURN_ROWS, l), generator=gen, device=dev)
+    return ids.to(torch.int32), beta[src] + 0.05 * beta.std() * noise
+
+
+def staleness_gate(state, overflow_before: int, ids, embs, tag: str) -> int:
+    """Zero staleness right after `update_items`: each churned id the
+    delta buffers took lives in exactly one live slot, a delta slot
+    (`slot_of` points there) holding its new embedding bit for bit; an
+    append past a full delta list is dropped and counted in `overflow`
+    (its old slot stays until the next compaction, as in the reference).
+    Returns the number dropped."""
+    import torch
+
+    c, cap = state.lists.shape
+    dcap = state.delta_cap
+    slot = state.slot_of[ids.long()].long()
+    took = slot >= c * cap
+    dropped = int((~took).sum())
+    check(int(state.overflow) - overflow_before == dropped,
+          f"{tag}: {dropped} churned ids not in a delta slot, overflow grew by "
+          f"{int(state.overflow) - overflow_before}")
+    dslot = slot[took] - c * cap
+    check(bool(torch.equal(state.delta_lists.reshape(-1)[dslot], ids[took])),
+          f"{tag}: a delta slot does not hold its id")
+    check(bool(torch.equal(state.delta_embs.reshape(c * dcap, -1)[dslot], embs[took])),
+          f"{tag}: a delta slot does not hold the new embedding")
+    live = torch.cat([state.lists.reshape(-1), state.delta_lists.reshape(-1)])
+    hits = int(torch.isin(live, ids).sum())
+    check(hits == ids.numel() - int((slot < 0).sum()),
+          f"{tag}: {hits} live slots hold the {ids.numel()} churned ids (a stale copy survived)")
+    return dropped
+
+
+def delta_kernel_gate(state, q, tag: str, k: int = 256) -> float:
+    """K7 against its plain version on the maintained state: the main and
+    the delta pass apart (ids as sets but for boundary ties, scores
+    within RTOL / ATOL), and the merged route against `refresh_query`.
+    Returns the max abs error."""
+    import torch
+
+    from repro_torch.kernels.ivf_topk import kernel as ik, ops as iops, ref as ir
+    from repro_torch.mips.refresh import refresh_query
+
+    probe = torch.topk(q @ state.centroids.T, N_PROBE, dim=1).indices.to(torch.int32)
+    err = 0.0
+    for name, lists, embs in (("main", state.lists, state.list_embs),
+                              ("delta", state.delta_lists, state.delta_embs)):
+        err = max(err, topk_err(ik.ivf_probe_topk_cuda(q, probe, lists, embs, k),
+                                ir.ivf_probe_topk_ref(q, probe, lists, embs, k),
+                                f"{tag} {name} pass"))
+    got = iops.ivf_topk(q, state.as_index(state.slot_of.shape[0]), k, n_probe=N_PROBE,
+                        delta=state.delta())
+    want = refresh_query(state, q, k, N_PROBE)
+    err = max(err, topk_err((got.scores, got.indices), (want.scores, want.indices),
+                            f"{tag} merged vs refresh_query"))
+    live = int((state.delta_lists >= 0).sum())
+    filled = torch.arange(state.delta_cap, device=q.device) < state.delta_sizes[:, None]
+    dead = int((filled & (state.delta_lists < 0)).sum())
+    log(f"  {tag}: B={q.shape[0]} K={k} n_probe={N_PROBE}, delta slots live {live}, "
+        f"tombstoned {dead}, overflow {int(state.overflow)}: main and delta pass and the "
+        f"merged route held to the plain versions, max_abs_err={err:.3g} ok")
+    return err
+
+
+def maintained_train_phase(ds, theta0) -> dict:
+    """fopo-paper at full width on the maintained index (phase 5b): 80
+    steps with churn every 8, the staleness, recall and K7 gates, the
+    launch counts, the maintenance ops' device times beside a full
+    `build_ivf`, then a 3-step CPU replay with one `update_items`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.fused_sampler import kernel as fk, ref as fr
+    from repro_torch.kernels.ivf_topk import kernel as ik, ops as iops, ref as ir
+    from repro_torch.kernels.mips_topk import kernel as mk, ref as mr
+    from repro_torch.kernels.snis_covgrad import kernel as sk, ref as sr
+    from repro_torch.mips import refresh as R
+    from repro_torch.mips.exact import recall_at_k, topk_exact
+    from repro_torch.mips.ivf import IVFIndex, build_ivf
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.train import FOPOTrainer
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = maintained_config()
+    beta0 = torch.from_numpy(ds.item_embeddings).to(dev)
+    p, l = beta0.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index0 = build_ivf(beta0, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    c, cap = index0.lists.shape
+    log(f"[maintain] build_ivf over P={p} L={l}: C={c} (the default rule), cap={cap} (from "
+        f"the largest cluster), list_embs {index0.list_embs.numel() * 4 / 1e9:.2f} GB, "
+        f"built in {build_s:.2f} s")
+    seeds = np.random.default_rng(23).integers(0, 2**31 - 1, MAINTAIN_STEPS + 8)
+    tr = FOPOTrainer(cfg, ds, device="cuda", params=theta0,
+                     step_seeds=lambda step: int(seeds[step]),
+                     retriever_kwargs={"index": index0, "n_probe": N_PROBE})
+    held = torch.from_numpy(ds.contexts[-HELD_USERS:]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    counters = [(mk.mips_topk_cuda, "launches"), (fk.fused_sampler_cuda, "launches"),
+                (sk.snis_fwd_cuda, "launches"), (sk.snis_bwd_cuda, "launches"),
+                (ik.ivf_probe_topk_cuda, "launches"), (mr.mips_topk_ref, "calls"),
+                (fr.fused_sampler_ref, "calls"), (sr.snis_fwd_ref, "calls"),
+                (sr.snis_bwd_ref, "calls"), (ir.ivf_probe_topk_ref, "calls")]
+    counts = {f"{fn.__name__}.{attr}": 0 for fn, attr in counters}
+
+    def held_users():
+        with torch.no_grad():
+            return tr.policy.user_embedding(tr.params, held).contiguous()
+
+    def recall_gate(tag):
+        h = held_users()
+        exact = topk_exact(h, tr.beta, RECALL_K)
+        st = tr.index_state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = build_ivf(tr.beta, num_clusters=c, seed=0, device=dev)
+        torch.cuda.synchronize()
+        fresh_s = time.perf_counter() - t0
+        got = {
+            "maintained": iops.ivf_topk(h, st.as_index(p), RECALL_K, n_probe=N_PROBE,
+                                        delta=st.delta()),
+            "fresh build_ivf": iops.ivf_topk(h, fresh, RECALL_K, n_probe=N_PROBE),
+            "stale build-time index": iops.ivf_topk(h, index0, RECALL_K, n_probe=N_PROBE),
+        }
+        rec = {name: recall_at_k(t, exact) for name, t in got.items()}
+        log(f"[maintain] {tag}: recall@{RECALL_K} over {HELD_USERS} held users against exact "
+            f"search on the current beta: " + ", ".join(f"{n} {r:.4f}" for n, r in rec.items())
+            + f" (fresh C={fresh.lists.shape[0]} cap={fresh.lists.shape[1]}, built in "
+            f"{fresh_s:.2f} s); overflow {int(st.overflow)}, delta slots filled "
+            f"{int(st.delta_sizes.sum())}")
+        check(rec["maintained"] >= rec["fresh build_ivf"] - 0.02,
+              f"{tag}: maintained recall {rec['maintained']} more than 0.02 below a fresh "
+              f"build's {rec['fresh build_ivf']}")
+        check(rec["maintained"] > rec["stale build-time index"],
+              f"{tag}: maintained recall {rec['maintained']} not above the stale index's "
+              f"{rec['stale build-time index']}")
+        return rec
+
+    hist = {"loss": [], "ess": [], "rbar": [], "max_wbar": [], "step_time": []}
+    gates, k7_err, churned, dropped = {}, 0.0, 0, []
+    for seg in range(MAINTAIN_STEPS // CHURN_EVERY):
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        h = tr.train(CHURN_EVERY)
+        for fn, attr in counters:
+            counts[f"{fn.__name__}.{attr}"] += getattr(fn, attr)
+        for key in hist:
+            hist[key] += h[key]
+        if tr.step == cfg.fopo.index_refresh.compact_every:
+            check(int(tr.index_state.delta_sizes.sum()) == 0,
+                  "the compaction at step 64 left delta slots filled")
+            gates["after the compaction"] = recall_gate(f"step {tr.step}, after the "
+                                                        "compaction at step 64")
+            k7_err = max(k7_err, delta_kernel_gate(tr.index_state, held_users(),
+                                                   "K7 after the compaction"))
+        if tr.step == MAINTAIN_STEPS:
+            break
+        ids, embs = churn_batch(tr.beta, held_users(), gen)
+        overflow_before = int(tr.index_state.overflow)
+        tr.update_items(ids, embs)
+        churned += CHURN_ROWS
+        dropped.append(staleness_gate(tr.index_state, overflow_before, ids, embs,
+                                      f"churn at step {tr.step}"))
+        if tr.step == 8:
+            check(dropped[-1] == 0, "the first churn overflowed")
+            k7_err = max(k7_err, delta_kernel_gate(tr.index_state, embs[:64].contiguous(),
+                                                   "K7 live delta, the churned rows as queries"))
+        if tr.step == 56:
+            gates["after the churn"] = recall_gate(f"step {tr.step}, right after a churn "
+                                                   f"({churned} rows churned so far)")
+            state = tr.index_state
+            k7_err = max(k7_err, delta_kernel_gate(state, held_users(), "K7 live delta"))
+            # the same state with tombstoned delta slots (a second append of
+            # churned ids) and an overflowed delta list (256 rows near one point)
+            quarter = ids.numel() // 4
+            tomb = R.delta_append(state, ids[:quarter], embs[quarter:2 * quarter])
+            far = embs[:1] + 1e-3 * torch.randn((256, l), generator=gen, device=dev)
+            over = R.delta_append(tomb, torch.arange(256, device=dev, dtype=torch.int32)
+                                  + 1000, far)
+            check(int(over.overflow) > int(state.overflow), "no delta list overflowed")
+            k7_err = max(k7_err, delta_kernel_gate(
+                over, torch.cat([held_users()[:32], far[:32]]).contiguous(),
+                "K7 live, tombstoned and overflowed delta"))
+            # the delta pass's time with this live buffer, at the training shape
+            q = held_users()[:32].contiguous()
+            probe = torch.topk(q @ state.centroids.T, N_PROBE, dim=1).indices.to(torch.int32)
+            sets = [(q, probe, state.delta_lists, state.delta_embs, 256)]
+            gates["k7_delta_live"] = dict(
+                ms=device_ms(ik.ivf_probe_topk_cuda, sets),
+                plain_ms=device_ms(ir.ivf_probe_topk_ref, sets),
+                **dict(zip(("bound_ms", "bound_by", "bytes"), bound_ms(*sets[0]))))
+            sets = [(q, probe, state.lists, state.list_embs, 256)]
+            gates["k7_main_k256"] = dict(
+                ms=device_ms(ik.ivf_probe_topk_cuda, sets),
+                plain_ms=device_ms(ir.ivf_probe_topk_ref, sets),
+                **dict(zip(("bound_ms", "bound_by", "bytes"), bound_ms(*sets[0]))))
+            for key in ("k7_delta_live", "k7_main_k256"):
+                t = gates[key]
+                log(f"  time {key} (B 32, L {l}, n_probe {N_PROBE}, K 256): device ms per call "
+                    f"(CUDA graph) kernel {t['ms']:.4f}, plain {t['plain_ms']:.4f}; bound "
+                    f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes'] / 1e6:.3f} MB)")
+            del tomb, over
+    log(f"[maintain] {MAINTAIN_STEPS} steps, {churned} rows churned in {churned // CHURN_ROWS} "
+        f"update_items, each served at once from a delta slot with its new embedding "
+        f"(appends past a full delta list, dropped and counted: {dropped}); counts {counts}")
+    check(counts["ivf_probe_topk_cuda.launches"] == 2 * MAINTAIN_STEPS,
+          f"ivf_topk launched {counts['ivf_probe_topk_cuda.launches']} times in "
+          f"{MAINTAIN_STEPS} steps (main + delta a step expected)")
+    for fn in (fk.fused_sampler_cuda, sk.snis_fwd_cuda, sk.snis_bwd_cuda):
+        check(counts[f"{fn.__name__}.launches"] == MAINTAIN_STEPS,
+              f"{fn.__name__} launched {counts[f'{fn.__name__}.launches']} times")
+    check(counts["mips_topk_cuda.launches"] == 0, "mips_topk ran on the maintained path")
+    for key, n in counts.items():
+        if key.endswith(".calls"):
+            check(n == 0, f"the plain version {key} ran {n} times on the card")
+    for key in ("loss", "ess", "rbar", "max_wbar"):
+        check(bool(np.all(np.isfinite(hist[key]))), f"non-finite {key}")
+    st = sorted(hist["step_time"][1:])
+    p50, p99 = percentile(st, 50) * 1e3, percentile(st, 99) * 1e3
+    log(f"[maintain] loss {hist['loss'][0]:+.5f} -> {hist['loss'][-1]:+.5f}; step time with "
+        f"maintenance (a refresh every step, a compaction at step 64) p50 {p50:.3f} ms, p99 "
+        f"{p99:.3f} ms over steps 1-{MAINTAIN_STEPS - 1} (step 0 "
+        f"{hist['step_time'][0] * 1e3:.3f} ms)")
+
+    # where a maintained step's device time goes: a profiled window
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train(PROFILED_STEPS)
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    groups = {"ivf_topk": 0.0, "fused_sampler": 0.0, "snis_fwd": 0.0, "snis_bwd": 0.0,
+              "gemm": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        dt = (getattr(ev, "self_device_time_total", None)
+              or getattr(ev, "device_time_total", 0.0)) / PROFILED_STEPS / 1e3
+        name = ev.key
+        group = ("ivf_topk" if "ivf_" in name else "fused_sampler" if "fused_sampler" in name
+                 else "snis_fwd" if "snis_fwd" in name else "snis_bwd" if "snis_bwd" in name
+                 else "gemm" if "gemm" in name.lower() or "sgemm" in name else "other")
+        groups[group] += max(dt, 0.0)
+    busy = sum(groups.values())
+    profile_ms = dict(groups, busy=busy, wall=wall)
+    if busy > 0:
+        log(f"[maintain] profiled {PROFILED_STEPS} steps (a refresh each): device ms per step "
+            + ", ".join(f"{k} {v:.4f}" for k, v in groups.items())
+            + f" (gemm: the refresh's assignment and cluster sums, the tower); busy "
+            f"{busy:.4f} of {wall:.4f} ms wall per step (profiled), device idle "
+            f"{100 * (1 - busy / wall):.1f}%")
+    else:
+        log("[maintain] the profiler reported no device time on this machine")
+
+    # the maintenance ops' device times at P 750,000 (CUDA graphs: capture
+    # also shows that none of them reads a device value on the host)
+    state, beta = tr.index_state, tr.beta
+    rows = torch.randint(0, p, (1024,), generator=gen, device=dev)
+    ids, embs = churn_batch(beta, held_users(), gen)
+    ops_ms = {
+        "refresh_step": device_ms(lambda s, b, r: R.refresh_step(
+            s, None, b, minibatch=1024, rows=r), [(state, beta, rows)], calls=8, replays=5),
+        "delta_append": device_ms(R.delta_append, [(state, ids, embs)], calls=8, replays=5),
+        "compact": device_ms(R.compact, [(state, beta)], calls=2, replays=3),
+        "rebuild": device_ms(lambda s, b: R.rebuild(s, b, iters=4), [(state, beta)],
+                             calls=1, replays=3),
+    }
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build_ivf(beta, num_clusters=c, seed=0, device=dev)
+    torch.cuda.synchronize()
+    ops_ms["build_ivf"] = (time.perf_counter() - t0) * 1e3
+    rc = cfg.fopo.index_refresh
+    cycle = (rc.compact_every * ops_ms["refresh_step"] + ops_ms["compact"]
+             + rc.compact_every / CHURN_EVERY * ops_ms["delta_append"]) / rc.compact_every
+    log(f"[maintain] device ms per call at P={p}, C={c}, cap={cap} (CUDA graph): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ops_ms.items() if k != "build_ivf")
+        + f"; a full build_ivf (k-means++ and 12 Lloyd iterations, host clock) "
+        f"{ops_ms['build_ivf']:.1f} ms; the maintenance cycle amortised over "
+        f"{rc.compact_every} steps (a refresh a step, an append every {CHURN_EVERY}, one "
+        f"compaction) {cycle:.4f} ms a step")
+
+    # a 3-step CPU replay with injected seeds and refresh rows and one
+    # update_items, on the card's draws; each CPU step starts from the
+    # card's theta and Adam state before it (Adam turns fp32 noise in a
+    # near-zero gradient entry into update differences of a few % of lr,
+    # which add up over free-running steps)
+    t0 = time.perf_counter()
+    rrows = np.random.default_rng(37).integers(0, p, (3, cfg.fopo.index_refresh.minibatch))
+    kw = dict(params=theta0, step_seeds=lambda step: int(seeds[step]),
+              refresh_rows=lambda step: rrows[step])
+    card_draws, cpu_draws = [], []
+    a = FOPOTrainer(cfg, ds, device="cuda", retriever_kwargs={"index": index0}, **kw)
+    a.plan = recording_plan(a.plan, card_draws)
+    cpu_index = IVFIndex(*(t.cpu() for t in index0[:3]), index0.num_items)
+    b = FOPOTrainer(cfg, ds, device="cpu", retriever_kwargs={"index": cpu_index}, **kw)
+    b.plan = recording_plan(b.plan, cpu_draws, replay=card_draws)
+    ids, embs = churn_batch(a.beta, held_users(), gen)
+    ha, hb, after = {}, {}, {"card": [], "cpu": []}
+    for name, tr_, hist_, dv in (("card", a, ha, dev), ("cpu", b, hb, torch.device("cpu"))):
+        for t in range(3):
+            if name == "cpu" and t > 0:
+                tr_.params, tr_.opt_state = (tree_map(lambda x: x.clone(), x)
+                                             for x in after["card"][t - 1])
+            for key, v in tr_.train(1).items():
+                if isinstance(v, list):
+                    hist_.setdefault(key, []).extend(v)
+            after[name].append(tuple(tree_map(lambda x: x.cpu().clone(), x)
+                                     for x in (tr_.params, tr_.opt_state)))
+            if t == 0:
+                tr_.update_items(ids.to(dv), embs.to(dv))
+    for key in ("loss", "ess", "rbar", "max_wbar"):
+        close_err(torch.tensor(hb[key]), torch.tensor(ha[key]), f"maintained replay {key}")
+    noisy = []
+    for t in range(3):
+        # the gradient through Adam's first moment m = b1 m' + (1 - b1) g,
+        # both sides from the card's m' (zero before step 0)
+        m_card, m_cpu = after["card"][t][1]["m"]["w"], after["cpu"][t][1]["m"]["w"]
+        m_prev = after["card"][t - 1][1]["m"]["w"] if t else torch.zeros_like(m_card)
+        close_err(m_cpu, m_card, f"maintained replay step {t} Adam's m", sums=True)
+        noisy.append(theta_gate(after["cpu"][t][0]["w"], after["card"][t][0]["w"],
+                                (m_card - 0.9 * m_prev) / 0.1, cfg.learning_rate,
+                                f"maintained replay step {t} theta"))
+        (ctop, _), (gtop, _) = cpu_draws[t], card_draws[t]
+        topk_err((gtop.scores, gtop.indices), (ctop.scores, ctop.indices),
+                 f"maintained replay step {t} top-K")
+    sa, sb = a.index_state, b.index_state
+    for f in ("lists", "delta_lists", "delta_sizes", "slot_of", "overflow"):
+        check(bool(torch.equal(getattr(sa, f).cpu(), getattr(sb, f))),
+              f"maintained replay: index {f} differs")
+    close_err(sb.centroids, sa.centroids, "maintained replay centroids")
+    close_err(sb.counts, sa.counts, "maintained replay counts")
+    log(f"[maintain] CPU replay of 3 steps with one update_items ({time.perf_counter() - t0:.1f}"
+        f" s), on the card's draws, each step from the card's theta and Adam state: loss and "
+        f"diagnostics within rtol {RTOL} / atol {ATOL}, Adam's first moment within rtol "
+        f"{RTOL} / atol scaled by its largest entry, theta within 1e-6 but for "
+        f"{noisy} entries a step whose gradient is under 1e-4 of the largest (within 2 lr), "
+        f"top-K as sets but for boundary ties at every step; after 3 free-running "
+        f"maintenance steps the index's lists, delta lists, sizes, slot_of and overflow "
+        f"equal, centroids and counts within rtol {RTOL} / atol {ATOL}")
+    del a, b, cpu_index
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    secs = time.perf_counter() - t_phase
+    log(f"[maintain] phase took {secs:.1f} s, peak device memory {peak:.2f} GB")
+    return dict(tr=tr, index0=index0, counts=counts, p50_ms=p50, p99_ms=p99, gates=gates,
+                k7_err=k7_err, ops_ms=ops_ms, cycle_ms=cycle, build_s=build_s,
+                seeds=seeds, seconds=secs, peak_gb=peak, profile_ms=profile_ms)
+
+
+def theta_gate(got, want, grad, lr: float, tag: str) -> int:
+    """theta after one Adam step from the same state: within 1e-6 of the
+    card's but for entries whose gradient is under 1e-4 of the largest,
+    where Adam's g / (|g| + eps) turns fp32 noise in g into an update
+    difference of a few % of lr; those stay within 2 lr. Returns their
+    count."""
+    got, want, grad = got.cpu(), want.cpu(), grad.cpu()
+    diff = (got - want).abs()
+    off = diff > 1e-6
+    small = grad.abs() <= 1e-4 * float(grad.abs().max())
+    check(not bool((off & ~small).any()),
+          f"{tag}: differs by {float(diff[~small].max())} where the gradient is not small")
+    check(float(diff.max()) <= 2 * lr, f"{tag}: differs by {float(diff.max())}")
+    return int(off.sum())
+
+
+def first_divergence(ra, rb, ha, hb) -> str | None:
+    """Where two runs from the same seeds part: the first step whose
+    top-K (K7), draws (K5) or loss and diagnostics (K1/K2) differ, else
+    the backward (K3/K4) or the update. None if everything is equal."""
+    import torch
+
+    for t, ((ta, sa), (tb, sb)) in enumerate(zip(ra, rb)):
+        if not (torch.equal(ta.scores, tb.scores) and torch.equal(ta.indices, tb.indices)):
+            return f"step {t}: the top-K differs (ivf_topk, K7)"
+        if not all(torch.equal(x, y) for x, y in zip(sa, sb)):
+            return f"step {t}: the draws differ on one top-K (fused_sampler, K5)"
+        if any(ha[k][t] != hb[k][t] for k in ("loss", "ess", "rbar", "max_wbar")):
+            return f"step {t}: loss or diagnostics differ on one sample (snis_covgrad_fwd, K1/K2)"
+    return "the parameters differ on equal losses (snis_covgrad_bwd, K3/K4, or the update)"
+
+
+def guard_phase(ds, theta0, index0, seeds) -> dict:
+    """The guard and the fault drills on the maintained configuration
+    (phase 5c): repeatability, the guarded no-op, a NaN step skipped,
+    a rollback, and the ladder walked to the exact fallback."""
+    import numpy as np
+    import torch
+
+    from repro_torch.health import FaultPlan, HealthConfig, IndexHealthConfig
+    from repro_torch.kernels.ivf_topk import kernel as ik
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import FOPOTrainer
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    def make(health=None, fault=None, record=None):
+        tr = FOPOTrainer(maintained_config(health), ds, device="cuda", params=theta0,
+                         step_seeds=lambda step: int(seeds[step]), fault_plan=fault,
+                         retriever_kwargs={"index": index0, "n_probe": N_PROBE})
+        if record is not None:
+            tr.plan = recording_plan(tr.plan, record)
+        return tr
+
+    def leaves(tr):
+        return tree_leaves([tr.params, tr.opt_state, list(tr.index_state)])
+
+    def same(x, y):
+        return all(torch.equal(a, b) for a, b in zip(leaves(x), leaves(y)))
+
+    ra, rb = [], []
+    a, b = make(record=ra), make(record=rb)
+    ha, hb = a.train(GUARD_STEPS), b.train(GUARD_STEPS)
+    repeatable = same(a, b)
+    if repeatable:
+        log(f"[guard] two unguarded runs of {GUARD_STEPS} steps from the same seeds: "
+            "parameters, Adam state and the maintained index bitwise equal")
+    else:
+        where = first_divergence(ra, rb, ha, hb)
+        spread = max(float((x - y).abs().max()) for x, y in zip(leaves(a), leaves(b))
+                     if x.is_floating_point())
+        log(f"[guard] two unguarded runs from the same seeds differ (max {spread:.3g}); "
+            f"first: {where}")
+    h = HealthConfig(ess_floor=1.0, grad_spike_factor=1e6, max_wbar_ceiling=0.9999)
+    g = make(health=h)
+    hg = g.train(GUARD_STEPS)
+    check(hg["health"] == [], f"the guard tripped on a clean run: {hg['health']}")
+    if repeatable:
+        check(same(a, g), "the guarded run is not bitwise the unguarded one")
+        check(hg["loss"] == ha["loss"], "the guarded losses differ")
+        log("[guard] a guarded run that never trips (every check armed) is bitwise the "
+            "unguarded one")
+    else:
+        check(hg["loss"][:1] == ha["loss"][:1], "the guarded first loss differs")
+        gap = max(float((x - y).abs().max()) for x, y in zip(leaves(a), leaves(g))
+                  if x.is_floating_point())
+        check(gap <= 10 * spread, f"guarded vs unguarded {gap} beyond the runs' own {spread}")
+        log(f"[guard] guarded vs unguarded differ by {gap:.3g}, within 10x the spread of two "
+            "unguarded runs")
+
+    # a NaN step is skipped: the parameters and Adam state bitwise unchanged
+    n = make(health=HealthConfig(max_consecutive_bad=2, snapshot_every=1),
+             fault=FaultPlan(nan_grads_at=(2,)))
+    n.train(2)
+    before = [t.clone() for t in tree_leaves([n.params, n.opt_state])]
+    hn = n.train(1)
+    check(len(hn["health"]) == 1 and "nonfinite_grads" in hn["health"][0]["checks"],
+          f"the NaN step was not flagged: {hn['health']}")
+    check(all(torch.equal(x, y) for x, y in zip(before, tree_leaves([n.params, n.opt_state]))),
+          "the skipped step changed the parameters")
+    hn = n.train(2)
+    check(bool(np.all(np.isfinite(hn["loss"]))) and bool(torch.isfinite(n.params["w"]).all()),
+          "training did not go on after the skip")
+    # max_consecutive_bad bad steps in a row roll back to the snapshot
+    r = make(health=HealthConfig(max_consecutive_bad=2, snapshot_every=1),
+             fault=FaultPlan(nan_grads_at=(3, 4)))
+    hr = r.train(GUARD_STEPS)
+    rollbacks = [e for e in hr["events"] if e["event"] == "rollback"]
+    check(len(rollbacks) == 1 and rollbacks[0]["to"] == 3 and r._restarts == 1,
+          f"rollback events {hr['events']}")
+    check(bool(np.isfinite(hr["loss"][-1])), "non-finite loss after the rollback")
+    log(f"[guard] NaN gradients at step 2: flagged nonfinite_grads, the step "
+        f"skipped with theta and Adam state bitwise unchanged; NaN at steps 3-4 with "
+        f"max_consecutive_bad 2: rolled back to step {rollbacks[0]['to']} (restart #1), "
+        f"{len(hr['loss'])} steps run, last loss {hr['loss'][-1]:+.5f}")
+
+    # recall_floor 1.01: compact -> rebuild -> fallback, then on through
+    # the exact fallback
+    ih = IndexHealthConfig(probe_every=1, probe_rows=128, probe_k=64, recall_floor=1.01,
+                           cooldown=0)
+    w = make(health=HealthConfig(index=ih))
+    hw = w.train(3)
+    actions = [e["action"] for e in hw["index_health"] if e["action"]]
+    check(actions == ["compact", "rebuild", "fallback"], f"ladder actions {actions}")
+    check(w._degraded and w.plan.degraded, "the trainer did not degrade")
+    before = ik.ivf_probe_topk_cuda.launches
+    hw2 = w.train(3)
+    check(ik.ivf_probe_topk_cuda.launches == before, "ivf_topk ran after the fallback")
+    check(bool(np.all(np.isfinite(hw2["loss"]))), "non-finite loss on the exact fallback")
+    log(f"[guard] recall_floor 1.01: probes {[round(e['recall'], 4) for e in hw['index_health']]}"
+        f", actions {actions}; 3 more steps on the exact fallback, loss "
+        f"{hw2['loss'][0]:+.5f} -> {hw2['loss'][-1]:+.5f}, no ivf_topk launch")
+    secs = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[guard] phase took {secs:.1f} s, peak device memory {peak:.2f} GB")
+    return dict(repeatable=repeatable, seconds=secs, peak_gb=peak)
+
+
+def checkpoint_phase(tr, ds, theta0, index0) -> dict:
+    """The maintained trainer's state through a checkpoint and back at
+    full width, bitwise; a corrupted latest checkpoint falls back to the
+    one before (phase 5d)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.health import corrupt_checkpoint
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import FOPOTrainer
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tr.cfg = dataclasses.replace(tr.cfg, checkpoint_dir=d)
+        state0, step0 = tr._ckpt_state(), tr.step
+        t0 = time.perf_counter()
+        tr.save()
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(root, f))
+                     for root, _, files in os.walk(d) for f in files)
+        tr.train(1)
+        tr.save()
+        state1 = tr._ckpt_state()
+
+        def restored():
+            r = FOPOTrainer(tr.cfg, ds, device="cuda", params=theta0,
+                            retriever_kwargs={"index": index0, "n_probe": N_PROBE})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(r.maybe_restore(), "nothing restored")
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        def equal(a, b):
+            la, lb = tree_leaves(a), tree_leaves(b)
+            return len(la) == len(lb) and all(
+                x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+                for x, y in zip(la, lb))
+
+        r, restore_s = restored()
+        check(r.step == step0 + 1 and equal(r._ckpt_state(), state1),
+              "the latest checkpoint did not restore bitwise")
+        corrupt_checkpoint(d, step0 + 1, mode="bitflip")
+        r, _ = restored()
+        check(r.step == step0 and equal(r._ckpt_state(), state0),
+              "the corrupted latest checkpoint did not fall back to the one before")
+        del r
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[checkpoint] the maintained trainer's state at step {step0} (parameters, Adam "
+        f"state, the RefreshState, the generators): saved in {save_s:.2f} s, {nbytes / 1e9:.3f}"
+        f" GB on disk, restored in {restore_s:.2f} s, bitwise; a bit-flipped latest "
+        f"checkpoint fell back to the one before, bitwise; the directory removed (phase "
+        f"{secs:.1f} s, peak device memory {peak:.2f} GB)")
+    return dict(save_s=save_s, restore_s=restore_s, bytes=nbytes, seconds=secs, peak_gb=peak)
+
+
+def serve_ladder_phase(cfg, params) -> dict:
+    """`tests/test_serve.py`'s fault drill at full SASRec width (phase 4b):
+    serve, corrupt the index, serve again with the ladder armed; compact,
+    rebuild, fallback in that order, every request answered, the answers
+    after the fallback exact."""
+    import numpy as np
+    import torch
+
+    from repro_torch.health import IndexHealthConfig, corrupt_index_state
+    from repro_torch.mips.exact import TopK, topk_exact
+    from repro_torch.models import recsys
+    from repro_torch.serve import CoalescePolicy, RecsysMIPSRoute, ServingEngine
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(11)
+    probe = rng.integers(-1, cfg.item_vocab, (64, cfg.seq_len)).astype(np.int32)
+    hists = [rng.integers(-1, cfg.item_vocab, (cfg.seq_len,)).astype(np.int32)
+             for _ in range(LADDER_REQUESTS + MAX_BATCH)]
+    route = RecsysMIPSRoute(cfg, params, k=K_SERVE, n_probe=N_PROBE, probe_hists=probe,
+                            device=dev)
+    planner = route.planner
+    heal_ms = {}
+    heal = planner.heal
+
+    def timed_heal(action):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        heal(action)
+        torch.cuda.synchronize()
+        heal_ms[action] = (time.perf_counter() - t0) * 1e3
+
+    planner.heal = timed_heal
+    policy = CoalescePolicy(max_batch=MAX_BATCH, max_wait_s=0.002)
+    pre = ServingEngine(route, policy)
+    pre.warmup()
+    for h in hists[:MAX_BATCH]:
+        pre.submit(h, 0.0)
+    check(len(pre.drain()) == MAX_BATCH, "the first batch was not answered")
+    healthy = planner.probe()
+    planner.index_state = corrupt_index_state(planner.index_state,
+                                              torch.Generator(device=dev).manual_seed(1))
+    broken = planner.probe()
+    eng = ServingEngine(route, policy, health=IndexHealthConfig(
+        probe_every=1, probe_k=8, recall_floor=1.01, cooldown=0))
+    for h in hists[MAX_BATCH:]:
+        eng.submit(h, 0.0)
+    records = eng.drain()
+    actions = [h["action"] for h in eng.monitor.history if h["action"]]
+    recalls = [round(h["recall"], 4) for h in eng.monitor.history if h["recall"] is not None]
+    check(actions == ["compact", "rebuild", "fallback"], f"serving ladder actions {actions}")
+    check(len(records) == LADDER_REQUESTS and route.degraded,
+          f"answered {len(records)}/{LADDER_REQUESTS}, degraded {route.degraded}")
+    # the batches after the fallback against exact search on the CPU
+    after = records[3 * MAX_BATCH:]
+    x = torch.from_numpy(np.stack(hists[MAX_BATCH + 3 * MAX_BATCH:])).to(dev)
+    with torch.inference_mode():
+        h = recsys.sasrec_user_vector(cfg, planner.params, x)
+    exact = topk_exact(h.cpu(), planner.beta.cpu(), K_SERVE)
+    served = TopK(torch.from_numpy(np.stack([r.result[1] for r in after])),
+                  torch.from_numpy(np.stack([r.result[0] for r in after])))
+    topk_err((served.scores.cuda(), served.indices.cuda()),
+             (exact.scores.cuda(), exact.indices.cuda()), "serving after the fallback")
+    secs = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[ladder] SASRec at full width (10^6 items, C {planner.index_state.lists.shape[0]}): "
+        f"probe recall@{planner.probe_k} healthy {healthy:.4f}, after corrupt_index_state "
+        f"{broken:.4f}; the engine's probes {recalls}, actions {actions}; "
+        f"{len(records)}/{LADDER_REQUESTS} answered, the {len(after)} after the fallback equal "
+        f"exact search on the CPU; compact {heal_ms.get('compact', float('nan')):.1f} ms, "
+        f"rebuild {heal_ms.get('rebuild', float('nan')):.1f} ms (host clock, synchronized); "
+        f"phase {secs:.1f} s, peak device memory {peak:.2f} GB")
+    return dict(heal_ms=heal_ms, seconds=secs, peak_gb=peak)
 
 
 # ---------------------------------------------------------------------------
@@ -2472,6 +3191,23 @@ def percentile(values: list[float], p: float) -> float:
     return vs[min(len(vs) - 1, max(0, round(p / 100.0 * (len(vs) - 1))))]
 
 
+def new_phases(ds, theta0, cfg, params) -> tuple:
+    """The phases of the maintained index, the guard, the checkpoint and
+    the serving ladder (5b-5d, 4b)."""
+    import torch
+
+    log("[maintain] fopo-paper on the maintained index (retriever=ivf_pallas, "
+        "RefreshConfig() defaults, fused, fused_sampler, TS 8)")
+    mres = maintained_train_phase(ds, theta0)
+    gres = guard_phase(ds, theta0, mres["index0"], mres["seeds"])
+    cres = checkpoint_phase(mres["tr"], ds, theta0, mres["index0"])
+    del mres["tr"], mres["index0"]
+    torch.cuda.empty_cache()
+    lad = serve_ladder_phase(cfg, params)
+    torch.cuda.empty_cache()
+    return mres, gres, cres, lad
+
+
 def main() -> int:
     import torch
 
@@ -2610,6 +3346,10 @@ def main() -> int:
         tk = training_kernel_phase(beta, h0, ds.positives)
     del beta, h0
     tres = train_phase(ds, theta0)
+
+    # 5b-5d. the maintained index, the guard and its faults, a checkpoint;
+    # 4b. the serving ladder at full SASRec width
+    mres, gres, cres, lad = new_phases(ds, theta0, cfg, params)
     del ds, theta0, route, planner, state, index, users, engine
     torch.cuda.empty_cache()
 
@@ -2655,8 +3395,10 @@ def main() -> int:
         "source": str(kernel.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ivf_topk/kernel.py:86",
         "launches": (launches + lres["counts"]["ivf_probe_topk_cuda.launches"]
-                     + sum(r["ivf_launches"] for r in rres.values())),
-        "max_abs_err": max(kres["max_abs_err"], lres["ivf_lm"]["max_abs_err"]),
+                     + sum(r["ivf_launches"] for r in rres.values())
+                     + mres["counts"]["ivf_probe_topk_cuda.launches"]),
+        "max_abs_err": max(kres["max_abs_err"], lres["ivf_lm"]["max_abs_err"],
+                           mres["k7_err"]),
         "ms": t["ms"],
         "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -2669,6 +3411,8 @@ def main() -> int:
             ("full_lists_l2304", kres["timing"]["full lists L=2304"]),
             ("lm_shape", lres["ivf_lm"]),
             ("dien_l18", rres["dien"]["ivf_l18"]),
+            ("training_k256_main", mres["gates"]["k7_main_k256"]),
+            ("training_k256_live_delta", mres["gates"]["k7_delta_live"]),
         )},
     }]
     for name, source, replaces, launch_fn in [
@@ -2686,7 +3430,8 @@ def main() -> int:
             "route": "cuda",
             "source": str(source.relative_to(ROOT)),
             "replaces": replaces,
-            "launches": tres["counts"][f"{launch_fn.__name__}.launches"],
+            "launches": (tres["counts"][f"{launch_fn.__name__}.launches"]
+                         + mres["counts"][f"{launch_fn.__name__}.launches"]),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

@@ -37,7 +37,7 @@ class EmbeddingTableSpec:
         raise NotImplementedError(
             "row sharding of embedding tables (the reference's PartitionSpec) is "
             "not ported to repro_torch yet; it comes with the multi-device slice "
-            "(ROADMAP Queue A item 9)"
+            "(ROADMAP Queue A item 5)"
         )
 
     def lookup(self, table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:

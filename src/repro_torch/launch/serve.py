@@ -9,6 +9,8 @@ of 500 candidates, `np.arange(500)`) or the Gemma-2 generation route
     PYTHONPATH=src python -m repro_torch.launch.serve --arch din --requests 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dien --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch sasrec --device cpu \
+        --requests 24 --ladder
 
 Requests are enqueued on a virtual arrival clock (``--qps`` spaces them;
 0 = all at once, the closed-loop shape) and coalesced into padded
@@ -18,12 +20,14 @@ payloads are the reference CLI's: a history of ids in [-1, item_vocab)
 (sasrec, dien, din), 40 sparse ids in [0, 10^6) and normal dense
 features (wide-deep), or a random prompt of ``--prompt-len`` tokens
 answered with ``--gen-len`` generated ones (gemma2-2b). The run needs
-CUDA unless ``--device cpu`` is given.
+CUDA unless ``--device cpu`` is given. ``--ladder`` arms the retrieval
+degradation ladder on the live index of the MIPS arches (sasrec, dien):
+32 held probe histories, a recall probe every 4 batches, floor 0.5.
 
 Not ported yet, and refused with a message naming the slice (ROADMAP
-Queue A item): ``--ladder`` (health, item 6), ``--replicas`` /
-``--chaos`` (cluster serving, item 8) and ``--obs-dir`` (observability,
-item 7), and the arches that are not ported (models, item 10).
+Queue A item): ``--replicas`` / ``--chaos`` (cluster serving, item 4)
+and ``--obs-dir`` (observability, item 3), and the arches that are not
+ported (models, item 6).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.device import resolve_device
+from repro_torch.health.index_health import IndexHealthConfig
 from repro_torch.models import lm, recsys
 from repro_torch.obs.bus import MetricsBus
 from repro_torch.obs.sinks import HumanLogSink
@@ -46,10 +51,9 @@ from repro_torch.serve import (
 )
 
 _NOT_PORTED = {
-    "ladder": "the health slice (ROADMAP Queue A item 6)",
-    "replicas": "the cluster slice (ROADMAP Queue A item 8)",
-    "chaos": "the cluster slice (ROADMAP Queue A item 8)",
-    "obs_dir": "the observability slice (ROADMAP Queue A item 7)",
+    "replicas": "the cluster slice (ROADMAP Queue A item 4)",
+    "chaos": "the cluster slice (ROADMAP Queue A item 4)",
+    "obs_dir": "the observability slice (ROADMAP Queue A item 3)",
 }
 
 
@@ -71,7 +75,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--prompt-len", type=int, default=16, help="LM prompt tokens")
     ap.add_argument("--gen-len", type=int, default=8, help="LM generated tokens")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--ladder", action="store_true", help="not ported yet")
+    ap.add_argument("--ladder", action="store_true",
+                    help="arm the retrieval degradation ladder (MIPS archs)")
     ap.add_argument("--replicas", type=int, default=1, help="not ported yet")
     ap.add_argument("--chaos", action="store_true", help="not ported yet")
     ap.add_argument("--obs-dir", default=None, help="not ported yet")
@@ -105,7 +110,10 @@ def main(argv: list[str] | None = None) -> None:
     else:
         params = recsys.init_params(cfg, gen, device)
         if cfg.kind in ("sasrec", "dien"):
-            route = RecsysMIPSRoute(cfg, params, k=args.k, device=device)
+            probe = None
+            if args.ladder:
+                probe = rng.integers(-1, cfg.item_vocab, (32, cfg.seq_len)).astype(np.int32)
+            route = RecsysMIPSRoute(cfg, params, k=args.k, probe_hists=probe, device=device)
         else:
             route = DenseCandidateRoute(
                 cfg, params, candidates=np.arange(500, dtype=np.int32), k=args.k,
@@ -118,11 +126,15 @@ def main(argv: list[str] | None = None) -> None:
         else:
             def payload():
                 return rng.integers(-1, cfg.item_vocab, (cfg.seq_len,)).astype(np.int32)
+    health = None
+    if args.ladder and hasattr(route, "probe"):
+        health = IndexHealthConfig(probe_every=4, recall_floor=0.5)
     bus = MetricsBus(sinks=[HumanLogSink()])
     engine = ServingEngine(
         route,
         CoalescePolicy(max_batch=args.max_batch, max_wait_s=args.max_wait_ms / 1e3),
         bus=bus,
+        health=health,
     )
     engine.warmup()
     for i in range(args.requests):
@@ -137,6 +149,14 @@ def main(argv: list[str] | None = None) -> None:
         f"{percentile(lats, 99) * 1e3:.1f} ms, "
         f"{len(records) / makespan:.1f} req/s"
     )
+    if engine.monitor is not None:
+        probes = [h for h in engine.monitor.history if h["recall"] is not None]
+        actions = [h["action"] for h in engine.monitor.history if h["action"]]
+        recalls = ", ".join(f"{h['recall']:.3f}" for h in probes) or "none"
+        bus.log(
+            f"ladder: {len(probes)} recall probes ({recalls}); actions "
+            f"{actions or 'none'}; degraded: {engine.route.degraded}"
+        )
     bus.close()
 
 

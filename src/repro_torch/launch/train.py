@@ -58,7 +58,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.arch not in ("fopo-paper", "gemma2-2b"):
         raise SystemExit(
             f"training --arch {args.arch} is not ported to repro_torch yet; it "
-            "comes with the models slice (ROADMAP Queue A item 10: recsys BCE and "
+            "comes with the models slice (ROADMAP Queue A item 6: recsys BCE and "
             "FOPO training, then the other arches)"
         )
     mod = get_arch(args.arch)

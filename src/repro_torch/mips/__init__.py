@@ -2,7 +2,13 @@
 maintained state. All retrievers return the same `TopK(scores, indices)`."""
 from repro_torch.mips.exact import TopK, merge_topk, recall_at_k, topk_exact
 from repro_torch.mips.ivf import IVFIndex, build_ivf, ivf_query, kmeans
-from repro_torch.mips.refresh import RefreshConfig, RefreshState, init_refresh_state
+from repro_torch.mips.refresh import (
+    RefreshConfig,
+    RefreshState,
+    build_refresh_state,
+    init_refresh_state,
+    sampled_recall,
+)
 
 __all__ = [
     "IVFIndex",
@@ -10,10 +16,12 @@ __all__ = [
     "RefreshState",
     "TopK",
     "build_ivf",
+    "build_refresh_state",
     "init_refresh_state",
     "ivf_query",
     "kmeans",
     "merge_topk",
     "recall_at_k",
+    "sampled_recall",
     "topk_exact",
 ]

@@ -152,17 +152,27 @@ def bucket_items(
     Items whose rank overflows `cap`, or whose assignment is the drop
     bucket `num_clusters`, are dropped from the lists. The reference
     drops them with a scatter in mode "drop"; PyTorch raises on an
-    out-of-range index, so they are masked out here before the scatter."""
+    out-of-range index, so they are written to one spare slot past the
+    table, which is then cut off. Nothing here reads a device value on
+    the host (the cluster counts are an `index_add_`: `torch.bincount`
+    reads its input's maximum on the host), so the index maintenance
+    that calls it only launches."""
     p = assign.shape[0]
+    dev = assign.device
     assign = assign.long()
-    counts = torch.bincount(assign, minlength=num_clusters + 1)
+    counts = torch.zeros((num_clusters + 1,), dtype=torch.long, device=dev).index_add_(
+        0, assign, torch.ones_like(assign)
+    )
     order = torch.argsort(assign, stable=True)
     sorted_assign = assign[order]
     onset = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(p, device=assign.device) - onset[sorted_assign]
+    rank = torch.arange(p, device=dev) - onset[sorted_assign]
     keep = (sorted_assign < num_clusters) & (rank < cap)
-    lists = torch.full((num_clusters, cap), -1, dtype=torch.int32, device=assign.device)
-    lists[sorted_assign[keep], rank[keep]] = order[keep].to(torch.int32)
+    spare = num_clusters * cap
+    slot = torch.where(keep, sorted_assign * cap + rank, spare)
+    lists = torch.full((spare + 1,), -1, dtype=torch.int32, device=dev)
+    lists[slot] = order.to(torch.int32)
+    lists = lists[:spare].reshape(num_clusters, cap)
     live = lists >= 0
     list_embs = torch.where(
         live[..., None], items[lists.clamp(min=0).long()], 0.0

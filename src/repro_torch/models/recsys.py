@@ -10,7 +10,7 @@ carries the reference's weights across one to one. Each model exposes
 T with the same masked update. The reference's candidate scoring takes
 one query (B = 1); here it takes a batch of B and gives each row the
 reference's answer. Training (`bce_loss`, `make_train_step`) comes with
-the recsys training part of the models slice (ROADMAP Queue A item 10).
+the recsys training part of the models slice (ROADMAP Queue A item 6).
 """
 from __future__ import annotations
 

@@ -28,10 +28,16 @@ Telemetry (repro_torch.obs bus, drained once per batch):
     serve_occupancy      gauge, per batch (real rows / max_batch)
     serve_requests       counter
     serve_abandoned      counter, requests a failed dispatch returned
+    index_health         events, when the degradation ladder is armed
 
-The reference engine can also drive the index-health ladder; that
-monitor comes with the health slice (without it, the reference's path
-is this one).
+The ladder rides as in the trainer: an `IndexHealthConfig` (``health=``)
+arms an `IndexHealthMonitor`; every ``probe_every`` batches the route's
+sampled-recall probe and overflow counter feed `observe()`, and the
+monitor's verdicts run through the route's ladder hooks (compact ->
+rebuild -> the pre-warmed exact fallback). Requests keep answering
+through every rung. Probing reads on the host, after a batch's service
+time was taken, so its cost is engine busy time, not a request's
+service time.
 """
 from __future__ import annotations
 
@@ -100,12 +106,18 @@ class ServingEngine:
         policy: CoalescePolicy | None = None,
         *,
         bus: MetricsBus | None = None,
+        health=None,  # IndexHealthConfig | None: arms the ladder
         service_model: Callable[[float, int], float] | None = None,
     ):
         self.route = route
         self.policy = policy or CoalescePolicy()
         self.bus = bus if bus is not None else MetricsBus()
         self.service_model = service_model
+        self.monitor = None
+        if health is not None:
+            from repro_torch.health.index_health import IndexHealthMonitor
+
+            self.monitor = IndexHealthMonitor(health, self.bus)
         self.queue: list[Request] = []
         self.records: list[RequestRecord] = []
         self.free_at = 0.0
@@ -208,8 +220,36 @@ class ServingEngine:
         )
         self.bus.counter("serve_requests", size)
         self.batches += 1
+        self._maybe_probe()
         self.bus.drain()
         return DrainResult(recs)
+
+    # -- the degradation ladder ----------------------------------------
+    def _maybe_probe(self) -> None:
+        """The trainer's cadence / verdict / execute split: the monitor
+        decides, the route's hooks act."""
+        monitor = self.monitor
+        if monitor is None or getattr(self.route, "degraded", False):
+            return
+        ih = monitor.cfg
+        cadence = ih.probe_every if ih.probe_every else 1
+        if self.batches % cadence != 0:
+            return
+        recall = self.route.probe() if ih.probe_every else None
+        overflow = self.route.overflow()
+        action = monitor.observe(recall, overflow)
+        if recall is not None or action:
+            self.bus.event(
+                "index_health",
+                {"step": self.batches, "recall": recall, "overflow": overflow,
+                 "action": action},
+                step=self.batches,
+            )
+        if action in ("compact", "rebuild"):
+            with span(f"index_{action}", batch=self.batches):
+                self.route.heal(action)
+        elif action == "fallback":
+            self.route.degrade()
 
     # -- summaries ------------------------------------------------------
     def occupancy(self) -> float:

@@ -10,8 +10,13 @@ path and returns without synchronising: the engine owns the wait.
 `warmup` runs both the primary and the fallback path once before
 traffic: the first run builds the `ivf_topk` kernel, so its `nvcc` time
 never lands in a request's latency, and a later `degrade()` swaps to a
-path that has already run. The ladder's recall probe (``probe_x``,
-``probe_k``) and its compact/rebuild rungs come with the health slice.
+path that has already run.
+
+The ladder: `probe()`, `overflow()`, `heal(action)` and `degrade()` are
+the hooks the engine's `IndexHealthMonitor` drives: the sampled recall
+over a held probe set (``probe_x``, embedded once at start), the
+compact / rebuild rungs against the live state, and the swap to the
+exact fallback.
 """
 from __future__ import annotations
 
@@ -20,12 +25,14 @@ import torch
 from repro_torch.core.fopo import FOPOConfig
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.device import resolve_device
+from repro_torch.mips import refresh as refresh_ops
 from repro_torch.mips.ivf import DEFAULT_N_PROBE, build_ivf
 from repro_torch.mips.refresh import RefreshConfig
 
 __all__ = ["QueryPlanner"]
 
 DELTA_CAP = 8  # per-centroid delta-buffer slots (the reference's default)
+REBUILD_ITERS = 4  # Lloyd iterations of the ladder's rebuild rung (the same)
 
 
 class QueryPlanner:
@@ -35,7 +42,9 @@ class QueryPlanner:
     [P, L] item table (the LM route's unembed rows), moved to ``device``
     (default "cuda"; see `repro_torch.device`), where ``params`` must
     already be. The index is built over beta in fp32 with
-    ``num_clusters`` clusters (default 2^round(log2 sqrt P))."""
+    ``num_clusters`` clusters (default 2^round(log2 sqrt P)).
+    ``probe_x`` arms the ladder's recall probe: without it `probe()`
+    returns None and the ladder can only watch overflow."""
 
     def __init__(
         self,
@@ -47,19 +56,15 @@ class QueryPlanner:
         num_clusters: int | None = None,
         n_probe: int | None = None,
         probe_x=None,
-        probe_k: int | None = None,
+        probe_k: int = 32,
         seed: int = 0,
         device=None,
     ):
-        if probe_x is not None or probe_k is not None:
-            raise NotImplementedError(
-                "the ladder's recall probe (probe_x / probe_k) is not ported to "
-                "repro_torch yet; it comes with the health slice"
-            )
         self.device = resolve_device(device)
         self.policy = policy
         self.params = params
         self.beta = beta = beta.to(self.device)
+        self.probe_k = min(probe_k, beta.shape[0])
         self.n_probe = n_probe or DEFAULT_N_PROBE
         index = build_ivf(beta, num_clusters=num_clusters, seed=seed, device=self.device)
         fcfg = FOPOConfig(
@@ -76,6 +81,12 @@ class QueryPlanner:
         )
         self.index_state = self.plan.initial_index_state
         self._fallback_plan = self.plan.degrade_to_fallback()
+        self._probe_h = None
+        if probe_x is not None:
+            with torch.inference_mode():
+                self._probe_h = policy.user_embedding(
+                    params, torch.as_tensor(probe_x).to(self.device)
+                )
 
     @property
     def degraded(self) -> bool:
@@ -98,7 +109,36 @@ class QueryPlanner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- degradation-ladder hooks (driven by the engine's monitor) ------
+    def probe(self) -> float | None:
+        """Sampled recall@probe_k of the live index against exact search
+        over the current beta; None when no probe set was armed. It reads
+        the result on the host, which is why the engine probes
+        periodically, not per batch."""
+        if self._probe_h is None:
+            return None
+        with torch.inference_mode():
+            return refresh_ops.sampled_recall(
+                self.index_state, self.beta, self._probe_h, self.probe_k,
+                n_probe=self.n_probe,
+            )
+
+    def overflow(self) -> int:
+        return int(self.index_state.overflow)
+
+    def heal(self, action: str) -> None:
+        """Run a compact or rebuild rung against the live state."""
+        with torch.inference_mode():
+            if action == "compact":
+                self.index_state = refresh_ops.compact(self.index_state, self.beta)
+            elif action == "rebuild":
+                self.index_state = refresh_ops.rebuild(
+                    self.index_state, self.beta, iters=REBUILD_ITERS
+                )
+            else:
+                raise ValueError(f"unknown heal action {action!r}")
+
     def degrade(self) -> None:
-        """Swap to the pre-resolved (and pre-warmed) exact-fallback plan.
-        Idempotent."""
+        """The ladder's last rung: swap to the pre-resolved (and
+        pre-warmed) exact-fallback plan. Idempotent."""
         self.plan = self._fallback_plan

@@ -10,6 +10,10 @@ A route is the engine's model adapter:
                          synchronising
     finalize(out, n)     device results -> the first n responses
 
+Routes that retrieve through a `QueryPlanner` (the MIPS routes) also
+expose the degradation-ladder hooks the engine's health monitor drives:
+probe / overflow / heal / degrade / degraded.
+
 `RecsysMIPSRoute` serves SASRec and DIEN retrieval: the user tower, then
 the plan's `execute_query` over the item table, through the `ivf_topk`
 kernel. `LMGenerateRoute` serves LM generation (Gemma-2): a batched
@@ -38,11 +42,12 @@ class RecsysMIPSRoute:
     ``params`` is the model's parameter tree (`repro_torch.models.recsys`);
     it is moved to ``device`` (default "cuda"; see `repro_torch.device`).
     The tower is SASRec's user vector or DIEN's stage-1 GRU state
-    projected into item space (`dien_user_vector`)."""
+    projected into item space (`dien_user_vector`). ``probe_hists``
+    [n, T] arms the ladder's recall probe."""
 
     def __init__(
         self, cfg, params, *, k: int = 10, n_probe: int | None = None,
-        seed: int = 0, device=None,
+        probe_hists=None, probe_k: int = 32, seed: int = 0, device=None,
     ):
         from repro_torch.models import recsys
 
@@ -62,7 +67,8 @@ class RecsysMIPSRoute:
                 tower=lambda p, hist: user_vector(cfg, p, hist),
                 item_dim=cfg.embed_dim,
             ),
-            params, params["items"], top_k=k, n_probe=n_probe, seed=seed,
+            params, params["items"], top_k=k, n_probe=n_probe, probe_k=probe_k, seed=seed,
+            probe_x=None if probe_hists is None else np.asarray(probe_hists, np.int32),
             device=self.device,
         )
 
@@ -83,6 +89,15 @@ class RecsysMIPSRoute:
     @property
     def degraded(self) -> bool:
         return self.planner.degraded
+
+    def probe(self):
+        return self.planner.probe()
+
+    def overflow(self) -> int:
+        return self.planner.overflow()
+
+    def heal(self, action: str) -> None:
+        self.planner.heal(action)
 
     def degrade(self) -> None:
         self.planner.degrade()
@@ -112,7 +127,7 @@ class LMGenerateRoute:
     def __init__(
         self, cfg, params, *, prompt_len: int, gen_len: int, max_batch: int,
         top_k: int = 4, num_clusters: int | None = None, n_probe: int | None = None,
-        probe_hidden=None, probe_k: int | None = None, seed: int = 0, device=None,
+        probe_hidden=None, probe_k: int = 32, seed: int = 0, device=None,
     ):
         from repro_torch.models import lm
 
@@ -178,6 +193,15 @@ class LMGenerateRoute:
     @property
     def degraded(self) -> bool:
         return self.planner.degraded
+
+    def probe(self):
+        return self.planner.probe()
+
+    def overflow(self) -> int:
+        return self.planner.overflow()
+
+    def heal(self, action: str) -> None:
+        self.planner.heal(action)
 
     def degrade(self) -> None:
         self.planner.degrade()

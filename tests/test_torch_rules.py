@@ -275,11 +275,17 @@ def test_lm_archs_resolve_only_when_ported(arch):
 
 
 def test_planner_probe_waits_for_the_health_slice():
+    """The health slice has landed: the planner takes ``probe_x`` /
+    ``probe_k`` and probes on the CPU (without a probe set it reports
+    None, and the ladder watches overflow only)."""
     cfg = get_arch("sasrec").SMOKE_CONFIG
     params = recsys.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    for kw in (dict(probe_x=torch.zeros((2, 4))), dict(probe_k=8)):
-        with pytest.raises(NotImplementedError, match="health slice"):
-            QueryPlanner(None, params, params["items"], top_k=4, device="cpu", **kw)
+    route = RecsysMIPSRoute(cfg, params, k=4, device="cpu")
+    assert route.probe() is None and route.overflow() == 0
+    hists = np.random.default_rng(0).integers(-1, cfg.item_vocab, (4, cfg.seq_len))
+    planner = QueryPlanner(route.planner.policy, params, params["items"], top_k=4,
+                           device="cpu", probe_x=torch.from_numpy(hists), probe_k=8)
+    assert planner.probe_k == 8 and 0.0 <= planner.probe() <= 1.0
 
 
 def test_embedding_bag_never_takes_the_plain_version_on_cuda(monkeypatch):
@@ -340,7 +346,11 @@ assert not bad, bad
      "repro_torch.kernels.embedding_bag.ref"),
     ("repro_torch.configs.din", "repro_torch.configs.dien", "repro_torch.configs.wide_deep",
      "repro_torch.models.recsys", "repro_torch.serve.routes", "repro_torch.convert"),
-], ids=["embeddings", "embedding_bag", "recsys"])
+    ("repro_torch.mips.refresh", "repro_torch.health", "repro_torch.health.guard",
+     "repro_torch.health.faults", "repro_torch.health.index_health",
+     "repro_torch.train.checkpoint", "repro_torch.train.trainer", "repro_torch.serve.planner",
+     "repro_torch.serve.engine", "repro_torch.launch.serve"),
+], ids=["embeddings", "embedding_bag", "recsys", "health"])
 def test_embedding_slice_modules_import_no_jax(modules):
     """This slice's modules, each set alone in a fresh interpreter."""
     res = subprocess.run(

@@ -31,6 +31,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import os  # noqa: E402
 import re  # noqa: E402
 import weakref  # noqa: E402
 
@@ -386,25 +387,48 @@ def test_history_has_the_reference_schema():
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    ("health", object(), "health slice"),
     ("obs", object(), "observability slice"),
-    ("checkpoint_dir", "/nonexistent", "health slice"),
-    ("fopo.index_refresh", object(), "IVF maintenance slice"),
     ("fopo.dist", object(), "dist slice"),
-    ("fault_plan", object(), "health slice"),
 ])
 def test_later_slices_raise_not_implemented(dataset, field, value, slice_name):
-    cfg, kwargs = TrainerConfig(fopo=FOPOConfig(num_items=300, retriever="exact")), {}
-    if field == "fault_plan":
-        kwargs["fault_plan"] = value
-    elif field.startswith("fopo."):
+    cfg = TrainerConfig(fopo=FOPOConfig(num_items=300, retriever="exact"))
+    if field.startswith("fopo."):
         cfg = dataclasses.replace(cfg, fopo=dataclasses.replace(cfg.fopo, **{field[5:]: value}))
     else:
         cfg = dataclasses.replace(cfg, **{field: value})
     with pytest.raises(NotImplementedError, match=slice_name):
-        FOPOTrainer(cfg, dataset, device="cpu", **kwargs)
+        FOPOTrainer(cfg, dataset, device="cpu")
     with pytest.raises(NotImplementedError, match="observability slice"):
         ObsConfig()
+
+
+@pytest.mark.parametrize("field", ["health", "checkpoint_dir", "fopo.index_refresh",
+                                   "fault_plan"])
+def test_health_and_maintenance_fields_are_taken(dataset, tmp_path, field):
+    """The fields the health and IVF maintenance slice ported: each is
+    taken, and a 2-step run goes through it."""
+    from repro_torch.health import FaultPlan, HealthConfig
+    from repro_torch.mips.ivf import build_ivf
+    from repro_torch.mips.refresh import RefreshConfig
+
+    fopo = FOPOConfig(num_items=300, num_samples=16, top_k=8, retriever="exact")
+    cfg, kwargs = TrainerConfig(fopo=fopo, batch_size=4, learning_rate=3e-3), {}
+    if field == "fault_plan":
+        kwargs["fault_plan"] = FaultPlan(nan_grads_at=(1,))
+    elif field == "fopo.index_refresh":
+        cfg = dataclasses.replace(cfg, fopo=dataclasses.replace(
+            fopo, retriever="ivf_pallas", index_refresh=RefreshConfig(minibatch=32)))
+        kwargs["retriever_kwargs"] = {"index": build_ivf(
+            torch.from_numpy(dataset.item_embeddings), num_clusters=4, device="cpu")}
+    elif field == "health":
+        cfg = dataclasses.replace(cfg, health=HealthConfig())
+    else:
+        cfg = dataclasses.replace(cfg, checkpoint_dir=str(tmp_path), checkpoint_every=2)
+    tr = FOPOTrainer(cfg, dataset, device="cpu", **kwargs)
+    hist = tr.train(2)
+    assert len(hist["loss"]) == 2 and tr.step == 2
+    if field == "checkpoint_dir":
+        assert sorted(os.listdir(tmp_path)) == ["step_0000000002"]
 
 
 # -- the CLI -------------------------------------------------------------------------
