@@ -111,6 +111,32 @@ more each:
                   actions exactly compact, rebuild, fallback; every
                   request answered; the batch after the fallback equal
                   to exact search on the CPU; compact and rebuild timed
+  5e. obs         fopo-paper with telemetry: 20 steps with
+                  `ObsConfig(run_dir, DriftConfig())` and 20 without, from
+                  the same theta, Adam state and step seeds, through the
+                  `pallas` route (K6, K5, K1-K4): parameters, Adam state,
+                  losses and diagnostics bitwise equal; metrics.jsonl holds
+                  every record drained; trace.json the plan's spans;
+                  `repro_torch.obs.report` renders the loss / ESS rows and
+                  the 14 drift points; then 4 steps with
+                  torch_profiler=True, whose exported trace must name K6's,
+                  K5's, K2's and K4's kernels; the byte model's predicted
+                  step time, the calibrated scale and step p50 with
+                  telemetry on and off logged (host-bound, not gated)
+  4c. cluster     SASRec cluster serving at full width: 3 `RecsysMIPSRoute`
+                  replicas (each builds its own index from the same weights
+                  and seed), max_batch 8, phase 4's 64 requests at qps 0.
+                  Drill A, twice: a fixed service time (5 ms a batch),
+                  `ReplicaFaultPlan(die=((1, 1),))`, max_failures 1: all
+                  64 answered, one death, the two event traces equal, each
+                  answer held to K7's plain version over the answering
+                  replica's index, K7 launched on each survivor and no
+                  plain version. Drill B: the card's measured service
+                  times, no fault, against one engine (virtual p50 / p99,
+                  req/s, the per-replica split). Then
+                  `launch.serve --arch sasrec --replicas 3 --chaos
+                  --obs-dir` in-process: its report has its Serving and
+                  Cluster sections
   6. embedding    the embedding-bag kernel (K8) against its plain version,
                   bit for bit: small shapes (D 1, 18, 32, 128, 130, 132,
                   264; T 1, 7, 100, 129, 300: past a round of 128 ids;
@@ -222,6 +248,9 @@ TRAIN_STEPS, REPLAY_STEPS, PROFILED_STEPS, TS = 20, 3, 3, 8
 # the guard drills' steps; the serving ladder's requests
 MAINTAIN_STEPS, CHURN_EVERY, CHURN_ROWS, HELD_USERS, RECALL_K = 80, 8, 512, 128, 64
 GUARD_STEPS, LADDER_REQUESTS = 6, 32
+# telemetry: steps with and without it, then steps under torch.profiler;
+# the cluster: replicas and drill A's fixed service seconds a batch
+OBS_STEPS, PROF_STEPS, CLUSTER_REPLICAS, CLUSTER_SERVICE_S = 20, 4, 3, 0.005
 LM_PROMPT, LM_GEN, LM_BATCH, LM_REQUESTS, LM_TOP_K = 2048, 16, 8, 16, 4
 BF16_RTOL = 2.0**-7  # one bf16 ulp at the bottom of a binade
 LM_HIDDEN_REL = 5e-2  # bf16 prefill hidden states, kernel vs plain path (relative L2)
@@ -1843,6 +1872,305 @@ def serve_ladder_phase(cfg, params) -> dict:
     return dict(heal_ms=heal_ms, seconds=secs, peak_gb=peak)
 
 
+def obs_phase(ds, theta0) -> dict:
+    """fopo-paper with telemetry (phase 5e): 20 steps with an `ObsConfig`
+    (run directory, trace, drift monitor) and 20 without, from the same
+    theta, Adam state and step seeds, bitwise equal; the run directory's
+    JSONL stream, spans and rendered report; then 4 steps under
+    `torch.profiler`, whose exported trace must name the kernels."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.fused_sampler import kernel as fk, ref as fr
+    from repro_torch.kernels.mips_topk import kernel as mk, ref as mr
+    from repro_torch.kernels.snis_covgrad import kernel as sk, ref as sr
+    from repro_torch.obs import DriftConfig, ObsConfig
+    from repro_torch.obs import report as obs_report
+    from repro_torch.obs.drift import predict_step_bytes, predict_step_seconds
+    from repro_torch.obs.schema import HISTORY_SCHEMA
+    from repro_torch.obs.trace import PROFILE_FILE
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import FOPOTrainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    paper = get_arch("fopo-paper").CONFIG
+    fopo = dataclasses.replace(paper.fopo, retriever="pallas", fused=True, fused_sampler=True,
+                               sample_tile=TS)
+    seeds = np.random.default_rng(23).integers(0, 2**31 - 1, OBS_STEPS + PROF_STEPS)
+
+    def make(obs):
+        cfg = TrainerConfig(estimator="fopo", fopo=fopo, batch_size=paper.batch_size,
+                            learning_rate=paper.learning_rate, num_steps=OBS_STEPS, seed=0,
+                            obs=obs)
+        return FOPOTrainer(cfg, ds, device="cuda", params=theta0,
+                           step_seeds=lambda step: int(seeds[step]))
+
+    launch_fns = (mk.mips_topk_cuda, fk.fused_sampler_cuda, sk.snis_fwd_cuda, sk.snis_bwd_cuda)
+    plain_fns = (mr.mips_topk_ref, fr.fused_sampler_ref, sr.snis_fwd_ref, sr.snis_bwd_ref)
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        off = make(None)
+        on = make(ObsConfig(run_dir=run_dir, drift=DriftConfig()))
+        for fn in launch_fns:
+            fn.launches = 0
+        for fn in plain_fns:
+            fn.calls = 0
+        h_off = off.train(OBS_STEPS)
+        h_on = on.train(OBS_STEPS)
+        counts = {f"{fn.__name__}.launches": fn.launches for fn in launch_fns}
+        for fn in launch_fns:
+            check(fn.launches == 2 * OBS_STEPS,
+                  f"{fn.__name__} launched {fn.launches} times in 2 x {OBS_STEPS} steps")
+        for fn in plain_fns:
+            check(fn.calls == 0, f"the plain version {fn.__name__} ran {fn.calls} times")
+        leaves_off = tree_leaves([off.params, off.opt_state])
+        leaves_on = tree_leaves([on.params, on.opt_state])
+        equal = len(leaves_off) == len(leaves_on) and all(
+            torch.equal(a, b) for a, b in zip(leaves_off, leaves_on))
+        diverged = next((t for t in range(OBS_STEPS) if any(
+            h_off[k][t] != h_on[k][t] for k in ("loss", "ess", "rbar", "max_wbar"))), None)
+        check(equal and diverged is None,
+              f"telemetry changed the run: parameters / Adam state equal {equal}, first "
+              f"step whose loss or diagnostics differ {diverged}")
+        # the JSONL stream holds every record drained: the history's lists
+        lines = [json.loads(x) for x in open(os.path.join(run_dir, "metrics.jsonl"))]
+        drained = sum(len(h_on[k]) for k, (kind, _) in HISTORY_SCHEMA.items()
+                      if kind != "scalar")
+        check(len(lines) == drained, f"metrics.jsonl holds {len(lines)} of {drained} records")
+        per_name = {n: sum(r["name"] == n for r in lines)
+                    for n in ("loss", "step_time", "ess", "rbar", "max_wbar", "drift")}
+        drift_n = OBS_STEPS - 1 - DriftConfig().calibration_steps
+        check(all(per_name[n] == OBS_STEPS for n in ("loss", "step_time", "ess", "rbar",
+                                                      "max_wbar")),
+              f"metrics.jsonl records by name {per_name}")
+        check(per_name["drift"] == len(h_on["drift"]) == drift_n,
+              f"drift points {per_name['drift']} / {len(h_on['drift'])}, expected {drift_n}")
+        spans = json.load(open(os.path.join(run_dir, "trace.json")))["traceEvents"]
+        names = {e["name"] for e in spans}
+        want = {"dispatch", "drain", "user_embedding", "retrieval", "sample", "reward",
+                "surrogate"}
+        check(want <= names, f"trace.json lacks spans {sorted(want - names)}")
+        obs_report.main([run_dir])
+        text = open(os.path.join(run_dir, "report.md")).read()
+        csv = text.split("point,drift_ratio\n", 1)[-1].split("```", 1)[0].splitlines()
+        check(f"| loss | {OBS_STEPS} |" in text and f"| ess | {OBS_STEPS} |" in text
+              and "## Roofline drift" in text and len(csv) == drift_n,
+              "the rendered report lacks the loss / ESS rows or the drift series")
+
+        # the profiler: 4 more steps, its trace must name the kernels
+        prof_dir = os.path.join(run_dir, "profiled")
+        on.cfg = dataclasses.replace(on.cfg, obs=ObsConfig(run_dir=prof_dir, drift=None,
+                                                           torch_profiler=True))
+        on.train(PROF_STEPS)
+        path = os.path.join(prof_dir, "torchprof", PROFILE_FILE)
+        check(os.path.exists(path), "torch.profiler did not start or export its trace")
+        events = json.load(open(path))["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        symbols = {"K6": ("mips_probe_kernel", "mips_merge_kernel"),
+                   "K5": ("fused_sampler_kernel",), "K2": ("snis_fwd_scores",),
+                   "K4": ("snis_bwd_kernel",)}
+        found = {s: sum(s in k for k in kernels) for syms in symbols.values() for s in syms}
+        check(all(found.values()), f"the profiler's trace lacks kernels: {found} "
+              f"({len(kernels)} kernel events, categories "
+              f"{sorted({str(e.get('cat')) for e in events})})")
+        prof_mb = os.path.getsize(path) / 1e6
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    pred = predict_step_bytes(on.plan, paper.batch_size, paper.embed_dim)
+    pred_s = predict_step_seconds(on.plan, paper.batch_size, paper.embed_dim)
+    st_on, st_off = h_on["step_time"], h_off["step_time"]
+    p50_on, p50_off = percentile(st_on[1:], 50) * 1e3, percentile(st_off[1:], 50) * 1e3
+    scale = float(np.median(st_on[1:1 + DriftConfig().calibration_steps])) / pred_s
+    # train()'s wall time a step after step 0, the drains, the JSONL writes
+    # and trace.json included: what telemetry adds on the host outside step_time
+    wall_on, wall_off = ((h["total_time"] - h["step_time"][0]) / (OBS_STEPS - 1) * 1e3
+                         for h in (h_on, h_off))
+    secs = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[obs] fopo-paper (pallas, fused, fused_sampler, TS {TS}): {OBS_STEPS} steps with "
+        f"ObsConfig(run_dir, DriftConfig()) and {OBS_STEPS} without, from the same theta, "
+        f"Adam state and seeds: parameters, Adam state, losses and diagnostics bitwise "
+        f"equal; launches {counts}, no plain version; metrics.jsonl {len(lines)} records "
+        f"(every record drained: {per_name}); trace.json {len(spans)} spans ({sorted(want)} "
+        f"present); report.md rendered with the loss / ESS rows and {drift_n} drift points")
+    log(f"[obs] the byte model: {pred['total_bytes'] / 1e6:.1f} MB a step (snis "
+        f"{pred['snis_bytes'] / 1e6:.2f}, sampler {pred['sampler_bytes'] / 1e6:.2f}, "
+        f"retrieval {pred['retrieval_bytes'] / 1e6:.2f}) = {pred_s * 1e3:.4f} ms at 3.35 TB/s; "
+        f"measured step p50 {p50_on:.3f} ms with telemetry, {p50_off:.3f} without (steps "
+        f"1-{OBS_STEPS - 1}; host clock, synchronized); train()'s wall time a step (after "
+        f"step 0) {wall_on:.3f} ms "
+        f"with telemetry, {wall_off:.3f} without; calibrated scale {scale:.1f}; "
+        f"drift EMA last {h_on['drift'][-1]:.3f}, {len(h_on['drift_events'])} excursion "
+        f"warning(s)")
+    log(f"[obs] torch.profiler over {PROF_STEPS} steps: {len(kernels)} kernel events in a "
+        f"{prof_mb:.1f} MB Chrome trace, by symbol {found}")
+    log(f"[obs] phase took {secs:.1f} s, peak device memory {peak:.2f} GB")
+    return dict(counts=counts, p50_on_ms=p50_on, p50_off_ms=p50_off, wall_on_ms=wall_on,
+                wall_off_ms=wall_off, predicted_ms=pred_s * 1e3, scale=scale, seconds=secs,
+                peak_gb=peak)
+
+
+def cluster_phase(cfg, params, payloads) -> dict:
+    """SASRec cluster serving at full width (phase 4c): 3 replicas, each
+    building its own index from the same weights and seed. Drill A, run
+    twice: a fixed service time, replica 1 dies at its first dispatch;
+    every request answered, one death, equal event traces, each answer
+    held to K7's plain version over the answering replica's index, K7
+    launched on each survivor and no plain version. Drill B: the card's
+    own service times, no fault, against one engine. Then the serving CLI
+    with ``--replicas 3 --chaos --obs-dir``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.health import ReplicaFaultPlan
+    from repro_torch.kernels.ivf_topk import kernel as ik, ops, ref as ir
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.mips.refresh import RefreshState
+    from repro_torch.models import recsys
+    from repro_torch.obs.report import render_run
+    from repro_torch.serve import (
+        CoalescePolicy,
+        Dispatcher,
+        DispatchPolicy,
+        RecsysMIPSRoute,
+        ServingEngine,
+    )
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    routes = [RecsysMIPSRoute(cfg, params, k=K_SERVE, n_probe=N_PROBE, device=dev)
+              for _ in range(CLUSTER_REPLICAS)]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    coalesce = CoalescePolicy(max_batch=MAX_BATCH, max_wait_s=0.002)
+
+    # drill A, twice: a fixed service time, replica 1 dies at its first dispatch
+    traces, first = [], None
+    for _ in range(2):
+        disp = Dispatcher(routes, coalesce, DispatchPolicy(max_failures=1),
+                          fault_plan=ReplicaFaultPlan(die=((1, 1),)),
+                          service_model=lambda measured, batch_no: CLUSTER_SERVICE_S)
+        disp.warmup()
+        ik.ivf_probe_topk_cuda.launches = 0
+        ir.ivf_probe_topk_ref.calls = 0
+        for p in payloads:
+            disp.submit(p, 0.0)
+        res = disp.drain()
+        launches, plain = ik.ivf_probe_topk_cuda.launches, ir.ivf_probe_topk_ref.calls
+        split = disp.per_replica()
+        survivors = [r for r in split if r["alive"]]
+        check(len(res) == len(payloads) and not res.unanswered,
+              f"drill A answered {len(res)}/{len(payloads)}, {len(res.unanswered)} unanswered")
+        check(disp.bus.total("serve_replica_deaths") == 1 and not disp.replicas[1].alive,
+              f"deaths {disp.bus.total('serve_replica_deaths')}")
+        check(len(survivors) == CLUSTER_REPLICAS - 1 and all(r["batches"] > 0 for r in survivors),
+              f"a survivor served nothing: {split}")
+        check(launches == 2 * sum(r["batches"] for r in survivors),
+              f"ivf_topk launched {launches} times for {[r['batches'] for r in survivors]} "
+              "batches on the survivors (expected main + delta a batch)")
+        check(plain == 0, f"the plain version ran {plain} times on the card")
+        traces.append(disp.event_trace())
+        if first is None:
+            first = (disp, res, launches, split)
+    check(traces[0] == traces[1], "the two drills' event traces differ")
+    disp, res, launches_a, split_a = first
+    # each answer against K7's plain version over the answering replica's index
+    with torch.inference_mode():
+        h = recsys.sasrec_user_vector(
+            cfg, routes[0].planner.params, torch.from_numpy(np.stack(payloads)).to(dev))
+    err = 0.0
+    for rep in sorted({r.replica for r in res}):
+        recs = [r for r in res if r.replica == rep]
+        planner = routes[rep].planner
+        st = RefreshState(*(t.cpu() for t in planner.index_state))
+        exp = ops.ivf_topk(h[[r.rid for r in recs]].cpu(), st.as_index(cfg.item_vocab),
+                           K_SERVE, n_probe=planner.n_probe, delta=st.delta())
+        served = (torch.from_numpy(np.stack([r.result[1] for r in recs])).to(dev),
+                  torch.from_numpy(np.stack([r.result[0] for r in recs])).to(dev))
+        err = max(err, topk_err(served, (exp.scores.to(dev), exp.indices.to(dev)),
+                                f"cluster drill A replica {rep}"))
+    kinds = {}
+    for e in traces[0]:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    lats_a = disp.latencies()
+    log(f"[cluster] SASRec at full width, {CLUSTER_REPLICAS} replicas (each built its own "
+        f"index: {build_s:.2f} s for the {CLUSTER_REPLICAS}), max_batch {MAX_BATCH}, "
+        f"{len(payloads)} requests at qps 0")
+    log(f"[cluster] drill A (service {CLUSTER_SERVICE_S * 1e3:g} ms a batch, replica 1 dies "
+        f"at its first dispatch, max_failures 1), twice: {len(res)}/{len(payloads)} answered, "
+        f"0 unanswered, deaths 1, retries {disp.bus.total('serve_retries'):g}, events "
+        f"{kinds}, the two event traces equal ({len(traces[0])} events); load "
+        f"{[(r['replica'], r['batches'], r['requests'], r['alive']) for r in split_a]}; "
+        f"ivf_topk launches {launches_a} (main + delta a batch on the survivors), plain-version "
+        f"calls 0; answers held to K7's plain version on the CPU over the answering "
+        f"replica's index (max |score diff| {err:.3g}); virtual p50 "
+        f"{percentile(lats_a, 50) * 1e3:.3f} ms, p99 {percentile(lats_a, 99) * 1e3:.3f} ms")
+
+    # drill B: the card's own service times, no fault, against one engine
+    single = ServingEngine(routes[0], coalesce)
+    single.warmup()
+    disp_b = Dispatcher(routes, coalesce, DispatchPolicy())
+    disp_b.warmup()
+    ik.ivf_probe_topk_cuda.launches = 0
+    ir.ivf_probe_topk_ref.calls = 0
+    for p in payloads:
+        single.submit(p, 0.0)
+    one = single.drain()
+    for p in payloads:
+        disp_b.submit(p, 0.0)
+    res_b = disp_b.drain()
+    launches_b = ik.ivf_probe_topk_cuda.launches
+    check(len(one) == len(res_b) == len(payloads) and not res_b.unanswered,
+          f"drill B answered {len(one)} (one engine) and {len(res_b)} (cluster)")
+    batches_b = single.batches + sum(r["batches"] for r in disp_b.per_replica())
+    check(launches_b == 2 * batches_b and ir.ivf_probe_topk_ref.calls == 0,
+          f"drill B: ivf_topk launched {launches_b} times for {batches_b} batches, plain "
+          f"version {ir.ivf_probe_topk_ref.calls} calls")
+    out = {}
+    for tag, recs in (("one engine", one), ("cluster", res_b)):
+        lats = [r.latency for r in recs]
+        span_s = max(r.finish for r in recs) - min(r.arrival for r in recs)
+        out[tag] = dict(p50_ms=percentile(lats, 50) * 1e3, p99_ms=percentile(lats, 99) * 1e3,
+                        req_s=len(recs) / span_s, makespan_ms=span_s * 1e3)
+    log(f"[cluster] drill B (the card's measured service times, no fault): one engine "
+        f"p50 {out['one engine']['p50_ms']:.3f} ms, p99 {out['one engine']['p99_ms']:.3f}, "
+        f"{out['one engine']['req_s']:.1f} req/s (makespan "
+        f"{out['one engine']['makespan_ms']:.3f} ms) in {single.batches} batches; "
+        f"{CLUSTER_REPLICAS} replicas p50 {out['cluster']['p50_ms']:.3f} ms, p99 "
+        f"{out['cluster']['p99_ms']:.3f}, {out['cluster']['req_s']:.1f} req/s (makespan "
+        f"{out['cluster']['makespan_ms']:.3f} ms); per replica "
+        f"{[(r['replica'], r['batches'], r['requests']) for r in disp_b.per_replica()]} "
+        f"(virtual clocks: the replicas' batches ran one after another on this card)")
+
+    # the CLI: --replicas 3 --chaos --obs-dir, in-process
+    d = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    try:
+        serve_cli.main(["--arch", "sasrec", "--replicas", str(CLUSTER_REPLICAS), "--chaos",
+                        "--obs-dir", d])
+        text = open(render_run(d)).read()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check("## Serving" in text and "## Cluster" in text,
+          "the CLI run's report lacks its Serving or Cluster section")
+    secs = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[cluster] launch.serve --arch sasrec --replicas {CLUSTER_REPLICAS} --chaos "
+        f"--obs-dir: every request answered, the report has its Serving and Cluster "
+        f"sections; phase {secs:.1f} s, peak device memory {peak:.2f} GB")
+    return dict(launches=launches_a + launches_b, max_abs_err=err, drill_b=out, seconds=secs,
+                peak_gb=peak)
+
+
 # ---------------------------------------------------------------------------
 # embedding_bag (K8): kernel vs plain version, and its path at a DLRM shape
 # ---------------------------------------------------------------------------
@@ -3191,9 +3519,9 @@ def percentile(values: list[float], p: float) -> float:
     return vs[min(len(vs) - 1, max(0, round(p / 100.0 * (len(vs) - 1))))]
 
 
-def new_phases(ds, theta0, cfg, params) -> tuple:
-    """The phases of the maintained index, the guard, the checkpoint and
-    the serving ladder (5b-5d, 4b)."""
+def new_phases(ds, theta0, cfg, params, payloads) -> tuple:
+    """The phases of the maintained index, the guard, the checkpoint,
+    telemetry, the serving ladder and the cluster (5b-5e, 4b, 4c)."""
     import torch
 
     log("[maintain] fopo-paper on the maintained index (retriever=ivf_pallas, "
@@ -3203,9 +3531,13 @@ def new_phases(ds, theta0, cfg, params) -> tuple:
     cres = checkpoint_phase(mres["tr"], ds, theta0, mres["index0"])
     del mres["tr"], mres["index0"]
     torch.cuda.empty_cache()
+    ores = obs_phase(ds, theta0)
+    torch.cuda.empty_cache()
     lad = serve_ladder_phase(cfg, params)
     torch.cuda.empty_cache()
-    return mres, gres, cres, lad
+    clu = cluster_phase(cfg, params, payloads)
+    torch.cuda.empty_cache()
+    return mres, gres, cres, ores, lad, clu
 
 
 def main() -> int:
@@ -3349,7 +3681,8 @@ def main() -> int:
 
     # 5b-5d. the maintained index, the guard and its faults, a checkpoint;
     # 4b. the serving ladder at full SASRec width
-    mres, gres, cres, lad = new_phases(ds, theta0, cfg, params)
+    # 5e. telemetry; 4c. the cluster at full SASRec width
+    mres, gres, cres, ores, lad, clu = new_phases(ds, theta0, cfg, params, payloads)
     del ds, theta0, route, planner, state, index, users, engine
     torch.cuda.empty_cache()
 
@@ -3396,9 +3729,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/ivf_topk/kernel.py:86",
         "launches": (launches + lres["counts"]["ivf_probe_topk_cuda.launches"]
                      + sum(r["ivf_launches"] for r in rres.values())
-                     + mres["counts"]["ivf_probe_topk_cuda.launches"]),
+                     + mres["counts"]["ivf_probe_topk_cuda.launches"]
+                     + clu["launches"]),
         "max_abs_err": max(kres["max_abs_err"], lres["ivf_lm"]["max_abs_err"],
-                           mres["k7_err"]),
+                           mres["k7_err"], clu["max_abs_err"]),
         "ms": t["ms"],
         "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -3431,7 +3765,8 @@ def main() -> int:
             "source": str(source.relative_to(ROOT)),
             "replaces": replaces,
             "launches": (tres["counts"][f"{launch_fn.__name__}.launches"]
-                         + mres["counts"][f"{launch_fn.__name__}.launches"]),
+                         + mres["counts"][f"{launch_fn.__name__}.launches"]
+                         + ores["counts"][f"{launch_fn.__name__}.launches"]),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

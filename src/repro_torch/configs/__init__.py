@@ -39,6 +39,6 @@ def get_arch(arch_id: str) -> types.ModuleType:
         raise NotImplementedError(
             f"arch {arch_id!r} is not ported to repro_torch yet (ported: "
             f"{sorted(PORTED)}); it comes with the models slice (ROADMAP Queue A "
-            "item 10)"
+            "item 6)"
         )
     return importlib.import_module(f"repro_torch.configs.{PORTED[arch_id]}")

@@ -12,9 +12,9 @@ sign bits, unlike ``g + 0.0``).
 Faults fire ONCE by default: after the guard rolls the trainer back and
 replays the same step numbers, a fired fault stays quiet, so recovery
 re-converges instead of tripping forever on its own injection. The
-reference's module (`repro/health/faults.py`), for one device: the
-replica death plans (`ReplicaDeath`, `ReplicaFaultPlan`) wait for the
-cluster slice.
+reference's module (`repro/health/faults.py`), for one device, with the
+serving cluster's scripted replica faults (`ReplicaDeath`,
+`ReplicaFaultPlan`).
 """
 from __future__ import annotations
 
@@ -32,7 +32,9 @@ __all__ = [
     "CLEAR_SIGNALS",
     "FaultPlan",
     "KILL_EXIT_CODE",
+    "ReplicaDeath",
     "ReplicaFailure",
+    "ReplicaFaultPlan",
     "SimulatedPreemption",
     "corrupt_checkpoint",
     "corrupt_index_state",
@@ -146,6 +148,80 @@ class ReplicaFailure(RuntimeError):
     .abandoned) instead of propagating — anything else is a bug and must
     surface. Raise it (or a subclass) from a route to model a replica
     that cannot answer."""
+
+
+class ReplicaDeath(ReplicaFailure):
+    """Hard replica death: every dispatch fails until a revive."""
+
+    def __init__(self, replica: int, dispatch: int):
+        super().__init__(f"replica {replica} dead (dispatch #{dispatch})")
+        self.replica = replica
+        self.dispatch = dispatch
+
+
+@dataclasses.dataclass
+class ReplicaFaultPlan:
+    """Scripted replica-level faults for the serving cluster's chaos
+    drills. All schedules count DETERMINISTIC per-replica events — a
+    replica's own dispatch number (1-based, incremented per batch it is
+    asked to serve, hedged backups included) or its own health-check
+    tick — never wall time, so the same plan against the same request
+    stream replays the same fault sequence bit for bit.
+
+    die             ((replica, dispatch_no), ...): hard death — that
+                    dispatch and every later one raises `ReplicaDeath`
+                    until a revive fires (each entry fires once, so a
+                    revived replica stays up)
+    slow_from       ((replica, dispatch_no, extra_s), ...): latency
+                    injection — every dispatch >= dispatch_no adds
+                    extra_s VIRTUAL seconds to the batch's service time
+                    (what drives timeout/hedge decisions)
+    flaky_probe_at  ((replica, check_no), ...): the replica's check_no-th
+                    health probe lies "dead" while the replica is fine —
+                    the dispatcher's max_failures threshold is what
+                    keeps one lie from killing a healthy replica
+    revive_at       ((replica, check_no), ...): a dead replica respawns
+                    at its check_no-th health check; the dispatcher
+                    still demands a passing warm-up probe before routing
+                    traffic back
+    """
+
+    die: tuple = ()
+    slow_from: tuple = ()
+    flaky_probe_at: tuple = ()
+    revive_at: tuple = ()
+
+    def __post_init__(self):
+        self._dead: set[int] = set()
+        self._fired: set[int] = set()
+
+    def dispatch_fault(self, replica: int, dispatch_no: int):
+        """Consulted once per dispatch: "die", extra virtual seconds
+        (float > 0), or None (clean)."""
+        if replica not in self._dead:
+            for i, (r, d) in enumerate(self.die):
+                if r == replica and dispatch_no >= d and i not in self._fired:
+                    self._fired.add(i)
+                    self._dead.add(replica)
+                    break
+        if replica in self._dead:
+            return "die"
+        extra = sum(
+            s for r, d, s in self.slow_from if r == replica and dispatch_no >= d
+        )
+        return extra or None
+
+    def probe_alive(self, replica: int, check_no: int) -> bool:
+        """The liveness bit the dispatcher's health check reads (may
+        lie). Processing a scheduled revive happens here — the health
+        check IS the respawned replica's warm-up probe."""
+        if any(r == replica and check_no >= c for r, c in self.revive_at):
+            self._dead.discard(replica)
+        if replica in self._dead:
+            return False
+        return not any(
+            r == replica and c == check_no for r, c in self.flaky_probe_at
+        )
 
 
 def corrupt_checkpoint(directory: str, step: int, mode: str = "truncate") -> str:

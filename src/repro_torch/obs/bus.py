@@ -1,15 +1,16 @@
 """The metrics bus: typed counters/gauges/timings/events with labels.
 
-One recording discipline for the serving loop (and, in later slices,
-the trainer): a record call NEVER reads a device value. Gauges accept a
+One recording discipline for the trainer, the health layer and the
+serving loop: a record call NEVER reads a device value. Gauges accept a
 device scalar (a tensor whose kernel may still be running) and store it
 as is; `drain()`, called by the owner after its own
 `torch.cuda.synchronize`, is the only place values are materialised
 and handed to the sinks. The hot loop therefore pays list appends,
 never a host sync.
 
-Sinks are pluggable (`repro_torch.obs.sinks`); this slice ports the
-human log-line sink the serving CLI prints through.
+Sinks are pluggable (`repro_torch.obs.sinks`): an in-memory ring (the
+trainer's history backing), a JSONL file (the run report's input) and
+human log lines.
 """
 from __future__ import annotations
 

@@ -4,7 +4,10 @@ The reference's `repro/obs/schema.py`, copied: `FOPOTrainer.train`
 returns a ``history`` dict in the same form as the reference's,
 `empty_history` gives its canonical empty shape, `validate_history`
 rejects undeclared keys, and `history_from_records` folds the bus's
-drained records (through a `RingSink`) back into the dict.
+drained records (through a `RingSink`) back into the dict. The serving
+engine's and the cluster dispatcher's keys are bus-only: they ride the
+JSONL stream and the report's Serving and Cluster sections, not the
+history.
 """
 from __future__ import annotations
 
@@ -13,6 +16,10 @@ __all__ = [
     "HISTORY_SCHEMA",
     "SCALAR_KEYS",
     "SERIES_KEYS",
+    "SERVE_CLUSTER_COUNTER_KEYS",
+    "SERVE_CLUSTER_TIMING_KEYS",
+    "SERVE_GAUGE_KEYS",
+    "SERVE_TIMING_KEYS",
     "empty_history",
     "history_from_records",
     "validate_history",
@@ -39,6 +46,27 @@ HISTORY_SCHEMA: dict[str, tuple[str, str]] = {
 SERIES_KEYS = tuple(k for k, (kind, _) in HISTORY_SCHEMA.items() if kind == "series")
 EVENT_KEYS = tuple(k for k, (kind, _) in HISTORY_SCHEMA.items() if kind == "events")
 SCALAR_KEYS = tuple(k for k, (kind, _) in HISTORY_SCHEMA.items() if kind == "scalar")
+
+# the serving engine's metrics (repro_torch.serve.engine), bus-only
+SERVE_TIMING_KEYS = ("serve_queue_wait", "serve_latency", "serve_batch_service")
+SERVE_GAUGE_KEYS = ("serve_batch_size", "serve_occupancy")
+
+# the cluster dispatcher's metrics (repro_torch.serve.cluster), bus-only:
+# the counters tell the chaos story; the timings are a request's cluster
+# view (original arrival -> winning finish, retries and backoff
+# included), where the engine's serve_latency is one attempt's
+SERVE_CLUSTER_COUNTER_KEYS = (
+    "serve_requests",
+    "serve_abandoned",
+    "serve_retries",
+    "serve_hedges",
+    "serve_timeouts",
+    "serve_deadline_misses",
+    "serve_replica_deaths",
+    "serve_rebalances",
+    "serve_readmissions",
+)
+SERVE_CLUSTER_TIMING_KEYS = ("serve_cluster_latency", "serve_cluster_queue_wait")
 
 def empty_history() -> dict:
     """The canonical shape: every declared list key present and empty

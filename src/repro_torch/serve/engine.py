@@ -30,6 +30,10 @@ Telemetry (repro_torch.obs bus, drained once per batch):
     serve_abandoned      counter, requests a failed dispatch returned
     index_health         events, when the degradation ladder is armed
 
+An engine owned by a cluster replica carries ``labels={"replica": i}``
+on every record, so per-replica occupancy and queue-wait series come
+out of the one shared bus.
+
 The ladder rides as in the trainer: an `IndexHealthConfig` (``health=``)
 arms an `IndexHealthMonitor`; every ``probe_every`` batches the route's
 sampled-recall probe and overflow counter feed `observe()`, and the
@@ -108,11 +112,13 @@ class ServingEngine:
         bus: MetricsBus | None = None,
         health=None,  # IndexHealthConfig | None: arms the ladder
         service_model: Callable[[float, int], float] | None = None,
+        labels: dict | None = None,
     ):
         self.route = route
         self.policy = policy or CoalescePolicy()
         self.bus = bus if bus is not None else MetricsBus()
         self.service_model = service_model
+        self.labels = dict(labels or {})
         self.monitor = None
         if health is not None:
             from repro_torch.health.index_health import IndexHealthMonitor
@@ -192,7 +198,7 @@ class ServingEngine:
                     _synchronize(self.route.device)
                 measured = time.perf_counter() - t0
         except ReplicaFailure as exc:
-            self.bus.counter("serve_abandoned", size)
+            self.bus.counter("serve_abandoned", size, **self.labels)
             self.bus.drain()
             return DrainResult([], abandoned=batch, failure=exc)
         service = (
@@ -211,14 +217,21 @@ class ServingEngine:
             )
             recs.append(rec)
             self.records.append(rec)
-            self.bus.timing("serve_queue_wait", rec.queue_wait, step=req.rid)
-            self.bus.timing("serve_latency", rec.latency, step=req.rid)
-        self.bus.timing("serve_batch_service", service, step=self.batches)
-        self.bus.gauge("serve_batch_size", float(size), step=self.batches)
-        self.bus.gauge(
-            "serve_occupancy", size / self.policy.max_batch, step=self.batches
+            self.bus.timing(
+                "serve_queue_wait", rec.queue_wait, step=req.rid, **self.labels
+            )
+            self.bus.timing("serve_latency", rec.latency, step=req.rid, **self.labels)
+        self.bus.timing(
+            "serve_batch_service", service, step=self.batches, **self.labels
         )
-        self.bus.counter("serve_requests", size)
+        self.bus.gauge(
+            "serve_batch_size", float(size), step=self.batches, **self.labels
+        )
+        self.bus.gauge(
+            "serve_occupancy", size / self.policy.max_batch,
+            step=self.batches, **self.labels,
+        )
+        self.bus.counter("serve_requests", size, **self.labels)
         self.batches += 1
         self._maybe_probe()
         self.bus.drain()

@@ -31,9 +31,6 @@ from repro_torch.mips.refresh import RefreshConfig
 
 __all__ = ["QueryPlanner"]
 
-DELTA_CAP = 8  # per-centroid delta-buffer slots (the reference's default)
-REBUILD_ITERS = 4  # Lloyd iterations of the ladder's rebuild rung (the same)
-
 
 class QueryPlanner:
     """One policy + one beta table + one resolved plan, serving queries.
@@ -42,7 +39,9 @@ class QueryPlanner:
     [P, L] item table (the LM route's unembed rows), moved to ``device``
     (default "cuda"; see `repro_torch.device`), where ``params`` must
     already be. The index is built over beta in fp32 with
-    ``num_clusters`` clusters (default 2^round(log2 sqrt P)).
+    ``num_clusters`` clusters (default 2^round(log2 sqrt P)), each list
+    with ``delta_cap`` delta-buffer slots; the ladder's rebuild rung runs
+    ``rebuild_iters`` Lloyd iterations.
     ``probe_x`` arms the ladder's recall probe: without it `probe()`
     returns None and the ladder can only watch overflow."""
 
@@ -55,8 +54,10 @@ class QueryPlanner:
         top_k: int,
         num_clusters: int | None = None,
         n_probe: int | None = None,
+        delta_cap: int = 8,
         probe_x=None,
         probe_k: int = 32,
+        rebuild_iters: int = 4,
         seed: int = 0,
         device=None,
     ):
@@ -66,6 +67,7 @@ class QueryPlanner:
         self.beta = beta = beta.to(self.device)
         self.probe_k = min(probe_k, beta.shape[0])
         self.n_probe = n_probe or DEFAULT_N_PROBE
+        self.rebuild_iters = rebuild_iters
         index = build_ivf(beta, num_clusters=num_clusters, seed=seed, device=self.device)
         fcfg = FOPOConfig(
             num_items=beta.shape[0],
@@ -73,7 +75,7 @@ class QueryPlanner:
             top_k=top_k,
             retriever="ivf_pallas",
             index_refresh=RefreshConfig(
-                every=0, compact_every=0, delta_cap=DELTA_CAP
+                every=0, compact_every=0, delta_cap=delta_cap
             ),
         )
         self.plan = ExecutionPlan.resolve(
@@ -133,7 +135,7 @@ class QueryPlanner:
                 self.index_state = refresh_ops.compact(self.index_state, self.beta)
             elif action == "rebuild":
                 self.index_state = refresh_ops.rebuild(
-                    self.index_state, self.beta, iters=REBUILD_ITERS
+                    self.index_state, self.beta, iters=self.rebuild_iters
                 )
             else:
                 raise ValueError(f"unknown heal action {action!r}")

@@ -46,8 +46,9 @@ class RecsysMIPSRoute:
     [n, T] arms the ladder's recall probe."""
 
     def __init__(
-        self, cfg, params, *, k: int = 10, n_probe: int | None = None,
-        probe_hists=None, probe_k: int = 32, seed: int = 0, device=None,
+        self, cfg, params, *, k: int = 10, num_clusters: int | None = None,
+        n_probe: int | None = None, probe_hists=None, probe_k: int = 32,
+        rebuild_iters: int = 4, seed: int = 0, device=None,
     ):
         from repro_torch.models import recsys
 
@@ -67,7 +68,8 @@ class RecsysMIPSRoute:
                 tower=lambda p, hist: user_vector(cfg, p, hist),
                 item_dim=cfg.embed_dim,
             ),
-            params, params["items"], top_k=k, n_probe=n_probe, probe_k=probe_k, seed=seed,
+            params, params["items"], top_k=k, num_clusters=num_clusters, n_probe=n_probe,
+            probe_k=probe_k, rebuild_iters=rebuild_iters, seed=seed,
             probe_x=None if probe_hists is None else np.asarray(probe_hists, np.int32),
             device=self.device,
         )

@@ -36,8 +36,14 @@ draw of it and the restart count: the two are equal in distribution
 only. A `FaultPlan` (`repro_torch.health.faults`) can be injected for
 deterministic fault drills.
 
-Not ported yet, and refused with NotImplementedError naming their
-slice: ``obs`` (observability) and ``fopo.dist`` (dist).
+With ``obs`` set (`repro_torch.obs.ObsConfig`) the run leaves its
+telemetry behind: the JSONL record stream, the phase spans' Chrome
+trace, an optional `torch.profiler` trace and the roofline-drift series
+against `predict_step_seconds`. Telemetry only observes: the trajectory
+is the same bit for bit with it on or off.
+
+Not ported yet, and refused with NotImplementedError naming its slice:
+``fopo.dist`` (dist).
 """
 from __future__ import annotations
 
@@ -70,7 +76,8 @@ from repro_torch.kernels.fused_sampler.ops import INT32_MAX
 from repro_torch.mips import refresh as refresh_ops
 from repro_torch.mips.exact import topk_exact
 from repro_torch.mips.refresh import RefreshState
-from repro_torch.obs.run import ObsRun
+from repro_torch.obs.drift import predict_step_seconds
+from repro_torch.obs.run import ObsConfig, ObsRun
 from repro_torch.obs.schema import validate_history
 from repro_torch.obs.sinks import format_rollback_line, format_train_line
 from repro_torch.obs.trace import span
@@ -109,15 +116,13 @@ class TrainerConfig:
     # None runs the bare step; a HealthConfig guards it (verdict + skip),
     # rolls bad runs back, and HealthConfig.index arms the ladder
     health: "HealthConfig | None" = None
-    obs: Any = None  # refused: the observability slice
+    # telemetry (repro_torch.obs): history and log lines always go through
+    # the bus; an ObsConfig adds the run directory, the trace, the
+    # profiler and the roofline-drift monitor
+    obs: ObsConfig | None = None
 
 
 def _refuse_later_slices(cfg: TrainerConfig) -> None:
-    if cfg.obs is not None:
-        raise NotImplementedError(
-            "TrainerConfig.obs is not ported to repro_torch yet; it comes with "
-            "the observability slice"
-        )
     if cfg.fopo.dist is not None:
         raise NotImplementedError(
             "FOPOConfig.dist is not ported yet: the multi-device route comes "
@@ -498,7 +503,7 @@ class FOPOTrainer:
         if health is not None and self._snapshot is None:
             self._take_snapshot()  # the step-0 rollback target
         t_total = time.perf_counter()
-        with ObsRun(None) as run:
+        with ObsRun(cfg.obs, predicted_step_s=self._predicted_step_s()) as run:
             bus = run.bus
             if self._monitor is not None:
                 self._monitor.bind_bus(bus)
@@ -576,6 +581,15 @@ class FOPOTrainer:
             history = run.history()
         history["total_time"] = time.perf_counter() - t_total
         return validate_history(history)
+
+    def _predicted_step_s(self) -> float | None:
+        """The byte model's step time, the drift monitor's denominator;
+        None (the monitor stays off) when the estimator has no resolved
+        plan or the obs config does not arm drift."""
+        obs = self.cfg.obs
+        if obs is None or obs.drift is None or self.plan is None:
+            return None
+        return predict_step_seconds(self.plan, self.cfg.batch_size, self.beta.shape[1])
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -350,7 +350,10 @@ assert not bad, bad
      "repro_torch.health.faults", "repro_torch.health.index_health",
      "repro_torch.train.checkpoint", "repro_torch.train.trainer", "repro_torch.serve.planner",
      "repro_torch.serve.engine", "repro_torch.launch.serve"),
-], ids=["embeddings", "embedding_bag", "recsys", "health"])
+    ("repro_torch.obs", "repro_torch.obs.drift", "repro_torch.obs.report",
+     "repro_torch.obs.run", "repro_torch.obs.sinks", "repro_torch.obs.trace",
+     "repro_torch.serve.cluster", "repro_torch.serve"),
+], ids=["embeddings", "embedding_bag", "recsys", "health", "obs_cluster"])
 def test_embedding_slice_modules_import_no_jax(modules):
     """This slice's modules, each set alone in a fresh interpreter."""
     res = subprocess.run(
@@ -358,3 +361,29 @@ def test_embedding_slice_modules_import_no_jax(modules):
         env={**os.environ, "PYTHONPATH": str(PKG.parent)}, timeout=120,
     )
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_unported_arch_names_the_models_item():
+    """An arch that is not ported names its slice and its ROADMAP item
+    (Queue A item 6, models)."""
+    with pytest.raises(NotImplementedError, match=r"models slice \(ROADMAP Queue A item 6\)"):
+        get_arch("graphcast")
+
+
+def test_serve_cli_cluster_chaos_with_obs_dir_answers_every_request(tmp_path, capsys):
+    """``--replicas 3 --chaos --obs-dir`` on the CPU: replica 1 dies at its
+    first dispatch, every request is answered by the survivors, and the
+    run directory renders a report with Serving and Cluster sections."""
+    from repro_torch.obs.report import render_run
+
+    run_dir = str(tmp_path / "run")
+    serve_cli.main(["--arch", "sasrec", "--device", "cpu", "--requests", "24",
+                    "--replicas", "3", "--chaos", "--obs-dir", run_dir])
+    out = capsys.readouterr().out
+    assert "24 answered / 0 unanswered" in out and "deaths 1" in out
+    assert "r1:0 (dead)" in out and f"obs artifacts in {run_dir}" in out
+    text = open(render_run(run_dir)).read()
+    assert "## Serving" in text and "## Cluster" in text
+    assert "| serve_replica_deaths | 1 |" in text
+    with pytest.raises(SystemExit, match="--chaos needs --replicas >= 2"):
+        serve_cli.main(["--arch", "sasrec", "--device", "cpu", "--chaos"])

@@ -344,3 +344,38 @@ def test_serve_cli_recsys_on_cpu(capsys, arch):
     serve_cli.main(["--arch", arch, "--device", "cpu", "--requests", "5", "--max-batch", "2"])
     out = capsys.readouterr().out
     assert f"{arch} on cpu: 5 requests in 3 batches" in out
+
+
+def test_route_and_planner_knobs_mirror_the_reference(monkeypatch):
+    """`RecsysMIPSRoute` and `QueryPlanner` take the reference's knobs
+    (the same names and defaults; the port adds ``device``), and pass
+    them through: ``num_clusters=64`` builds 64 lists, ``delta_cap=16``
+    gives each 16 delta slots and ``rebuild_iters=2`` runs the ladder's
+    rebuild rung with 2 Lloyd iterations (the reference's build, delta
+    buffers and rung take the same knobs)."""
+    import inspect
+
+    from repro.serve import QueryPlanner as JaxPlanner
+    from repro_torch.mips import refresh as refresh_ops
+    from repro_torch.serve import QueryPlanner
+
+    for port_cls, ref_cls in ((RecsysMIPSRoute, JaxRoute), (QueryPlanner, JaxPlanner)):
+        got = {k: v.default for k, v in inspect.signature(port_cls).parameters.items()
+               if k != "device"}
+        want = {k: v.default for k, v in inspect.signature(ref_cls).parameters.items()}
+        assert got == want, port_cls.__name__
+    params = recsys.init_params(CFG, torch.Generator().manual_seed(0), "cpu")
+    route = RecsysMIPSRoute(CFG, params, k=4, num_clusters=64, rebuild_iters=2, device="cpu")
+    state = route.planner.index_state
+    assert state.lists.shape[0] == 64 and state.delta_cap == 8
+    seen = []
+    real_rebuild = refresh_ops.rebuild
+    monkeypatch.setattr(refresh_ops, "rebuild",
+                        lambda st, beta, iters: seen.append(iters) or real_rebuild(st, beta,
+                                                                                   iters=iters))
+    route.heal("rebuild")
+    assert seen == [2] and route.planner.index_state.lists.shape[0] == 64
+    planner = QueryPlanner(route.planner.policy, route.planner.params,
+                           route.planner.beta, top_k=4, num_clusters=16, delta_cap=16,
+                           device="cpu")
+    assert planner.index_state.delta_cap == 16 and planner.index_state.lists.shape[0] == 16

@@ -387,8 +387,7 @@ def test_history_has_the_reference_schema():
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    ("obs", object(), "observability slice"),
-    ("fopo.dist", object(), "dist slice"),
+    pytest.param("fopo.dist", object(), "dist slice", id="fopo.dist-value1-dist slice"),
 ])
 def test_later_slices_raise_not_implemented(dataset, field, value, slice_name):
     cfg = TrainerConfig(fopo=FOPOConfig(num_items=300, retriever="exact"))
@@ -398,15 +397,13 @@ def test_later_slices_raise_not_implemented(dataset, field, value, slice_name):
         cfg = dataclasses.replace(cfg, **{field: value})
     with pytest.raises(NotImplementedError, match=slice_name):
         FOPOTrainer(cfg, dataset, device="cpu")
-    with pytest.raises(NotImplementedError, match="observability slice"):
-        ObsConfig()
 
 
 @pytest.mark.parametrize("field", ["health", "checkpoint_dir", "fopo.index_refresh",
-                                   "fault_plan"])
+                                   "fault_plan", "obs"])
 def test_health_and_maintenance_fields_are_taken(dataset, tmp_path, field):
-    """The fields the health and IVF maintenance slice ported: each is
-    taken, and a 2-step run goes through it."""
+    """The fields the health, IVF maintenance and observability slices
+    ported: each is taken, and a 2-step run goes through it."""
     from repro_torch.health import FaultPlan, HealthConfig
     from repro_torch.mips.ivf import build_ivf
     from repro_torch.mips.refresh import RefreshConfig
@@ -422,6 +419,8 @@ def test_health_and_maintenance_fields_are_taken(dataset, tmp_path, field):
             torch.from_numpy(dataset.item_embeddings), num_clusters=4, device="cpu")}
     elif field == "health":
         cfg = dataclasses.replace(cfg, health=HealthConfig())
+    elif field == "obs":
+        cfg = dataclasses.replace(cfg, obs=ObsConfig(run_dir=str(tmp_path / "run")))
     else:
         cfg = dataclasses.replace(cfg, checkpoint_dir=str(tmp_path), checkpoint_every=2)
     tr = FOPOTrainer(cfg, dataset, device="cpu", **kwargs)
@@ -429,6 +428,8 @@ def test_health_and_maintenance_fields_are_taken(dataset, tmp_path, field):
     assert len(hist["loss"]) == 2 and tr.step == 2
     if field == "checkpoint_dir":
         assert sorted(os.listdir(tmp_path)) == ["step_0000000002"]
+    if field == "obs":
+        assert sorted(os.listdir(tmp_path / "run")) == ["metrics.jsonl", "trace.json"]
 
 
 # -- the CLI -------------------------------------------------------------------------
