@@ -137,6 +137,39 @@ more each:
                   `launch.serve --arch sasrec --replicas 3 --chaos
                   --obs-dir` in-process: its report has its Serving and
                   Cluster sections
+  5f. dist        fopo-paper at full width on the (data, model) grid of
+                  `repro_torch.dist` (fused, fused_sampler, TS 8). Drill A:
+                  NCCL, a world of one in this process: 5 steps of
+                  `FOPOTrainer(fopo.dist)` against the single-device trainer
+                  from the same theta and step seeds (the streaming top-K on
+                  both): top-K and draws equal at every step, the step-1
+                  sampled scores bit for bit, losses within rtol 1e-6, theta
+                  by `theta_gate`. Drill B: gloo (NCCL refuses two ranks on
+                  one GPU), four ranks spawned on the one card, data 2 x
+                  model 2 (slabs of 375,000 rows, 16 batch rows a data rank),
+                  loading the kernels phase 2 built (they never start nvcc),
+                  data and seeds through files in a temporary directory. The
+                  sharded exact route, 20 steps: merged top-K equal on the
+                  model ranks and, at step 1, to K6 over the whole beta
+                  (`topk_err`); the step-1 sampled scores equal the
+                  single-device K2's bit for bit; the single-device trainer
+                  on the card replays each step's merged top-K from rank 0's
+                  theta and Adam state: the same draws (K5 at row offset 16
+                  for the first time on the card), losses within rtol 1e-5,
+                  theta by `theta_gate`; theta equal on all ranks. The
+                  maintained route (`ivf_pallas` over `build_ivf_sharded`, C
+                  512 a shard, `RefreshConfig()`, 512 rows churned every 8
+                  steps), 20 steps: K7 twice a step on every rank, no plain
+                  version, the data replicas' index states equal, steps 1
+                  and 20's merged top-K against a CPU replay of the plain K7
+                  over the shards' states. The guard: NaN gradients on rank
+                  3 at step 6 are skipped on every rank, theta equal. The
+                  checkpoint: `save_sharded` writes beta in 4 shards,
+                  `restore_sharded` gives each rank its slab of a 2-way
+                  split bit for bit. Logged: each rank's step p50, the bytes,
+                  calls and host ms of each collective a step (gloo through
+                  the host: not NCCL's cost), times and every process's
+                  peak memory
   6. embedding    the embedding-bag kernel (K8) against its plain version,
                   bit for bit: small shapes (D 1, 18, 32, 128, 130, 132,
                   264; T 1, 7, 100, 129, 300: past a round of 128 ids;
@@ -251,6 +284,9 @@ GUARD_STEPS, LADDER_REQUESTS = 6, 32
 # telemetry: steps with and without it, then steps under torch.profiler;
 # the cluster: replicas and drill A's fixed service seconds a batch
 OBS_STEPS, PROF_STEPS, CLUSTER_REPLICAS, CLUSTER_SERVICE_S = 20, 4, 3, 0.005
+# multiple devices: steps of drills A and B, the sharded index's clusters a
+# shard, the guard drill's faulted step, the ranks' time limit
+DIST_STEPS, DIST_A_STEPS, DIST_C, GUARD_AT, DIST_TIMEOUT_S = 20, 5, 512, 5, 300
 LM_PROMPT, LM_GEN, LM_BATCH, LM_REQUESTS, LM_TOP_K = 2048, 16, 8, 16, 4
 BF16_RTOL = 2.0**-7  # one bf16 ulp at the bottom of a binade
 LM_HIDDEN_REL = 5e-2  # bf16 prefill hidden states, kernel vs plain path (relative L2)
@@ -1604,8 +1640,9 @@ def theta_gate(got, want, grad, lr: float, tag: str) -> int:
     diff = (got - want).abs()
     off = diff > 1e-6
     small = grad.abs() <= 1e-4 * float(grad.abs().max())
-    check(not bool((off & ~small).any()),
-          f"{tag}: differs by {float(diff[~small].max())} where the gradient is not small")
+    bad = off & ~small
+    if bad.any():
+        check(False, f"{tag}: differs by {float(diff[bad].max())} where the gradient is not small")
     check(float(diff.max()) <= 2 * lr, f"{tag}: differs by {float(diff.max())}")
     return int(off.sum())
 
@@ -3514,6 +3551,522 @@ def max_sm_clock_hz() -> float:
     return float(out.strip().splitlines()[0]) * 1e6
 
 
+# ---------------------------------------------------------------------------
+# multiple devices: the dist step (phase 5f)
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_config(dist, retriever: str = "streaming", health=None, index_refresh=None):
+    """fopo-paper at full width (P 750,000, L 100, S 1000, K 256, eps 0.8,
+    batch 32) through the fused covgrad kernels and the fused sampler, TS
+    8, on the grid ``dist`` (None: one device)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.train import TrainerConfig
+
+    paper = get_arch("fopo-paper").CONFIG
+    fopo = dataclasses.replace(paper.fopo, retriever=retriever, fused=True, fused_sampler=True,
+                               sample_tile=TS, dist=dist, index_refresh=index_refresh)
+    return TrainerConfig(estimator="fopo", fopo=fopo, batch_size=paper.batch_size,
+                         learning_rate=paper.learning_rate, num_steps=DIST_STEPS, seed=0,
+                         health=health)
+
+
+def step_recording_plan(plan, record: list, replay: list | None = None, keep_state=()):
+    """A copy of ``plan`` that records each step's user vectors, top-K,
+    draws and rewards (and, at the steps in ``keep_state``, the index
+    state it retrieved from); with ``replay`` (a list of TopK) the step
+    takes that top-K in place of its own retrieval."""
+    base = type(plan)
+
+    class Recording(base):
+        def retrieve(self, h, beta, index_state=None):
+            t = len(record)
+            top = replay[t] if replay is not None else base.retrieve(self, h, beta, index_state)
+            record.append({"h": h, "topk": top,
+                           "state": index_state if t in keep_state else None})
+            return top
+
+        def _draw_mixture(self, seed, topk, eps):
+            out = base._draw_mixture(self, seed, topk, eps)
+            record[-1]["sample"] = out
+            return out
+
+        def surrogate(self, policy, params, x, beta, sample, rewards):
+            record[-1]["rewards"] = rewards
+            return base.surrogate(self, policy, params, x, beta, sample, rewards)
+
+    return Recording(**{f.name: getattr(plan, f.name) for f in dataclasses.fields(plan)})
+
+
+def training_counters():
+    """(wrapper or plain version, attribute) of every training kernel."""
+    from repro_torch.kernels.fused_sampler import kernel as fk, ref as fr
+    from repro_torch.kernels.ivf_topk import kernel as ik, ref as ir
+    from repro_torch.kernels.mips_topk import kernel as mk, ref as mr
+    from repro_torch.kernels.snis_covgrad import kernel as sk, ref as sr
+
+    return [(mk.mips_topk_cuda, "launches"), (fk.fused_sampler_cuda, "launches"),
+            (sk.snis_fwd_cuda, "launches"), (sk.snis_bwd_cuda, "launches"),
+            (ik.ivf_probe_topk_cuda, "launches"), (mr.mips_topk_ref, "calls"),
+            (fr.fused_sampler_ref, "calls"), (sr.snis_fwd_ref, "calls"),
+            (sr.snis_bwd_ref, "calls"), (ir.ivf_probe_topk_ref, "calls")]
+
+
+def zero_counts() -> None:
+    for fn, attr in training_counters():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in training_counters()}
+
+
+def state_checksum(state):
+    """[2 x fields] int64: each field's 32-bit words summed exactly, all of
+    them and every 7th (replicas hold equal states iff these agree, but
+    for a collision)."""
+    import torch
+
+    out = []
+    for t in state:
+        w = t.contiguous().view(-1).view(torch.int32) if t.dtype != torch.int32 else t.view(-1)
+        out += [w.sum(dtype=torch.int64), w[::7].sum(dtype=torch.int64)]
+    return torch.stack(out)
+
+
+def snapshot(tr) -> dict:
+    """theta and Adam's state of a trainer, on the host."""
+    st = tr.opt_state
+    return {"w": tr.params["w"].cpu().clone(), "m": st["m"]["w"].cpu().clone(),
+            "v": st["v"]["w"].cpu().clone(), "step": st["step"].cpu().clone()}
+
+
+def dist_rank_main(rank: int, port: int, tmp: str) -> int:
+    """One rank of drill B (spawned by `dist_phase`): the gloo grid data 2
+    x model 2 on the one card. The kernels were built by phase 2: a rank
+    loads them and never starts nvcc. Writes its records to ``tmp``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.data import SessionDataset
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.fopo import dist_scores, make_debug_dist
+    from repro_torch.health.faults import FaultPlan
+    from repro_torch.health.guard import HealthConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_sampler import kernel as fk
+    from repro_torch.kernels.ivf_topk import kernel as ik, ops as iops
+    from repro_torch.kernels.snis_covgrad import kernel as sk
+    from repro_torch.mips.ivf import DEFAULT_N_PROBE, ShardedIVFIndex
+    from repro_torch.mips.refresh import RefreshConfig, RefreshState
+    from repro_torch.mips.sharded import merge_topk_along_axis
+    from repro_torch.train import FOPOTrainer
+    from repro_torch.train.checkpoint import restore_sharded, save_sharded
+
+    for src in (fk.SOURCE, sk.FWD_SOURCE, sk.BWD_SOURCE, ik.SOURCE):
+        check(_build._target(src).exists(), f"rank {rank}: {src.name} was not built by phase 2")
+
+    def no_nvcc():
+        raise RuntimeError("a rank of the dist drill started a kernel build")
+
+    _build._nvcc = no_nvcc
+    t_rank = time.perf_counter()
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=4,
+                             rank=rank, timeout=datetime.timedelta(seconds=300))
+    d = make_debug_dist(2, 2)
+    path = Path(tmp)
+    items = np.load(path / "items.npy", mmap_mode="r")
+    ds = SessionDataset(contexts=np.load(path / "contexts.npy"),
+                        positives=np.load(path / "positives.npy"), item_embeddings=items,
+                        num_items=items.shape[0])
+    theta0 = {"w": torch.from_numpy(np.load(path / "theta0.npy"))}
+    seeds = np.load(path / "seeds.npy")
+    kw = dict(device=dev, params=theta0, step_seeds=lambda step: int(seeds[step]))
+    out, info = {}, {"rank": rank, "coords": [d.data_rank, d.model_rank],
+                     "backend": tdist.get_backend()}
+
+    def run(tr, steps, tag, every=None):
+        """``steps`` steps one at a time: losses, step times, snapshots,
+        the collectives' bytes and host seconds a step."""
+        C.reset_stats()
+        zero_counts()
+        losses, times, snaps = [], [], []
+        for t in range(steps):
+            if every is not None:
+                every(t)
+            h = tr.train(1)
+            losses += h["loss"]
+            times += h["step_time"]
+            snaps.append(snapshot(tr))
+        info[f"{tag}_counts"] = read_counts()
+        info[f"{tag}_p50_ms"] = percentile(times[1:], 50) * 1e3
+        info[f"{tag}_collectives"] = {k: {"bytes_per_step": v["bytes"] / steps,
+                                          "calls_per_step": v["calls"] / steps,
+                                          "ms_per_step": v["seconds"] * 1e3 / steps}
+                                      for k, v in C.STATS.items()}
+        for key in ("w", "m", "v"):
+            out[f"{tag}/{key}"] = torch.stack([s[key] for s in snaps]).numpy()
+        out[f"{tag}/loss"] = np.asarray(losses)
+        return snaps
+
+    # the sharded exact route: 20 steps, every step recorded
+    rec: list = []
+    tr = FOPOTrainer(dist_config(d), ds, **kw)
+    tr.plan = step_recording_plan(tr.plan, rec)
+    run(tr, DIST_STEPS, "exact")
+    c = info["exact_counts"]
+    for fn in (fk.fused_sampler_cuda, sk.snis_fwd_cuda, sk.snis_bwd_cuda):
+        check(c[f"{fn.__name__}.launches"] == DIST_STEPS,
+              f"rank {rank}: {fn.__name__} launched {c[f'{fn.__name__}.launches']} times")
+    check(all(v == 0 for k, v in c.items() if k.endswith(".calls")),
+          f"rank {rank}: a plain version ran on the card: {c}")
+    for t, r in enumerate(rec):
+        out[f"exact/topk_scores{t}"] = r["topk"].scores.cpu().numpy()
+        out[f"exact/topk_ids{t}"] = r["topk"].indices.cpu().numpy()
+        out[f"exact/actions{t}"] = r["sample"].actions.cpu().numpy()
+        out[f"exact/log_q{t}"] = r["sample"].log_q.cpu().numpy()
+    r0 = rec[0]
+    with torch.no_grad():
+        scores0 = dist_scores(r0["h"], tr.beta, r0["sample"].actions, r0["sample"].log_q,
+                              r0["rewards"], dist=d, sample_tile=TS)
+    out["exact/h0"] = r0["h"].cpu().numpy()
+    out["exact/rewards0"] = r0["rewards"].cpu().numpy()
+    out["exact/scores0"] = scores0.cpu().numpy()
+    slab = tr.beta.cpu().numpy()
+    del tr, rec, r0
+    torch.cuda.empty_cache()
+
+    # the maintained route: ivf_pallas over this rank's shard of the index,
+    # RefreshConfig()'s defaults, churn every CHURN_EVERY steps
+    index = ShardedIVFIndex(*(torch.from_numpy(np.load(path / f"index_{f}.npy", mmap_mode="r"))
+                              for f in ("centroids", "lists", "list_embs")), items.shape[0])
+    churn = np.load(path / "churn.npz")
+    rec = []
+    tr = FOPOTrainer(dist_config(d, "ivf_pallas", index_refresh=RefreshConfig()), ds,
+                     retriever_kwargs={"index": index}, **kw)
+    tr.plan = step_recording_plan(tr.plan, rec, keep_state=(0, DIST_STEPS - 1))
+
+    def churn_at(t):
+        if t and t % CHURN_EVERY == 0:
+            n = t // CHURN_EVERY - 1
+            tr.update_items(torch.from_numpy(churn[f"ids{n}"]).to(dev),
+                            torch.from_numpy(churn[f"embs{n}"]).to(dev))
+
+    run(tr, DIST_STEPS, "maint", every=churn_at)
+    c = info["maint_counts"]
+    check(c["ivf_probe_topk_cuda.launches"] == 2 * DIST_STEPS,
+          f"rank {rank}: ivf_topk launched {c['ivf_probe_topk_cuda.launches']} times in "
+          f"{DIST_STEPS} steps (main + delta a step)")
+    check(all(v == 0 for k, v in c.items() if k.endswith(".calls")),
+          f"rank {rank}: a plain version ran on the card: {c}")
+    # the two data replicas of this shard hold equal states
+    sums = C.all_gather(state_checksum(tr.index_state)[None], d.data_group)
+    check(bool((sums == sums[:1]).all()), f"rank {rank}: the data replicas' index states differ")
+    # steps 1 and 20 again on the host: the plain K7 over this shard's state,
+    # merged over the model group, against the card's merged top-K
+    errs, k = [], tr.plan.cfg.top_k
+    for t in (0, DIST_STEPS - 1):
+        r = rec[t]
+        st = RefreshState(*(x.cpu() for x in r["state"]))
+        loc = iops.ivf_topk(r["h"].cpu(), st.as_index(items.shape[0]), k,
+                            n_probe=DEFAULT_N_PROBE, delta=st.delta())
+        top = merge_topk_along_axis(loc.scores, loc.indices, k, d.model_group)
+        errs.append(topk_err((r["topk"].scores, r["topk"].indices),
+                             (top.scores.to(dev), top.indices.to(dev)),
+                             f"rank {rank} maintained step {t + 1} top-K vs the CPU replay"))
+    info["maint_replay_err"] = max(errs)
+    info["maint_overflow"] = int(tr.index_state.overflow)
+    del tr, rec, index
+    torch.cuda.empty_cache()
+
+    # the guard: rank 3's gradients are NaN at step GUARD_AT; every rank skips it
+    zero_counts()
+    tr = FOPOTrainer(dist_config(d, health=HealthConfig()), ds,
+                     fault_plan=FaultPlan(nan_grads_at=(GUARD_AT,)) if rank == 3 else None, **kw)
+    verdicts = []
+    for _ in range(GUARD_AT + 2):
+        tr.train(1)
+        verdicts.append(int(tr.guard_state.last_verdict))
+        out.setdefault("guard/w", []).append(tr.params["w"].cpu().numpy())
+    out["guard/w"] = np.stack(out["guard/w"])
+    info["guard_verdicts"] = verdicts
+    info["guard_counts"] = c = read_counts()
+    check(all(v == 0 for k, v in c.items() if k.endswith(".calls")),
+          f"rank {rank}: a plain version ran on the card: {c}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # sharded checkpoint: rank 0 writes beta in 4 shards, each rank reads
+    # shard m of a 2-way split, which is its slab
+    t0 = time.perf_counter()
+    if rank == 0:
+        save_sharded(str(path / "ckpt"), "beta", items, 4)
+    tdist.barrier()
+    got = restore_sharded(str(path / "ckpt"), "beta", shard_id=d.model_rank, num_shards=2)
+    check(np.array_equal(got, slab), f"rank {rank}: the restored shard is not its slab")
+    info["ckpt_s"] = time.perf_counter() - t0
+    info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    info["rank_s"] = time.perf_counter() - t_rank
+    np.savez(path / f"rank{rank}.npz", **out)
+    (path / f"rank{rank}.json").write_text(json.dumps(info))
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def dist_phase(ds, theta0) -> dict:
+    """Multiple devices (phase 5f): drill A, the dist step on an NCCL
+    world of one in this process against the single-device step; drill B,
+    a gloo grid of four spawned ranks on the one card (NCCL refuses two
+    ranks on one GPU), held to the single-device step replayed on the
+    card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.dist.fopo import dist_scores, make_debug_dist
+    from repro_torch.kernels.mips_topk.ops import mips_topk
+    from repro_torch.kernels.snis_covgrad.ops import snis_scores_fused
+    from repro_torch.mips.exact import TopK
+    from repro_torch.mips.ivf import build_ivf_sharded
+    from repro_torch.train import FOPOTrainer
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    card = card_line()
+    seeds = np.random.default_rng(23).integers(0, 2**31 - 1, DIST_STEPS + GUARD_AT + 2)
+    kw = dict(device=dev, params=theta0, step_seeds=lambda step: int(seeds[step]))
+    lr = dist_config(None).learning_rate
+
+    # drill A: NCCL, a world of one, against the single-device step
+    t0 = time.perf_counter()
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                             world_size=1, rank=0)
+    d1 = make_debug_dist(1, 1)
+    ra, rb = [], []
+    a = FOPOTrainer(dist_config(d1), ds, **kw)
+    a.plan = step_recording_plan(a.plan, ra)
+    zero_counts()
+    ha = a.train(DIST_A_STEPS)
+    counts_a = read_counts()
+    b = FOPOTrainer(dist_config(None), ds, **kw)
+    b.plan = step_recording_plan(b.plan, rb)
+    hb, m_b = {"loss": []}, []
+    for _ in range(DIST_A_STEPS):
+        hb["loss"] += b.train(1)["loss"]
+        m_b.append(b.opt_state["m"]["w"].clone())
+    for t in range(DIST_A_STEPS):
+        check(all(torch.equal(x, y) for x, y in zip(ra[t]["topk"], rb[t]["topk"])),
+              f"drill A step {t}: the top-K differs")
+        check(all(torch.equal(x, y) for x, y in zip(ra[t]["sample"], rb[t]["sample"])),
+              f"drill A step {t}: the draws differ")
+    r = ra[0]
+    with torch.no_grad():
+        s_dist = dist_scores(r["h"], a.beta, r["sample"].actions, r["sample"].log_q,
+                             r["rewards"], dist=d1, sample_tile=TS)
+        s_one = snis_scores_fused(rb[0]["h"], b.beta, rb[0]["sample"].actions,
+                                  rb[0]["sample"].log_q, rb[0]["rewards"], sample_tile=TS)
+    check(bool(torch.equal(s_dist, s_one)), "drill A: the sampled scores differ")
+    close_err(torch.tensor(ha["loss"]), torch.tensor(hb["loss"]), "drill A loss", rtol=1e-6,
+              atol=0.0)
+    # the last step's gradient through Adam's first moment m = b1 m' + (1 - b1) g
+    noisy_a = theta_gate(a.params["w"], b.params["w"], (m_b[-1] - 0.9 * m_b[-2]) / 0.1, lr,
+                         "drill A theta")
+    same_a = bool(torch.equal(a.params["w"], b.params["w"]))
+    for fn in ("fused_sampler_cuda", "snis_fwd_cuda", "snis_bwd_cuda"):
+        check(counts_a[f"{fn}.launches"] == DIST_A_STEPS, f"drill A: {fn} {counts_a}")
+    check(all(v == 0 for k, v in counts_a.items() if k.endswith(".calls")),
+          f"drill A: a plain version ran on the card: {counts_a}")
+    tdist.destroy_process_group()
+    secs_a = time.perf_counter() - t0
+    del a, b, ra, rb, r
+    torch.cuda.empty_cache()
+    log(f"[dist] drill A: backend nccl, a world of one (data 1 x model 1) in this process: "
+        f"{DIST_A_STEPS} steps of FOPOTrainer(fopo.dist) against the single-device trainer "
+        f"from the same theta and step seeds: top-K and draws equal at every step, the step-1 "
+        f"sampled scores equal bit for bit, losses within rtol 1e-6, theta "
+        f"{'bit for bit equal' if same_a else f'by theta_gate ({noisy_a} noisy entries)'} "
+        f"after {DIST_A_STEPS} steps; counts {counts_a}; {secs_a:.1f} s")
+
+    # drill B: gloo, four ranks on the one card, data 2 x model 2
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="dist_drill_"))
+    try:
+        beta = torch.from_numpy(ds.item_embeddings).to(dev)
+        p = beta.shape[0]
+        np.save(tmp / "items.npy", ds.item_embeddings)
+        np.save(tmp / "contexts.npy", ds.contexts)
+        np.save(tmp / "positives.npy", ds.positives)
+        np.save(tmp / "theta0.npy", theta0["w"].cpu().numpy())
+        np.save(tmp / "seeds.npy", seeds)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        index = build_ivf_sharded(beta, 2, DIST_C, seed=0, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+        for f in ("centroids", "lists", "list_embs"):
+            np.save(tmp / f"index_{f}.npy", getattr(index, f).cpu().numpy())
+        cap = index.lists.shape[2]
+        del index
+        gen = torch.Generator(device=dev).manual_seed(5)
+        churn = {}
+        for n in range(DIST_STEPS // CHURN_EVERY):
+            ids = torch.randperm(p, generator=gen, device=dev)[:CHURN_ROWS]
+            src = torch.randint(0, p, (CHURN_ROWS,), generator=gen, device=dev)
+            noise = torch.randn((CHURN_ROWS, beta.shape[1]), generator=gen, device=dev)
+            churn[f"ids{n}"] = ids.to(torch.int32).cpu().numpy()
+            churn[f"embs{n}"] = (beta[src] + 0.05 * beta.std() * noise).cpu().numpy()
+        np.savez(tmp / "churn.npz", **churn)
+        torch.cuda.empty_cache()
+        setup_s = time.perf_counter() - t0
+        port = free_port()
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dist-rank",
+                                   str(r), str(port), str(tmp)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(4)]
+        logs = ["" for _ in procs]
+        try:
+            deadline = time.perf_counter() + DIST_TIMEOUT_S
+            while any(pr.poll() is None for pr in procs):
+                if any(pr.poll() not in (None, 0) for pr in procs):
+                    break  # a rank failed: the others would wait on it
+                check(time.perf_counter() < deadline, "drill B: the ranks ran out of time")
+                time.sleep(0.2)
+        finally:
+            for i, pr in enumerate(procs):
+                if pr.poll() is None:
+                    pr.kill()
+                logs[i] = pr.communicate()[0]
+        rcs = [pr.returncode for pr in procs]
+        check(rcs == [0] * 4, f"drill B: rank exit codes {rcs}; their last lines:\n" + "\n".join(
+            f"rank {i}: " + "\n".join(lg.strip().splitlines()[-12:]) for i, lg in enumerate(logs)))
+        ranks_s = time.perf_counter() - t1
+        outs = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(4)]
+        infos = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(4)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the grid's records against the single-device step on the card: the
+    # full batch is data rank 0's rows, then data rank 1's (model rank 0)
+    def full(key):
+        return torch.from_numpy(np.concatenate([outs[0][key], outs[2][key]])).to(dev)
+
+    for key in outs[0]:  # model ranks 0 and 1 of a data rank hold equal merged results
+        if key.startswith("exact/topk") or key.startswith("exact/scores0"):
+            for dr in (0, 2):
+                check(np.array_equal(outs[dr][key], outs[dr + 1][key]),
+                      f"drill B: {key} differs between the model ranks")
+    for tag in ("exact", "maint"):
+        for r in range(1, 4):
+            check(np.array_equal(outs[r][f"{tag}/w"], outs[0][f"{tag}/w"]),
+                  f"drill B {tag}: theta differs between rank 0 and rank {r}")
+    h0 = full("exact/h0")
+    top0 = TopK(full("exact/topk_scores0"), full("exact/topk_ids0"))
+    k6_err = topk_err(top0, mips_topk(h0, beta, top0.indices.shape[1]),
+                      "drill B step 1 merged top-K vs mips_topk (K6) over the whole beta")
+    with torch.no_grad():
+        one = snis_scores_fused(h0, beta, full("exact/actions0"), full("exact/log_q0"),
+                                full("exact/rewards0"), sample_tile=TS)
+    check(bool(torch.equal(one, full("exact/scores0"))),
+          "drill B: the step-1 sampled scores differ from the single-device K2's")
+    # the single-device trainer replays the merged top-K, each step from rank
+    # 0's theta and Adam state before it
+    replay = [TopK(full(f"exact/topk_scores{t}"), full(f"exact/topk_ids{t}"))
+              for t in range(DIST_STEPS)]
+    rs: list = []
+    one = FOPOTrainer(dist_config(None), ds, **kw)
+    one.plan = step_recording_plan(one.plan, rs, replay=replay)
+    w_dist, m_dist, v_dist = (torch.from_numpy(outs[0][f"exact/{k}"]) for k in ("w", "m", "v"))
+    losses, noisy = [], []
+    for t in range(DIST_STEPS):
+        if t:
+            one.params = {"w": w_dist[t - 1].to(dev)}
+            one.opt_state = {"step": one.opt_state["step"], "m": {"w": m_dist[t - 1].to(dev)},
+                             "v": {"w": v_dist[t - 1].to(dev)}}
+        losses += one.train(1)["loss"]
+        check(torch.equal(rs[t]["sample"].actions, full(f"exact/actions{t}")),
+              f"drill B step {t + 1}: the draws differ from the single-device K5's")
+        m_prev = m_dist[t - 1] if t else torch.zeros_like(m_dist[0])
+        noisy.append(theta_gate(one.params["w"], w_dist[t], (m_dist[t] - 0.9 * m_prev) / 0.1,
+                                lr, f"drill B step {t + 1} theta"))
+    close_err(torch.tensor(losses), torch.from_numpy(outs[0]["exact/loss"]), "drill B loss",
+              rtol=1e-5, atol=0.0)
+    del one, rs, replay, beta
+    torch.cuda.empty_cache()
+    gw = outs[0]["guard/w"]
+    for r in range(4):
+        v = infos[r]["guard_verdicts"]
+        check(v[GUARD_AT] != 0 and all(x == 0 for i, x in enumerate(v) if i != GUARD_AT),
+              f"drill B guard: rank {r} verdicts {v}")
+        check(np.array_equal(outs[r]["guard/w"], gw), f"drill B guard: theta of rank {r} differs")
+    check(np.array_equal(gw[GUARD_AT], gw[GUARD_AT - 1]), "drill B guard: step not skipped")
+    check(not np.array_equal(gw[GUARD_AT + 1], gw[GUARD_AT]), "drill B guard: no step after it")
+
+    counts = {}
+    for c in [counts_a] + [i[f"{tag}_counts"] for i in infos for tag in ("exact", "maint",
+                                                                         "guard")]:
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    secs = time.perf_counter() - t_phase
+    coll = infos[0]["exact_collectives"]
+    log(f"[dist] drill B: backend {infos[0]['backend']} (NCCL refuses two ranks on one GPU), "
+        f"four spawned ranks on the one card, data 2 x model 2: slabs of {p // 2} rows "
+        f"({p // 2 * ds.item_embeddings.shape[1] * 4 / 1e6:.0f} MB), "
+        f"{dist_config(None).batch_size // 2} batch rows a data rank; setup {setup_s:.1f} s "
+        f"(files, build_ivf_sharded C {DIST_C} a shard, cap {cap}: {build_s:.1f} s), ranks "
+        f"{ranks_s:.1f} s (each from start to exit: "
+        + ", ".join(f"{i['rank_s']:.1f}" for i in infos) + " s)")
+    log("[dist] drill B exact route (the sharded streaming top-K, K5 at row offsets 0 and "
+        f"{dist_config(None).batch_size // 2}, K2 / K4 on the slabs): {DIST_STEPS} steps; step "
+        "p50 by rank "
+        + ", ".join(f"{i['exact_p50_ms']:.2f}" for i in infos)
+        + f" ms; merged top-K equal on the model ranks, step 1's against K6 over the whole "
+        f"beta (max score diff {k6_err:.3g}); the step-1 sampled scores equal the single-device "
+        f"K2's bit for bit; the single-device trainer on the card, on the merged top-K, draws "
+        f"the same actions at every step, losses within rtol 1e-5, theta by theta_gate "
+        f"({noisy} noisy entries a step); theta bit for bit equal on all four ranks")
+    log("[dist] drill B exact route, rank 0's collectives a step (gloo through one card's "
+        "host; not a measure of NCCL): " + "; ".join(
+            f"{k} {v['calls_per_step']:.0f} call(s) {v['bytes_per_step'] / 1e3:.1f} kB "
+            f"{v['ms_per_step']:.2f} ms" for k, v in coll.items()))
+    log(f"[dist] drill B maintained route (ivf_pallas, build_ivf_sharded C {DIST_C}, "
+        f"RefreshConfig() defaults, {CHURN_ROWS} rows churned every {CHURN_EVERY} steps): "
+        f"{DIST_STEPS} steps; step p50 by rank "
+        + ", ".join(f"{i['maint_p50_ms']:.2f}" for i in infos)
+        + f" ms; ivf_topk 2 launches a step on every rank, no plain version; the data "
+        f"replicas' index states equal; steps 1 and {DIST_STEPS} merged top-K against the "
+        f"CPU replay of the plain K7 over the shards' states (max score diff "
+        f"{max(i['maint_replay_err'] for i in infos):.3g}); overflow "
+        + ", ".join(str(i["maint_overflow"]) for i in infos))
+    log(f"[dist] drill B guard: NaN gradients on rank 3 at step {GUARD_AT + 1}: the agreed "
+        f"verdict nonzero on every rank, every rank skipped, theta bit for bit equal; "
+        f"checkpoint: save_sharded wrote beta in 4 shards, restore_sharded gave each rank its "
+        f"slab of a 2-way split bit for bit (" + ", ".join(f"{i['ckpt_s']:.2f}" for i in infos)
+        + " s)")
+    log(f"[dist] phase 5f took {secs:.1f} s; peak device memory: this process {peak:.2f} GB, "
+        "ranks " + ", ".join(f"{i['peak_gb']:.2f}" for i in infos) + f" GB; {card}; "
+        f"launches {counts}")
+    return dict(counts=counts, secs=secs)
+
+
 def percentile(values: list[float], p: float) -> float:
     vs = sorted(values)
     return vs[min(len(vs) - 1, max(0, round(p / 100.0 * (len(vs) - 1))))]
@@ -3683,6 +4236,11 @@ def main() -> int:
     # 4b. the serving ladder at full SASRec width
     # 5e. telemetry; 4c. the cluster at full SASRec width
     mres, gres, cres, ores, lad, clu = new_phases(ds, theta0, cfg, params, payloads)
+
+    # 5f. multiple devices: NCCL with one rank, gloo with four on the card
+    log("[dist] fopo-paper on the (data, model) grid of repro_torch.dist (fused, "
+        "fused_sampler, TS 8): drill A on NCCL, drill B on gloo")
+    dres = dist_phase(ds, theta0)
     del ds, theta0, route, planner, state, index, users, engine
     torch.cuda.empty_cache()
 
@@ -3730,7 +4288,7 @@ def main() -> int:
         "launches": (launches + lres["counts"]["ivf_probe_topk_cuda.launches"]
                      + sum(r["ivf_launches"] for r in rres.values())
                      + mres["counts"]["ivf_probe_topk_cuda.launches"]
-                     + clu["launches"]),
+                     + clu["launches"] + dres["counts"]["ivf_probe_topk_cuda.launches"]),
         "max_abs_err": max(kres["max_abs_err"], lres["ivf_lm"]["max_abs_err"],
                            mres["k7_err"], clu["max_abs_err"]),
         "ms": t["ms"],
@@ -3766,7 +4324,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": (tres["counts"][f"{launch_fn.__name__}.launches"]
                          + mres["counts"][f"{launch_fn.__name__}.launches"]
-                         + ores["counts"][f"{launch_fn.__name__}.launches"]),
+                         + ores["counts"][f"{launch_fn.__name__}.launches"]
+                         + dres["counts"][f"{launch_fn.__name__}.launches"]),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -3874,4 +4433,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--dist-rank":  # a rank of phase 5f's drill B
+        sys.exit(dist_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.mips.ivf import IVFIndex
+from repro_torch.mips.ivf import IVFIndex, ShardedIVFIndex
 from repro_torch.mips.refresh import RefreshState
 from repro_torch.models.lm import KVCache
 
@@ -22,6 +22,7 @@ __all__ = [
     "lm_params_from_numpy",
     "recsys_params_from_numpy",
     "refresh_state_from_numpy",
+    "sharded_ivf_index_from_numpy",
 ]
 
 
@@ -86,8 +87,21 @@ def ivf_index_from_numpy(centroids, lists, list_embs, num_items: int) -> IVFInde
     )
 
 
+def sharded_ivf_index_from_numpy(centroids, lists, list_embs, num_items: int) -> ShardedIVFIndex:
+    """A `ShardedIVFIndex` from the reference's stacked arrays ([n, C, L],
+    [n, C, cap] int32 global ids, [n, C, cap, L])."""
+    return ShardedIVFIndex(
+        centroids=_t(centroids),
+        lists=_t(np.asarray(lists, dtype=np.int32)),
+        list_embs=_t(list_embs),
+        num_items=int(num_items),
+    )
+
+
 def refresh_state_from_numpy(**arrays) -> RefreshState:
-    """A `RefreshState` from its fields as numpy arrays, by name."""
+    """A `RefreshState` from its fields as numpy arrays, by name: one
+    state, or the reference's stacked per-shard state ([n, ...] on every
+    field)."""
     return RefreshState(**{f: _t(arrays[f]) for f in RefreshState._fields})
 
 

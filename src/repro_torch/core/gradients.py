@@ -95,6 +95,7 @@ def covariance_surrogate(
     *,
     fused: bool = False,
     sample_tile: int = DEFAULT_SAMPLE_TILE,
+    dist=None,
 ) -> tuple[torch.Tensor, dict]:
     """Surrogate whose gradient is the SNIS covariance gradient
     grad_theta = sum_s c_s grad_theta f_theta(a_s, x), with
@@ -104,7 +105,19 @@ def covariance_surrogate(
     ``fused=True`` runs `fused_covariance_loss` (the kernels; gradients
     reach h only, beta is fixed). Masked slots (action -1, log_q
     LOG_Q_PAD) carry exactly zero weight in both paths, also in rows
-    where every slot is masked."""
+    where every slot is masked.
+
+    ``dist=DistConfig(...)`` runs the multi-device twin instead
+    (`repro_torch.dist.fopo.dist_fused_covariance_loss`): the same fused
+    kernels on this rank's beta slab (``beta``) and batch rows (``x`` and
+    the samples), the score partials summed once over `model`."""
+    if dist is not None:
+        from repro_torch.dist.fopo import dist_fused_covariance_loss
+
+        h = policy.user_embedding(params, x)
+        return dist_fused_covariance_loss(
+            h, beta, actions, log_q, rewards, dist=dist, sample_tile=sample_tile
+        )
     if fused:
         h = policy.user_embedding(params, x)  # [B, L] differentiable
         return fused_covariance_loss(

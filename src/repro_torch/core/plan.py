@@ -14,12 +14,24 @@ retriever, which sampler and which surrogate run:
   cfg.fused          -> plan.fused          the fused autograd Function
                                             (covgrad kernels) vs plain torch
 
+  cfg.dist           -> plan.dist           the multi-device step of
+                                            `repro_torch.dist` (dist
+                                            implies fused)
+
 `execute` is the Algorithm-1 step body (retrieval -> sample -> reward ->
 surrogate); `execute_query` the serve path (user embedding -> retrieval).
 ``fused_interpret`` is accepted and written back as the reference does,
 but the port ignores it: a tensor's device picks the kernel or its plain
-version. ``dist`` and ``retriever="sharded"`` raise NotImplementedError
-naming the dist slice.
+version.
+
+Under ``dist`` the skeleton is the same; what it is handed is this
+rank's: ``x`` its batch rows, ``beta`` its slab (`dist.shard_rows`), the
+index state its shard. Retrieval is the sharded exact top-K merge
+(`dist_sharded_topk`), or, with ``retriever="ivf_pallas"``, the IVF
+kernel over the rank's shard of a `ShardedIVFIndex` (``n_shards`` must
+equal ``n_model``); the in-kernel sampler runs per data rank at its row
+offset, the generator-driven samplers draw the full batch and keep the
+rank's rows; the surrogate is `dist_fused_covariance_loss`.
 """
 from __future__ import annotations
 
@@ -64,6 +76,11 @@ def make_retriever(cfg, **kw) -> Retriever:
 
         index, n_probe = _resolve_ivf_pallas_kwargs(kw)
         return lambda h, beta: ivf_topk(h, index, cfg.top_k, n_probe=n_probe)
+    if cfg.retriever == "sharded":
+        from repro_torch.mips.sharded import make_sharded_topk_fn
+
+        # beta is this rank's slab of the group's row partition
+        return make_sharded_topk_fn(kw["group"], cfg.top_k, kw.get("block_items", 4096))
     raise ValueError(f"unknown retriever {cfg.retriever!r}")
 
 
@@ -77,9 +94,30 @@ def _resolve_ivf_pallas_kwargs(kw: dict):
     return index, kw.get("n_probe", DEFAULT_N_PROBE)
 
 
+def _dist_retriever(cfg, kw: dict) -> Retriever:
+    """The dist route's (h, beta_slab) -> TopK: the IVF kernel over this
+    rank's shard of a `ShardedIVFIndex` (moved once to the queries'
+    device), else the sharded exact top-K merge."""
+    from repro_torch.dist.fopo import dist_ivf_topk, dist_sharded_topk
+
+    d, top_k, n_items = cfg.dist, cfg.top_k, cfg.num_items
+    if cfg.retriever != "ivf_pallas":
+        return lambda h, beta: dist_sharded_topk(h, beta, top_k, d, num_items=n_items)
+    index, n_probe = _resolve_ivf_pallas_kwargs(kw)
+    shard = {"index": index.shard(d.model_rank)}
+
+    def retriever(h, beta):  # noqa: ARG001 — uniform signature
+        ix = shard["index"]
+        if ix.lists.device != h.device:
+            ix = shard["index"] = type(ix)(*(t.to(h.device) for t in ix[:3]), ix.num_items)
+        return dist_ivf_topk(h, ix, top_k, d, n_probe=n_probe)
+
+    return retriever
+
+
 def _validate(cfg, *, injected_retriever: bool, retriever_kwargs: dict) -> None:
-    """Construction-time knob validation: every invalid or not-yet-ported
-    combination fails here, before any step runs."""
+    """Construction-time knob validation: every invalid combination fails
+    here, before any step runs."""
     if cfg.num_items <= 0:
         raise ValueError(
             f"FOPOConfig.num_items must be > 0, got {cfg.num_items}"
@@ -88,31 +126,66 @@ def _validate(cfg, *, injected_retriever: bool, retriever_kwargs: dict) -> None:
         raise ValueError(f"num_samples must be >= 1, got {cfg.num_samples}")
     if cfg.top_k < 1:
         raise ValueError(f"top_k must be >= 1, got {cfg.top_k}")
+    if cfg.dist is not None:
+        from repro_torch.dist.fopo import DistConfig
+
+        if not isinstance(cfg.dist, DistConfig):
+            raise ValueError(
+                "FOPOConfig.dist must be a DistConfig (or None), got "
+                f"{type(cfg.dist).__name__}"
+            )
     if isinstance(cfg.epsilon, (int, float)) and not 0.0 <= cfg.epsilon <= 1.0:
         raise ValueError(f"epsilon must lie in [0, 1], got {cfg.epsilon}")
     if not injected_retriever and cfg.retriever not in RETRIEVERS:
+        # the typo guard fires under dist too: a misspelt retriever must
+        # never fall back to the sharded exact scan
         raise ValueError(
             f"unknown retriever {cfg.retriever!r} (one of {RETRIEVERS})"
         )
-    if cfg.dist is not None or (not injected_retriever and cfg.retriever == "sharded"):
-        raise NotImplementedError(
-            "FOPOConfig.dist and retriever='sharded' are not ported yet: the "
-            "multi-device route comes with the dist slice"
+    if not injected_retriever and cfg.dist is not None and cfg.retriever == "ivf":
+        raise ValueError(
+            'retriever="ivf" has no dist route (the plain query would '
+            "materialise the candidate tensor per shard); use "
+            'retriever="ivf_pallas" with build_ivf_sharded, or drop the '
+            "knob to take the sharded top-K merge"
         )
-    if not injected_retriever and cfg.retriever in ("ivf", "ivf_pallas"):
-        from repro_torch.mips.ivf import IVFIndex
-
-        if "index" not in retriever_kwargs:
+    if not injected_retriever and cfg.dist is None:
+        if cfg.retriever in ("ivf", "ivf_pallas") and "index" not in retriever_kwargs:
             raise ValueError(
                 f'retriever="{cfg.retriever}" needs a prebuilt index: pass '
                 "retriever_kwargs={'index': build_ivf(...)}"
             )
-        if cfg.retriever == "ivf_pallas" and not isinstance(
-            retriever_kwargs["index"], IVFIndex
-        ):
+        if cfg.retriever == "ivf_pallas":
+            from repro_torch.mips.ivf import IVFIndex
+
+            if not isinstance(retriever_kwargs["index"], IVFIndex):
+                raise ValueError(
+                    'retriever="ivf_pallas" without dist= takes a single '
+                    f"IVFIndex (got {type(retriever_kwargs['index']).__name__}); "
+                    "under dist= pass a ShardedIVFIndex from build_ivf_sharded"
+                )
+        if cfg.retriever == "sharded" and "group" not in retriever_kwargs:
             raise ValueError(
-                'retriever="ivf_pallas" takes a single IVFIndex (got '
-                f"{type(retriever_kwargs['index']).__name__})"
+                'retriever="sharded" needs retriever_kwargs={"group": ...} (the '
+                "process group beta's rows are split over)"
+            )
+    if not injected_retriever and cfg.dist is not None and cfg.retriever == "ivf_pallas":
+        # the one retriever the dist path resolves itself: each model
+        # rank probes its LOCAL inverted lists, so the index must be the
+        # per-shard stacked build
+        from repro_torch.mips.ivf import ShardedIVFIndex
+
+        index = retriever_kwargs.get("index")
+        if not isinstance(index, ShardedIVFIndex):
+            raise ValueError(
+                'retriever="ivf_pallas" under dist= needs retriever_kwargs='
+                "{'index': build_ivf_sharded(...)} with n_shards == the "
+                f"mesh model-axis size (got {type(index).__name__})"
+            )
+        if index.n_shards != cfg.dist.n_model:
+            raise ValueError(
+                f"ShardedIVFIndex has {index.n_shards} shards but the mesh "
+                f"model axis is {cfg.dist.n_model}"
             )
     rc = cfg.index_refresh
     if rc is None:
@@ -147,6 +220,12 @@ def _validate(cfg, *, injected_retriever: bool, retriever_kwargs: dict) -> None:
         raise ValueError(
             f"RefreshConfig.count_decay must lie in (0, 1], got {rc.count_decay}"
         )
+    if cfg.dist is not None and cfg.num_items % cfg.dist.n_model:
+        raise ValueError(
+            "index_refresh under dist= needs num_items divisible by the mesh "
+            f"model axis (got {cfg.num_items} rows over {cfg.dist.n_model} "
+            "shards): the per-shard slot_of maps are sized by the uniform row slab"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,7 +237,8 @@ class ExecutionPlan:
     sample_tile          the clamped kernel tile
     fused_sampler        in-kernel sampler (True) or MixtureProposal
     fused                fused covgrad autograd Function (True) or the
-                         plain-torch surrogate
+                         plain-torch surrogate (dist implies fused)
+    dist                 the DistConfig of the multi-device step, or None
     refresh              the RefreshConfig, or None
     initial_index_state  the RefreshState built from the caller's index
     fallback_retriever   the exact retriever with the refresh signature
@@ -170,6 +250,7 @@ class ExecutionPlan:
     fused: bool
     fused_sampler: bool
     retriever: Retriever
+    dist: Any = None
     refresh: Any = None
     initial_index_state: Any = None
     fallback_retriever: Retriever | None = None
@@ -216,7 +297,8 @@ class ExecutionPlan:
             cfg = dataclasses.replace(cfg, fused_interpret=False)
         refresh = cfg.index_refresh
         state = fallback = None
-        if refresh is not None:
+        d = cfg.dist
+        if refresh is not None and d is None:
             from repro_torch.kernels.ivf_topk.ops import ivf_topk
             from repro_torch.mips import refresh as refresh_mod
             from repro_torch.mips.exact import topk_exact
@@ -234,14 +316,40 @@ class ExecutionPlan:
             def fallback(h, beta, state):  # noqa: ARG001 — uniform signature
                 return topk_exact(h, beta, top_k)
 
-        elif retriever is None:
+        elif refresh is not None:
+            # this rank maintains the shard of its model coordinate: the
+            # per-shard op gives that shard of `init_refresh_sharded`
+            from repro_torch.dist.fopo import dist_ivf_topk, dist_sharded_topk
+            from repro_torch.mips import refresh as refresh_mod
+
+            index, n_probe = _resolve_ivf_pallas_kwargs(kw)
+            top_k, n_items = cfg.top_k, cfg.num_items
+            rows = n_items // d.n_model
+            state = refresh_mod.init_refresh_state(
+                index.shard(d.model_rank), rows, refresh.delta_cap,
+                id_base=d.model_rank * rows,
+            )
+
+            def retriever(h, beta, state):  # noqa: ARG001 — uniform signature
+                return dist_ivf_topk(
+                    h, state.as_index(n_items), top_k, d, n_probe=n_probe,
+                    delta=state.delta(),
+                )
+
+            def fallback(h, beta, state):  # noqa: ARG001 — uniform signature
+                return dist_sharded_topk(h, beta, top_k, d, num_items=n_items)
+
+        elif retriever is None and d is None:
             retriever = make_retriever(cfg, **kw)
+        elif retriever is None:
+            retriever = _dist_retriever(cfg, kw)
         return cls(
             cfg=cfg,
             sample_tile=tile,
-            fused=bool(cfg.fused),
+            fused=bool(cfg.fused or d is not None),
             fused_sampler=bool(cfg.fused_sampler),
             retriever=retriever,
+            dist=d,
             refresh=refresh,
             initial_index_state=state,
             fallback_retriever=fallback,
@@ -316,17 +424,29 @@ class ExecutionPlan:
             return self._draw_mixture(seed, topk, eps)
 
     def _draw_uniform(self, seed: int, batch: int, device):
-        from repro_torch.core.proposals import UniformProposal
+        from repro_torch.core.proposals import ProposalSample, UniformProposal
 
         gen = torch.Generator(device=device).manual_seed(seed)
-        return UniformProposal(self.cfg.num_items).sample(
-            gen, batch, self.cfg.num_samples, device=device
-        )
+        prop = UniformProposal(self.cfg.num_items)
+        if self.dist is None:
+            return prop.sample(gen, batch, self.cfg.num_samples, device=device)
+        # the full batch from the same generator state on every rank
+        from repro_torch.dist.fopo import data_rows
+
+        full = prop.sample(gen, batch * self.dist.n_data, self.cfg.num_samples, device=device)
+        return ProposalSample(*(data_rows(t, self.dist) for t in full))
 
     def _draw_mixture(self, seed: int, topk: TopK, eps):
         from repro_torch.core.proposals import MixtureProposal, ProposalSample
 
         cfg = self.cfg
+        if self.fused_sampler and self.dist is not None:
+            from repro_torch.dist.fopo import dist_fused_mixture_sample
+
+            return dist_fused_mixture_sample(
+                seed, topk, num_samples=cfg.num_samples, epsilon=eps,
+                num_items=cfg.num_items, sample_tile=self.sample_tile, dist=self.dist,
+            )
         if self.fused_sampler:
             from repro_torch.kernels.fused_sampler.ops import fused_mixture_sample
 
@@ -336,9 +456,17 @@ class ExecutionPlan:
             )
             return ProposalSample(actions=actions, log_q=log_q, topk_slot=slots)
         gen = torch.Generator(device=topk.scores.device).manual_seed(seed)
-        return MixtureProposal(cfg.num_items, eps).sample(
-            gen, topk.indices, topk.scores, cfg.num_samples
-        )
+
+        def draw(indices, scores):
+            return MixtureProposal(cfg.num_items, eps).sample(
+                gen, indices, scores, cfg.num_samples
+            )
+
+        if self.dist is None:
+            return draw(topk.indices, topk.scores)
+        from repro_torch.dist.fopo import sample_replicated
+
+        return sample_replicated(self.dist, draw, topk.indices, topk.scores)
 
     def surrogate(self, policy, params, x, beta, sample, rewards) -> tuple[torch.Tensor, dict]:
         """Step 5: SNIS weights + covariance-gradient surrogate, through
@@ -347,5 +475,5 @@ class ExecutionPlan:
 
         return covariance_surrogate(
             policy, params, x, beta, sample.actions, sample.log_q, rewards,
-            fused=self.fused, sample_tile=self.sample_tile,
+            fused=self.fused, sample_tile=self.sample_tile, dist=self.dist,
         )

@@ -1,8 +1,9 @@
 """Embedding tables (the reference's `repro/embeddings/table.py`).
 
 The table abstraction is deliberately thin: parameters are plain
-tensors, so they move and convert like everything else. Row (vocab)
-sharding over a model axis, `spec()`, comes with the multi-device slice.
+tensors, so they move and convert like everything else. `spec()` is the
+row (vocab) sharding over the model group, as a `torch.distributed`
+tensor placement where the reference names a PartitionSpec.
 """
 from __future__ import annotations
 
@@ -33,12 +34,14 @@ class EmbeddingTableSpec:
         ) / self.dim**0.5
         return table.to(dtype)
 
-    def spec(self):
-        raise NotImplementedError(
-            "row sharding of embedding tables (the reference's PartitionSpec) is "
-            "not ported to repro_torch yet; it comes with the multi-device slice "
-            "(ROADMAP Queue A item 5)"
-        )
+    def spec(self) -> tuple:
+        """The table's placement over the model group: rows sharded,
+        ``(Shard(0),)`` (the reference's ``P("model", None)``), for
+        `torch.distributed.tensor.distribute_tensor` over a 1-D mesh of
+        the model group."""
+        from torch.distributed.tensor import Shard
+
+        return (Shard(0),)
 
     def lookup(self, table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
         """Padded multi-hot lookup [B, T] -> [B, D] with the spec's

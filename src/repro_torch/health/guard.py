@@ -24,7 +24,8 @@ runs from the same seeds agree bitwise. The verdict only reads the
 loss, the norm and the diagnostics, and writes nothing they feed. A
 skipped step costs the update it discards and one select per leaf.
 
-`guarded_update`'s ``dist=`` agreement waits for the dist slice.
+On the multi-device grid (``dist=``) the verdict is agreed by a MAX over
+every rank before the select (`repro_torch.dist.fopo.dist_verdict_agree`).
 """
 from __future__ import annotations
 
@@ -261,13 +262,18 @@ def guarded_update(
     the optimizer apply (it may close over the gradients). It always
     runs; each leaf of its result is then selected against the old leaf
     on the device (see the module docstring on why that keeps the
-    unguarded bits)."""
-    if dist is not None:
-        raise NotImplementedError(
-            "guarded_update(dist=...) is not ported yet: the verdict's agreement "
-            "across devices comes with the dist slice"
-        )
+    unguarded bits).
+
+    With ``dist`` (a `repro_torch.dist.DistConfig`) the verdict is agreed
+    over the grid first (`dist_verdict_agree`, a MAX): a bad step on any
+    rank is skipped on every rank, so the replicated theta never parts."""
     verdict = health_verdict(cfg, loss, gnorm, aux, state)
+    if dist is not None:
+        from repro_torch.dist.fopo import DistConfig, dist_verdict_agree
+
+        if not isinstance(dist, DistConfig):
+            raise ValueError(f"dist must be a DistConfig (or None), got {type(dist).__name__}")
+        verdict = dist_verdict_agree(verdict, dist)
     ok = verdict == 0
     new_params, new_opt = update_fn(params, opt_state)
 

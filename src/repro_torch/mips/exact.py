@@ -20,6 +20,16 @@ class TopK(NamedTuple):
     indices: torch.Tensor  # [B, K] int32 global item ids
 
 
+def _top(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of each row, descending, equal scores in their
+    order in the row (the reference's `lax.top_k` rule, lower index
+    first): a stable sort, where `torch.topk` leaves the order of ties
+    open, so the streaming, sharded and IVF routes, which all end in
+    `merge_topk`, pick the same ids among equal scores."""
+    vals, pos = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :k], pos[:, :k]
+
+
 def topk_exact(queries: torch.Tensor, items: torch.Tensor, k: int) -> TopK:
     """queries [B, L], items [P, L] -> top-k by inner product."""
     vals, idx = torch.topk(queries @ items.T, k, dim=1)
@@ -29,9 +39,9 @@ def topk_exact(queries: torch.Tensor, items: torch.Tensor, k: int) -> TopK:
 def merge_topk(scores: torch.Tensor, ids: torch.Tensor, k: int) -> TopK:
     """[B, K'] scored candidates -> TopK([B, K]). An id of -1 marks a
     dead slot: its score is demoted to NEG_INF, so it can only
-    back-fill."""
+    back-fill. Equal scores keep their candidates' order."""
     scores = torch.where(ids >= 0, scores, NEG_INF)
-    vals, pos = torch.topk(scores, k, dim=1)
+    vals, pos = _top(scores, k)
     return TopK(scores=vals, indices=torch.gather(ids, 1, pos).to(torch.int32))
 
 

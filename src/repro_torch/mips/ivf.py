@@ -11,6 +11,9 @@
 `ivf_query` below is the plain query, which gathers the
 [B, n_probe*cap, L] candidate tensor; the kernel-grade query that never
 builds it is `repro_torch.kernels.ivf_topk`, over the same `IVFIndex`.
+`build_ivf_sharded` builds one local index per row slab of the dist
+step's partition (global ids baked in), stacked as a `ShardedIVFIndex`
+(`repro_torch.dist.fopo.dist_ivf_topk`).
 
 The port draws its k-means++ seeds with `torch.multinomial` from a seeded
 `torch.Generator`, where the reference uses `jax.random.categorical`, so
@@ -32,9 +35,11 @@ __all__ = [
     "DEFAULT_CAP_TILE",
     "DEFAULT_N_PROBE",
     "IVFIndex",
+    "ShardedIVFIndex",
     "assign_clusters",
     "bucket_items",
     "build_ivf",
+    "build_ivf_sharded",
     "ivf_query",
     "kmeans",
     "resolve_cap",
@@ -63,6 +68,24 @@ class IVFIndex(NamedTuple):
     lists: torch.Tensor  # [C, cap] int32 item ids, -1 padded
     list_embs: torch.Tensor  # [C, cap, L] gathered item embeddings (0 padded)
     num_items: int
+
+
+class ShardedIVFIndex(NamedTuple):
+    """One IVF index per row slab (the `model` shards of the dist step),
+    stacked on a leading axis: shard d's lists hold GLOBAL item ids (its
+    slab offset baked in), so per-shard query results merge unchanged."""
+
+    centroids: torch.Tensor  # [n, C, L]
+    lists: torch.Tensor  # [n, C, cap] int32 GLOBAL ids, -1 padded
+    list_embs: torch.Tensor  # [n, C, cap, L]
+    num_items: int
+
+    @property
+    def n_shards(self) -> int:
+        return self.centroids.shape[0]
+
+    def shard(self, d: int) -> IVFIndex:
+        return IVFIndex(self.centroids[d], self.lists[d], self.list_embs[d], self.num_items)
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +274,56 @@ def build_ivf(
         )
     lists, list_embs = bucket_items(assign, items, num_clusters, cap)
     return IVFIndex(centroids, lists, list_embs, num_items=p)
+
+
+def build_ivf_sharded(
+    items: torch.Tensor,
+    n_shards: int,
+    num_clusters: int | None = None,
+    cap: int | None = None,
+    kmeans_iters: int = 12,
+    *,
+    cap_tile: int | None = None,
+    seed: int = 0,
+    device: str | torch.device | None = None,
+) -> ShardedIVFIndex:
+    """One IVF index per contiguous row slab of `items` (the dist step's
+    ceil partition, `pad_rows`' rule), padded to common [C, cap] shapes
+    and stacked. List ids are GLOBAL; a ragged tail slab is zero-padded
+    before clustering and its pad entries are masked back out of the
+    lists (-1, zero embeddings). Shard d's k-means is seeded with
+    ``seed + d`` (the reference folds the shard into its key)."""
+    p, l = items.shape
+    rows = -(-p // n_shards)
+    if num_clusters is None:
+        num_clusters = default_num_clusters(rows)
+    num_clusters = min(num_clusters, rows)
+    parts = []
+    for d in range(n_shards):
+        slab = items[d * rows:min(p, (d + 1) * rows)]
+        if slab.shape[0] < rows:  # ragged tail: cluster over zero pad rows
+            slab = torch.cat([slab, slab.new_zeros((rows - slab.shape[0], l))])
+        parts.append(build_ivf(slab, num_clusters, cap, kmeans_iters, cap_tile=cap_tile,
+                               seed=seed + d, device=device))
+    cap_max = max(ix.lists.shape[1] for ix in parts)
+    if cap_tile is not None:
+        ct = resolve_cap_tile(cap_tile, max(cap_max, cap_tile))
+        cap_max = -(-cap_max // ct) * ct
+    lists, embs = [], []
+    for d, ix in enumerate(parts):
+        pad = cap_max - ix.lists.shape[1]
+        li = torch.nn.functional.pad(ix.lists, (0, pad), value=-1)
+        em = torch.nn.functional.pad(ix.list_embs, (0, 0, 0, pad))
+        gids = torch.where(li >= 0, li + d * rows, -1)
+        dead = gids >= p  # the ragged tail's pad rows
+        lists.append(torch.where(dead, -1, gids).to(torch.int32))
+        embs.append(torch.where(dead[..., None], 0.0, em))
+    return ShardedIVFIndex(
+        centroids=torch.stack([ix.centroids for ix in parts]),
+        lists=torch.stack(lists),
+        list_embs=torch.stack(embs),
+        num_items=p,
+    )
 
 
 def ivf_query(

@@ -32,8 +32,14 @@ one spare slot past the end of a copy, which is then cut off.
 
 `refresh_step` draws its rows from a `torch.Generator` where the
 reference splits a JAX key: the two are equal in distribution only, and
-the rows can be passed in (``rows=``) to replay the reference's. The
-sharded (`*_sharded`) ops wait for the dist slice.
+the rows can be passed in (``rows=``) to replay the reference's.
+
+The sharded (`*_sharded`) ops run the same ops over a stacked per-shard
+state (every field with a leading [n] axis, from `build_ivf_sharded`'s
+layout: ids GLOBAL, each shard's slab offset baked in), shard by shard
+where the reference vmaps. On the grid of `repro_torch.dist` each rank
+keeps only the shard of its model coordinate and runs the per-shard op
+(``id_base``, ``num_valid``), which gives that shard of the stacked op.
 """
 from __future__ import annotations
 
@@ -47,23 +53,34 @@ from repro_torch.mips.exact import TopK, merge_topk, recall_at_k, topk_exact
 from repro_torch.mips.ivf import (
     DEFAULT_N_PROBE,
     IVFIndex,
+    ShardedIVFIndex,
     assign_clusters,
     bucket_items,
     build_ivf,
+    build_ivf_sharded,
 )
 
 __all__ = [
     "RefreshConfig",
     "RefreshState",
+    "build_refresh_sharded",
     "build_refresh_state",
     "compact",
+    "compact_sharded",
     "delta_append",
+    "delta_append_sharded",
+    "init_refresh_sharded",
     "init_refresh_state",
     "minibatch_kmeans_step",
     "rebuild",
+    "rebuild_sharded",
     "refresh_query",
     "refresh_step",
+    "refresh_step_sharded",
     "sampled_recall",
+    "shard_states",
+    "sharded_as_index",
+    "stack_states",
 ]
 
 
@@ -373,10 +390,13 @@ def refresh_query(
     queries: torch.Tensor,  # [B, L]
     k: int,
     n_probe: int = DEFAULT_N_PROBE,
+    *,
+    id_base: int = 0,  # noqa: ARG001 — the reference's signature; ids are global
 ) -> TopK:
     """Query the main lists AND the delta buffers of the probed
     centroids and merge (`merge_topk`). The plain version of the kernel
-    route's ``delta=`` probe."""
+    route's ``delta=`` probe. List ids are already global, so
+    ``id_base`` changes nothing, as in the reference."""
     n_probe = min(n_probe, state.num_clusters)
     probe = torch.topk(queries @ state.centroids.T, n_probe, dim=1).indices
     b = queries.shape[0]
@@ -404,19 +424,36 @@ def sampled_recall(
     k: int,
     *,
     n_probe: int = DEFAULT_N_PROBE,
+    dist=None,
 ) -> float:
     """Recall@k of the maintained index (main lists + delta buffers,
     `refresh_query`) against exact top-k over `items` on a held probe
     set: the ladder's periodic health probe. It reads the result on the
-    host. One state only: the stacked per-shard layout waits for the
-    dist slice."""
-    if state.centroids.dim() == 3:
-        raise NotImplementedError(
-            "sampled_recall over a stacked per-shard state is not ported yet: "
-            "the sharded index comes with the dist slice"
-        )
+    host. ``state`` is one state, or the stacked per-shard layout (the
+    shards' answers merged through `merge_topk`, ids already global).
+
+    With ``dist`` (a `repro_torch.dist.DistConfig`) ``state`` is this
+    rank's shard and ``items`` its slab: the shards' answers and the
+    exact top-k are merged over the model group, so every rank of it
+    gets the same recall (all of them must call it)."""
+    if dist is not None:
+        from repro_torch.dist.fopo import dist_sharded_topk
+        from repro_torch.mips.sharded import merge_topk_along_axis
+
+        loc = refresh_query(state, queries, k, n_probe)
+        approx = merge_topk_along_axis(loc.scores, loc.indices, k, dist.model_group)
+        # the maintained dist route has no pad rows (P % n_model == 0)
+        return recall_at_k(approx, dist_sharded_topk(queries, items, k, dist))
     exact = topk_exact(queries, items, k)
-    return recall_at_k(refresh_query(state, queries, k, n_probe), exact)
+    if state.centroids.dim() == 3:  # stacked [n, ...] per-shard states
+        per = [refresh_query(st, queries, k, n_probe) for st in shard_states(state)]
+        approx = merge_topk(
+            torch.cat([t.scores for t in per], dim=1),
+            torch.cat([t.indices for t in per], dim=1), k,
+        )
+    else:
+        approx = refresh_query(state, queries, k, n_probe)
+    return recall_at_k(approx, exact)
 
 
 def rebuild(
@@ -469,3 +506,126 @@ def build_refresh_state(
         device=device,
     )
     return init_refresh_state(index, items.shape[0], delta_cap)
+
+
+# ---------------------------------------------------------------------------
+# the sharded route: stacked per-shard states, the ops shard by shard
+# ---------------------------------------------------------------------------
+
+def shard_states(state: RefreshState) -> list[RefreshState]:
+    """The per-shard states of a stacked [n, ...] state."""
+    return [RefreshState(*(t[d] for t in state)) for d in range(state.centroids.shape[0])]
+
+
+def stack_states(states: list[RefreshState]) -> RefreshState:
+    """The stacked [n, ...] state of per-shard states (their caps equal)."""
+    return RefreshState(*(torch.stack(ts) for ts in zip(*states)))
+
+
+def _slabs(items: torch.Tensor, n: int) -> tuple[int, list[torch.Tensor], list[int]]:
+    """(rows, the n zero-padded row slabs, each slab's valid rows)."""
+    p, l = items.shape
+    rows = -(-p // n)
+    pad = n * rows - p
+    if pad:
+        items = torch.cat([items, items.new_zeros((pad, l))])
+    slabs = [items[d * rows:(d + 1) * rows] for d in range(n)]
+    return rows, slabs, [min(max(p - d * rows, 0), rows) for d in range(n)]
+
+
+def init_refresh_sharded(index: ShardedIVFIndex, delta_cap: int) -> RefreshState:
+    """Stacked per-shard states ([n, ...] on every field) from
+    `build_ivf_sharded`'s global-id layout."""
+    n = index.n_shards
+    rows = -(-index.num_items // n)
+    return stack_states([
+        init_refresh_state(index.shard(d), rows, delta_cap, id_base=d * rows)
+        for d in range(n)
+    ])
+
+
+def refresh_step_sharded(
+    state: RefreshState,  # stacked [n, ...]
+    generator: torch.Generator | None,
+    items: torch.Tensor,  # [P, L] the full table
+    *,
+    minibatch: int,
+    count_decay: float = 0.95,
+    rows: torch.Tensor | None = None,  # [n, minibatch] injected slab rows
+) -> RefreshState:
+    """Per-shard mini-batch k-means over each shard's own row slab (each
+    shard samples from the rows it indexes; a ragged tail slab draws
+    from its valid rows only). The draws come from one generator, shard
+    after shard, or from the injected ``rows``."""
+    n = state.centroids.shape[0]
+    _, slabs, valids = _slabs(items, n)
+    return stack_states([
+        refresh_step(st, generator, slab, minibatch=minibatch, count_decay=count_decay,
+                     num_valid=max(nv, 1), rows=None if rows is None else rows[d])
+        for d, (st, slab, nv) in enumerate(zip(shard_states(state), slabs, valids))
+    ])
+
+
+def delta_append_sharded(
+    state: RefreshState,  # stacked [n, ...]
+    ids: torch.Tensor,  # [m] int32 GLOBAL ids, -1 = unused slot
+    embs: torch.Tensor,  # [m, L]
+    num_items: int,
+) -> RefreshState:
+    """Route each updated item to the shard that owns its row slab: every
+    shard sees the whole batch and keeps its own rows (the others become
+    -1 no-ops)."""
+    n = state.centroids.shape[0]
+    rows = -(-num_items // n)
+    out = []
+    for d, st in enumerate(shard_states(state)):
+        local = ids.long() - d * rows
+        mine = (ids >= 0) & (local >= 0) & (local < rows)
+        out.append(delta_append(st, torch.where(mine, local, -1), embs, id_base=d * rows))
+    return stack_states(out)
+
+
+def compact_sharded(state: RefreshState, items: torch.Tensor) -> RefreshState:
+    """Per-shard compaction over each shard's row slab (global ids)."""
+    n = state.centroids.shape[0]
+    rows, slabs, valids = _slabs(items, n)
+    return stack_states([
+        compact(st, slab, id_base=d * rows, num_valid=nv)
+        for d, (st, slab, nv) in enumerate(zip(shard_states(state), slabs, valids))
+    ])
+
+
+def rebuild_sharded(state: RefreshState, items: torch.Tensor, *, iters: int = 4) -> RefreshState:
+    """Per-shard warm rebuild over each shard's row slab (global ids)."""
+    n = state.centroids.shape[0]
+    rows, slabs, valids = _slabs(items, n)
+    return stack_states([
+        rebuild(st, slab, iters=iters, id_base=d * rows, num_valid=nv)
+        for d, (st, slab, nv) in enumerate(zip(shard_states(state), slabs, valids))
+    ])
+
+
+def sharded_as_index(state: RefreshState, num_items: int) -> ShardedIVFIndex:
+    """The stacked main lists as the `ShardedIVFIndex` the dist query
+    route reads."""
+    return ShardedIVFIndex(state.centroids, state.lists, state.list_embs, num_items)
+
+
+def build_refresh_sharded(
+    items: torch.Tensor,
+    n_shards: int,
+    num_clusters: int,
+    cap: int,
+    *,
+    delta_cap: int = 64,
+    kmeans_iters: int = 12,
+    cap_tile: int | None = None,
+    seed: int = 0,
+    device=None,
+) -> RefreshState:
+    """`build_ivf_sharded` wrapped into stacked per-shard states."""
+    index = build_ivf_sharded(
+        items, n_shards, num_clusters, cap, kmeans_iters, cap_tile=cap_tile, seed=seed,
+        device=device,
+    )
+    return init_refresh_sharded(index, delta_cap)

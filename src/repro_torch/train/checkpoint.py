@@ -10,9 +10,14 @@
     written as numpy on the host (bf16 as its 16-bit pattern) and come
     back on the template leaf's device, in its dtype.
 
-The reference's module (`repro/train/checkpoint.py`) for one device; its
-per-shard writer (`save_sharded`, `restore_sharded`, `shard_bounds`)
-waits for the dist slice.
+The reference's module (`repro/train/checkpoint.py`), with its per-shard
+writer: `save_sharded` writes an array as per-row-shard npz files and
+`restore_sharded` reads any shard of a fresh split of it, elastically
+onto another shard count. Their files are the reference's own
+(``<name>_sharded/shards.json``, ``shard_%05d.npz`` with key ``rows``), so
+either package restores what the other saved. `shard_bounds`'
+array_split rule belongs to these files only; the dist step's beta slabs
+follow `pad_rows`' ceil rule (`repro_torch.dist.fopo.shard_rows`).
 """
 from __future__ import annotations
 
@@ -31,11 +36,15 @@ __all__ = [
     "ARRAYS",
     "CheckpointCorruptError",
     "MANIFEST",
+    "SHARDS_MANIFEST",
     "latest_checkpoint",
     "list_checkpoints",
     "restore_checkpoint",
+    "restore_sharded",
     "save_checkpoint",
+    "save_sharded",
     "set_write_fault",
+    "shard_bounds",
 ]
 
 MANIFEST = "manifest.json"
@@ -208,6 +217,108 @@ def list_checkpoints(directory: str) -> list[int]:
 def latest_checkpoint(directory: str) -> int | None:
     steps = list_checkpoints(directory)
     return steps[-1] if steps else None
+
+
+# ---------------------------------------------------------------------------
+# save-sharded arrays: per-row-shard npz files, elastic re-shard on load
+# ---------------------------------------------------------------------------
+
+SHARDS_MANIFEST = "shards.json"
+
+
+def shard_bounds(rows: int, num_shards: int) -> list[tuple[int, int]]:
+    """Contiguous row ranges of an even split, the ragged remainder spread
+    over the leading shards (np.array_split's rule): the one partition
+    shared by `save_sharded` and `restore_sharded`."""
+    base, rem = divmod(rows, num_shards)
+    bounds, start = [], 0
+    for i in range(num_shards):
+        end = start + base + (1 if i < rem else 0)
+        bounds.append((start, end))
+        start = end
+    return bounds
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def save_sharded(directory: str, name: str, array, num_shards: int, *, axis: int = 0) -> str:
+    """Atomically write ``array`` (numpy or a tensor, on any device) as
+    ``num_shards`` npz files, each shard sliced and copied to the host on
+    its own. Layout: ``<directory>/<name>_sharded/{shards.json,
+    shard_00000.npz, ...}``, the reference's."""
+    os.makedirs(directory, exist_ok=True)
+    shape = tuple(int(d) for d in array.shape)
+    bounds = shard_bounds(shape[axis], num_shards)
+    index = [slice(None)] * len(shape)
+    final = os.path.join(directory, f"{name}_sharded")
+    tmp = tempfile.mkdtemp(prefix=f".{name}_tmp_", dir=directory)
+    try:
+        dtype = None
+        for i, (start, end) in enumerate(bounds):
+            index[axis] = slice(start, end)
+            rows = _host(array[tuple(index)])
+            dtype = rows.dtype
+            np.savez(os.path.join(tmp, f"shard_{i:05d}.npz"), rows=rows)
+        manifest = {
+            "shape": list(shape),
+            "dtype": str(dtype),
+            "axis": int(axis),
+            "bounds": [list(b) for b in bounds],
+        }
+        with open(os.path.join(tmp, SHARDS_MANIFEST), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return final
+
+
+def restore_sharded(
+    directory: str,
+    name: str,
+    *,
+    shard_id: int | None = None,
+    num_shards: int | None = None,
+) -> np.ndarray:
+    """Load a save-sharded array, re-sharding elastically.
+
+    ``shard_id=None`` returns the whole array. With ``shard_id`` and
+    ``num_shards`` it returns that shard of a fresh `shard_bounds(rows,
+    num_shards)` split, whatever the saved shard count: only the saved
+    files overlapping the requested rows are opened."""
+    path = os.path.join(directory, f"{name}_sharded")
+    with open(os.path.join(path, SHARDS_MANIFEST)) as f:
+        manifest = json.load(f)
+    axis = manifest["axis"]
+    dtype = np.dtype(manifest["dtype"])
+    rows = manifest["shape"][axis]
+    if shard_id is None:
+        want = (0, rows)
+    else:
+        if num_shards is None:
+            raise ValueError("num_shards is required with shard_id")
+        want = shard_bounds(rows, num_shards)[shard_id]
+    pieces = []
+    for i, (start, end) in enumerate(tuple(b) for b in manifest["bounds"]):
+        lo, hi = max(start, want[0]), min(end, want[1])
+        if lo >= hi:
+            continue
+        with np.load(os.path.join(path, f"shard_{i:05d}.npz")) as z:
+            chunk = z["rows"]
+        index = [slice(None)] * chunk.ndim
+        index[axis] = slice(lo - start, hi - start)
+        pieces.append(chunk[tuple(index)])
+    out = np.concatenate(pieces, axis=axis) if pieces else np.zeros(
+        [0 if i == axis else d for i, d in enumerate(manifest["shape"])], dtype
+    )
+    return out.astype(dtype, copy=False)
 
 
 def _restore_one(path: str, template: Any) -> tuple[Any, dict]:

@@ -1,4 +1,5 @@
-"""The FOPO training driver, Algorithm 1 end to end, on one device.
+"""The FOPO training driver, Algorithm 1 end to end, on one device or
+one rank of the multi-device grid.
 
 Wires together: the data loader, the linear policy and beta
 (Assumption 1: fixed within a step; `update_items` churns it between
@@ -42,12 +43,25 @@ trace, an optional `torch.profiler` trace and the roofline-drift series
 against `predict_step_seconds`. Telemetry only observes: the trajectory
 is the same bit for bit with it on or off.
 
-Not ported yet, and refused with NotImplementedError naming its slice:
-``fopo.dist`` (dist).
+With ``fopo.dist`` (a `repro_torch.dist.DistConfig`) this process is one
+rank of the (data, model) grid and runs the FOPO estimator's dist step:
+beta is taken in full and the rank keeps only its slab on the device;
+each batch (the same on every rank: one loader seed) is cut to the
+rank's data rows; the theta gradient is summed over the data group
+before the update, so theta stays the same on every rank; the guard
+agrees its verdict over the grid. A maintained index keeps the rank's
+shard: the per-shard ops run on the slab, refresh rows come from a
+per-shard device generator (``cfg.seed + 31 + model rank``; an injected
+``refresh_rows`` returns [n_model, minibatch] slab rows, one row a
+shard), and the ladder's monitor sees the worst overflow of the shards
+(a MAX over the model group) and the recall of the merged shards.
+Checkpoints go to a directory per rank (``rank_00000``, ...) under
+``checkpoint_dir``. Every rank must run the same calls in the same order.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from functools import partial
 from typing import TYPE_CHECKING, Any, Callable
@@ -122,14 +136,6 @@ class TrainerConfig:
     obs: ObsConfig | None = None
 
 
-def _refuse_later_slices(cfg: TrainerConfig) -> None:
-    if cfg.fopo.dist is not None:
-        raise NotImplementedError(
-            "FOPOConfig.dist is not ported yet: the multi-device route comes "
-            "with the dist slice"
-        )
-
-
 class FOPOTrainer:
     """``device`` defaults to "cuda" and raises without CUDA. ``params``
     and ``opt_state`` start the run from given values (the parity tests
@@ -150,7 +156,6 @@ class FOPOTrainer:
         step_seeds: Callable[[int], int] | None = None,
         refresh_rows: Callable[[int], Any] | None = None,
     ):
-        _refuse_later_slices(cfg)
         self.device = resolve_device(device)
         self.dataset = dataset
         p, l = dataset.item_embeddings.shape
@@ -169,13 +174,31 @@ class FOPOTrainer:
         if fopo_cfg is not cfg.fopo:
             cfg = dataclasses.replace(cfg, fopo=fopo_cfg)
         self.cfg = cfg
+        # the grid (None on one device); the plan validated its type
+        self.dist = fopo_cfg.dist
+        if self.dist is not None:
+            if cfg.estimator != "fopo":
+                raise ValueError(f"dist= runs the fopo estimator only, not {cfg.estimator!r}")
+            if cfg.batch_size % self.dist.n_data:
+                raise ValueError(
+                    f"batch {cfg.batch_size} must be a multiple of the data-axis "
+                    f"size ({self.dist.n_data})"
+                )
         self.policy = SoftmaxPolicy(tower=linear_tower_apply, item_dim=l)
         if params is None:
             params = linear_tower_init(torch.Generator().manual_seed(cfg.seed), l, l)
         self.params = tree_map(lambda t: t.to(self.device, torch.float32), params)
-        self.beta = torch.as_tensor(dataset.item_embeddings, dtype=torch.float32).to(
-            self.device
-        )
+        beta = torch.as_tensor(dataset.item_embeddings, dtype=torch.float32)
+        self.num_items = p
+        self._shard = 0  # this rank's model coordinate (its slab under dist)
+        if self.dist is not None:
+            from repro_torch.dist.fopo import shard_rows
+
+            beta = shard_rows(beta, self.dist)
+            self._shard = self.dist.model_rank
+        self._rows = beta.shape[0]
+        self._id_base = self._shard * self._rows
+        self.beta = beta.to(self.device)
         self.optimizer: Optimizer = adam(cfg.learning_rate)
         self.opt_state = (
             tree_map(lambda t: t.to(self.device), opt_state)
@@ -196,7 +219,10 @@ class FOPOTrainer:
             RefreshState(*(t.to(self.device) for t in state)) if state is not None else None
         )
         self._refresh_fns = self._build_refresh() if state is not None else None
-        self._refresh_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 31)
+        # one generator a shard: data replicas of a shard draw the same rows
+        self._refresh_gen = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + 31 + self._shard
+        )
         self._refresh_rows = refresh_rows
         # the health layer (all None / zero when cfg.health is None)
         self.fault_plan = fault_plan
@@ -258,6 +284,14 @@ class FOPOTrainer:
         grad_leaves = torch.autograd.grad(loss, leaves)
         it = iter(grad_leaves)
         grads = tree_map(lambda _: next(it), params)
+        if self.dist is not None:
+            # the data-sharded batch reduction: each rank's gradient covers
+            # its own rows of the -(1/B) sum
+            from repro_torch.dist.collectives import all_reduce
+
+            grads = tree_map(
+                lambda g: all_reduce(g, group=self.dist.data_group, name="grad_theta"), grads
+            )
         loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
         if fault is not None:
             from repro_torch.health.faults import inject_aux, inject_grads
@@ -281,7 +315,7 @@ class FOPOTrainer:
             else:
                 self.params, self.opt_state, self.guard_state, verdict = guarded_update(
                     cfg.health, self.guard_state, loss, gnorm, aux, params,
-                    self.opt_state, do_update,
+                    self.opt_state, do_update, dist=self.dist,
                 )
         return loss, aux, verdict
 
@@ -289,21 +323,23 @@ class FOPOTrainer:
     # index maintenance (repro_torch.mips.refresh)
     # ------------------------------------------------------------------
     def _build_refresh(self) -> dict:
-        """The maintenance ops with the schedule's knobs bound."""
+        """The maintenance ops with the schedule's knobs bound; under dist
+        the per-shard ops of this rank's shard (its slab's id base)."""
         rc = self.plan.refresh
         health = self.cfg.health
         iters = (
             health.index.rebuild_iters
             if health is not None and health.index is not None else 4
         )
+        base = self._id_base
         return {
             "refresh": partial(
                 refresh_ops.refresh_step, minibatch=rc.minibatch,
                 count_decay=rc.count_decay,
             ),
-            "append": refresh_ops.delta_append,
-            "compact": refresh_ops.compact,
-            "rebuild": partial(refresh_ops.rebuild, iters=iters),
+            "append": partial(refresh_ops.delta_append, id_base=base),
+            "compact": partial(refresh_ops.compact, id_base=base),
+            "rebuild": partial(refresh_ops.rebuild, iters=iters, id_base=base),
         }
 
     def update_items(self, ids, embs) -> None:
@@ -311,17 +347,22 @@ class FOPOTrainer:
         maintaining an index) delta-append them, so the very next
         retrieval serves the fresh embeddings. Pad with id -1 rows to
         keep a batch shape; they are dropped. Beta is replaced, not
-        written in place: a snapshot holding the old one stays valid."""
+        written in place: a snapshot holding the old one stays valid.
+        Under dist the ids are global: each rank writes (and appends) the
+        rows of its own slab."""
+        from repro_torch.dist.collectives import rebase_ids
+
         ids = torch.as_tensor(ids).to(self.device, torch.int32)
         embs = torch.as_tensor(embs).to(self.device, self.beta.dtype)
-        p = self.beta.shape[0]
+        rows = self._rows
+        local, _ = rebase_ids(ids, rows, self._shard)
         # pad rows land on a spare row past the end, then cut off (never
         # -1, which wraps, nor a clamped 0, which would race a real write)
         ext = torch.cat([self.beta, self.beta[:1]])
-        ext[torch.where(ids >= 0, ids.long(), p)] = embs
-        self.beta = ext[:p]
+        ext[torch.where(local >= 0, local.long(), rows)] = embs
+        self.beta = ext[:rows]
         if self._refresh_fns is not None and not self._degraded:
-            self.index_state = self._refresh_fns["append"](self.index_state, ids, embs)
+            self.index_state = self._refresh_fns["append"](self.index_state, local, embs)
 
     def _maybe_refresh_index(self) -> None:
         """Launch this step's scheduled maintenance without waiting: the
@@ -336,6 +377,8 @@ class FOPOTrainer:
             rows = None
             if self._refresh_rows is not None:
                 rows = torch.as_tensor(np.asarray(self._refresh_rows(self.step)))
+                if self.dist is not None:  # [n_model, minibatch]: this shard's row
+                    rows = rows[self.dist.model_rank]
             self.index_state = self._refresh_fns["refresh"](
                 self.index_state, self._refresh_gen, self.beta, rows=rows
             )
@@ -366,9 +409,15 @@ class FOPOTrainer:
                 queries = self.policy.user_embedding(self.params, contexts.to(self.device))
             recall = refresh_ops.sampled_recall(
                 self.index_state, self.beta, queries, ih.probe_k,
-                n_probe=ih.n_probe or DEFAULT_N_PROBE,
+                n_probe=ih.n_probe or DEFAULT_N_PROBE, dist=self.dist,
             )
-        overflow = int(self.index_state.overflow)
+        overflow = self.index_state.overflow
+        if self.dist is not None:  # the worst shard's
+            from repro_torch.dist.collectives import all_reduce
+
+            overflow = all_reduce(overflow, op=torch.distributed.ReduceOp.MAX,
+                                  group=self.dist.model_group, name="overflow")
+        overflow = int(overflow)
         action = monitor.observe(recall, overflow)
         if recall is not None or action:
             bus.event(
@@ -453,18 +502,25 @@ class FOPOTrainer:
         if "guard_state" in state:
             self.guard_state = state["guard_state"]
 
+    def _ckpt_dir(self) -> str | None:
+        """``checkpoint_dir``, or under dist this rank's directory in it."""
+        d = self.cfg.checkpoint_dir
+        if d and self.dist is not None:
+            return os.path.join(d, f"rank_{torch.distributed.get_rank():05d}")
+        return d
+
     def maybe_restore(self) -> bool:
         """Resume from the latest checkpoint in ``checkpoint_dir`` (a
         corrupt latest one falls back to the one before). Returns whether
         one was restored."""
-        cfg = self.cfg
-        if not cfg.checkpoint_dir:
+        directory = self._ckpt_dir()
+        if not directory:
             return False
-        if ckpt.latest_checkpoint(cfg.checkpoint_dir) is None:
+        if ckpt.latest_checkpoint(directory) is None:
             return False
         with span("checkpoint_restore", step=self.step):
             step, state, extra = ckpt.restore_checkpoint(
-                cfg.checkpoint_dir, self._ckpt_state(), fallback=True
+                directory, self._ckpt_state(), fallback=True
             )
         self._adopt_state(state)
         self.step = step
@@ -477,12 +533,13 @@ class FOPOTrainer:
 
     def save(self) -> None:
         cfg = self.cfg
-        if not cfg.checkpoint_dir:
+        directory = self._ckpt_dir()
+        if not directory:
             return
         health = cfg.health
         with span("checkpoint_save", step=self.step):
             ckpt.save_checkpoint(
-                cfg.checkpoint_dir,
+                directory,
                 self.step,
                 self._ckpt_state(),
                 extra={
@@ -521,8 +578,14 @@ class FOPOTrainer:
                     fault = torch.from_numpy(self.fault_plan.signals(self.step)).to(
                         self.device
                     )
-                contexts = torch.from_numpy(batch["contexts"]).to(self.device)
-                positives = torch.from_numpy(batch["positives"]).to(self.device)
+                contexts = torch.from_numpy(batch["contexts"])
+                positives = torch.from_numpy(batch["positives"])
+                if self.dist is not None:  # this rank's rows of the global batch
+                    from repro_torch.dist.fopo import data_rows
+
+                    contexts = data_rows(contexts, self.dist)
+                    positives = data_rows(positives, self.dist)
+                contexts, positives = contexts.to(self.device), positives.to(self.device)
                 t0 = time.perf_counter()
                 with span("dispatch", step=self.step):
                     loss, aux, verdict = self.train_step(seed, contexts, positives, eps, fault)
@@ -600,6 +663,13 @@ class FOPOTrainer:
         n = min(len(ds.contexts), max_rows)
         contexts = torch.from_numpy(np.asarray(ds.contexts[:n])).to(self.device)
         h = self.policy.user_embedding(self.params, contexts)
-        top1 = topk_exact(h, self.beta, 1).indices[:, 0].cpu().numpy()
+        if self.dist is None:
+            top1 = topk_exact(h, self.beta, 1)
+        else:  # the slabs' top-1 merged over the model group
+            from repro_torch.mips.sharded import sharded_topk
+
+            top1 = sharded_topk(h, self.beta, 1, self.dist.model_group,
+                                num_valid=self.num_items)
+        top1 = top1.indices[:, 0].cpu().numpy()
         hits = (top1[:, None] == ds.positives[:n]).any(axis=1)
         return float(hits.mean())

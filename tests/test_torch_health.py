@@ -183,7 +183,9 @@ def test_update_guard_state_matches_reference():
 
 
 def test_guarded_update_refuses_dist_until_the_dist_slice():
-    with pytest.raises(NotImplementedError, match="dist slice"):
+    # the dist slice has landed: dist= must be a DistConfig (the agreement
+    # itself runs on a gloo world in tests/test_torch_dist.py)
+    with pytest.raises(ValueError, match="DistConfig"):
         th.guarded_update(th.HealthConfig(), th.init_guard_state(), torch.tensor(1.0),
                           torch.tensor(1.0), {}, {}, {}, lambda p, o: (p, o), dist=object())
 

@@ -3,9 +3,9 @@ CPU.
 
 The plan resolves the reference's ivf_pallas + index_refresh route and
 its exact fallback, and the training knobs (the retrievers, the fused
-sampler and the fused surrogate); the multi-device knobs raise
-NotImplementedError naming the dist slice, and invalid values raise
-ValueError as in the reference. The coalescer is a copy of the
+sampler and the fused surrogate); the multi-device knobs resolve
+(`tests/test_torch_sharded.py` drives them on a world of one), and
+invalid values raise ValueError as in the reference. The coalescer is a copy of the
 reference's and is pinned to it on random arrival streams.
 """
 import pytest
@@ -95,15 +95,18 @@ def test_training_knobs_resolve(kw, retriever, fused_sampler, fused):
 
 
 @pytest.mark.parametrize(
-    "kw,slice_name",
+    "kw,match",
     [
-        (dict(dist=object()), "dist slice"),
-        (dict(retriever="sharded", index_refresh=None), "dist slice"),
+        # the dist slice has landed: a dist= that is no DistConfig, and the
+        # sharded retriever without its process group, are config errors
+        pytest.param(dict(dist=object()), "DistConfig", id="kw0-dist slice"),
+        pytest.param(dict(retriever="sharded", index_refresh=None), '"group"',
+                     id="kw1-dist slice"),
     ],
 )
-def test_later_slices_raise_not_implemented(kw, slice_name):
+def test_later_slices_raise_not_implemented(kw, match):
     _, index = _index()
-    with pytest.raises(NotImplementedError, match=slice_name):
+    with pytest.raises(ValueError, match=match):
         ExecutionPlan.resolve(_cfg(**kw), retriever_kwargs={"index": index})
 
 

@@ -353,7 +353,9 @@ assert not bad, bad
     ("repro_torch.obs", "repro_torch.obs.drift", "repro_torch.obs.report",
      "repro_torch.obs.run", "repro_torch.obs.sinks", "repro_torch.obs.trace",
      "repro_torch.serve.cluster", "repro_torch.serve"),
-], ids=["embeddings", "embedding_bag", "recsys", "health", "obs_cluster"])
+    ("repro_torch.dist", "repro_torch.dist.collectives", "repro_torch.dist.fopo",
+     "repro_torch.mips.sharded", "repro_torch.core.plan", "repro_torch.train.trainer"),
+], ids=["embeddings", "embedding_bag", "recsys", "health", "obs_cluster", "dist"])
 def test_embedding_slice_modules_import_no_jax(modules):
     """This slice's modules, each set alone in a fresh interpreter."""
     res = subprocess.run(

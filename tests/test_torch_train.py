@@ -386,16 +386,18 @@ def test_history_has_the_reference_schema():
     assert set(empty_history()) == set(j_empty_history())
 
 
-@pytest.mark.parametrize("field,value,slice_name", [
-    pytest.param("fopo.dist", object(), "dist slice", id="fopo.dist-value1-dist slice"),
+@pytest.mark.parametrize("field,value,match", [
+    # the dist slice has landed: a dist= that is no DistConfig is a config
+    # error, as the reference's `test_garbage_dist_config_rejected`
+    pytest.param("fopo.dist", object(), "DistConfig", id="fopo.dist-value1-dist slice"),
 ])
-def test_later_slices_raise_not_implemented(dataset, field, value, slice_name):
-    cfg = TrainerConfig(fopo=FOPOConfig(num_items=300, retriever="exact"))
+def test_later_slices_raise_not_implemented(dataset, field, value, match):
+    cfg = TrainerConfig(fopo=FOPOConfig(num_items=300, retriever="exact", fused_sampler=True))
     if field.startswith("fopo."):
         cfg = dataclasses.replace(cfg, fopo=dataclasses.replace(cfg.fopo, **{field[5:]: value}))
     else:
         cfg = dataclasses.replace(cfg, **{field: value})
-    with pytest.raises(NotImplementedError, match=slice_name):
+    with pytest.raises(ValueError, match=match):
         FOPOTrainer(cfg, dataset, device="cpu")
 
 
