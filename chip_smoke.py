@@ -197,7 +197,19 @@ more each:
                   boundary ties, scores within rtol 1e-5 / atol 1e-6;
                   DIEN's tower on the CPU, its retrieval on the card's user
                   vectors); latency p50 / p99 and stage times
-  8. flash        the flash-attention kernel (K9) against its plain
+  7b. recsys-train recsys training at the full CONFIG widths (random weights
+                  from seed 0, Adam(1e-3), batches of 64 drawn as the train
+                  CLI draws them): DIN, DIEN and Wide&Deep (one hashed table
+                  of 4,000,000 x 32) on BCE, 10 steps each; SASRec on FOPO at
+                  10^6 items (S 1000, K 256, eps 0.8, the streaming top-K at
+                  block_items 8192), 20 steps, step p50 / p99; DIEN on FOPO,
+                  5 steps. Each replayed on the CPU (2 BCE steps, 3 FOPO
+                  steps on the card's own actions and log q), each step from
+                  the card's state before it: loss within rtol 1e-5 / atol
+                  1e-6, parameters by `theta_gate`, the first FOPO step's
+                  top-K held to the CPU's. Peak memory and seconds logged.
+                  No hand-written kernel is on this path
+ 8. flash        the flash-attention kernel (K9) against its plain
                   version in fp32 and bf16, out and lse: small shapes
                   (ragged S, windows 8 / 64, cap 50, q_offset > 0, GQA
                   n_rep 1 and 2, every head width), the training path's
@@ -248,6 +260,27 @@ more each:
                   same parameters and tokens, in bf16 (loss within 1e-2
                   relative, every gradient leaf within 5e-2 relative L2)
                   and in fp32 (1e-5, 1e-4)
+ 11b. olmoe       OLMoE-1B-7B (16 layers, d_model 2048, 16 / 16 heads of 128,
+                  64 experts of 1024 top 8, vocab 50,304, bf16; random
+                  weights from seed 0): generation at full width through
+                  phase 10's path (16 requests of 2048 + 16 tokens, max_batch
+                  8, 16 K9 launches a prefill batch, K7 at L 2048 every
+                  token), dropped_frac by layer at prefill and at decode
+                  (capacity 2 a call); the gate against the plain chunked
+                  attention with the routing of both recorded: a token routed
+                  differently must sit at a near tie (its logit gap within
+                  2 |dx| max |w_e|), a row whose compared token was rerouted
+                  is set aside and counted, the rest held to phase 10's
+                  tolerances, in bf16 and one prefill in fp32. Training cut
+                  to 4 layers (the rest at full width, 1.9 B parameters):
+                  4 Adam steps of 4 x 2048 tokens in microbatches of 1, K9
+                  and K10 counted, and phase 11's gate (the (layer, expert)
+                  slices a rerouted token reached set aside). Then
+                  `fopo_lm_head_loss` over the final hidden states of one
+                  2048-token prompt (N 2048, D 2048, S 256, K 128, eps 0.5,
+                  the streaming top-K), held to the CPU on the card's draws.
+                  Phases 8 and 9 also check and time K9 and K10 at OLMoE's
+                  shapes (head_dim 128, a GQA group of 1, no cap, no window)
  12. a JSON line of the kernels, then the card's name and power limit,
      then the last line {"ok": true, "device": {...}}
 
@@ -288,10 +321,15 @@ OBS_STEPS, PROF_STEPS, CLUSTER_REPLICAS, CLUSTER_SERVICE_S = 20, 4, 3, 0.005
 # shard, the guard drill's faulted step, the ranks' time limit
 DIST_STEPS, DIST_A_STEPS, DIST_C, GUARD_AT, DIST_TIMEOUT_S = 20, 5, 512, 5, 300
 LM_PROMPT, LM_GEN, LM_BATCH, LM_REQUESTS, LM_TOP_K = 2048, 16, 8, 16, 4
+# recsys training (phase 7b): steps on BCE, on FOPO (SASRec, DIEN), and replayed on the CPU
+RECSYS_BCE_STEPS, RECSYS_FOPO_STEPS, DIEN_FOPO_STEPS = 10, 20, 5
+RECSYS_REPLAY_BCE, RECSYS_REPLAY_FOPO = 2, 3
 BF16_RTOL = 2.0**-7  # one bf16 ulp at the bottom of a binade
 LM_HIDDEN_REL = 5e-2  # bf16 prefill hidden states, kernel vs plain path (relative L2)
 # LM training: global batch 4 x 2048 in microbatches of 1 row, 6 Adam steps
 LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_MICRO, LM_TRAIN_STEPS, LM_GATE_LAYERS = 4, 2048, 1, 6, 4
+# OLMoE-1B-7B training: layers kept of 16 (the rest at full width) and Adam steps
+OLMOE_TRAIN_LAYERS, OLMOE_TRAIN_STEPS = 4, 4
 # the training gate, kernel vs plain attention: (loss relative, gradient leaf relative L2)
 GATE_BF16, GATE_FP32 = (1e-2, 5e-2), (1e-5, 1e-4)
 
@@ -2579,6 +2617,158 @@ def dien_ivf_times(route, payloads) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# recsys training at full width (phase 7b)
+# ---------------------------------------------------------------------------
+
+def tree_cpu(tree):
+    """A parameter or optimizer-state tree with every tensor copied to the CPU."""
+    from repro_torch.optim.optimizers import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def grads_seen(opt, seen: list, update: bool = True):
+    """``opt`` with an update that also keeps the gradients it is handed
+    (with ``update=False`` it only keeps them, and hands back the
+    parameters and state unchanged)."""
+    from repro_torch.optim import Optimizer
+
+    def step(g, s_, p_):
+        seen.append(g)
+        return opt.update(g, s_, p_) if update else (p_, s_)
+
+    return Optimizer(init=opt.init, update=step)
+
+
+def recsys_train_phase(dev=None, smoke: bool = False) -> dict:
+    """Recsys training at the full CONFIG widths (phase 7b), random weights
+    from seed 0, Adam(1e-3), batches of 64 drawn as the launcher draws
+    them: DIN, DIEN and Wide&Deep on BCE (RECSYS_BCE_STEPS steps each),
+    SASRec on FOPO at 10^6 items (RECSYS_FOPO_STEPS, S 1000, K 256, eps
+    0.8, the streaming top-K at block_items 8192; step p50 / p99) and
+    DIEN on FOPO (DIEN_FOPO_STEPS); on FOPO two of a row's four positives
+    come from its top-64 under the initial weights (the CLI's uniform
+    ones would give no reward and a zero gradient at 10^6 items). Each path is replayed on the CPU
+    (RECSYS_REPLAY_BCE and RECSYS_REPLAY_FOPO steps), each step from the
+    card's parameters and Adam state before it, FOPO on the card's own
+    actions and log q: loss within rtol 1e-5 / atol 1e-6, every parameter
+    leaf by `theta_gate`; at the first FOPO step the CPU's top-K is held
+    to the card's. No hand-written kernel is on this path (the retriever,
+    the sampler and the surrogate are plain torch, as the reference's are
+    plain JAX). (``dev`` and ``smoke`` default to the card and the full
+    CONFIGs; SMOKE_CONFIGs on the CPU rehearse the phase.)"""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import recsys_batch
+    from repro_torch.mips.streaming import topk_streaming
+    from repro_torch.models import recsys
+    from repro_torch.optim import adam
+    from repro_torch.optim.optimizers import tree_leaves
+
+    dev = torch.device(dev or "cuda")
+    lr = 1e-3
+    out = {}
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    for arch, objective, steps in (("din", "bce", RECSYS_BCE_STEPS),
+                                   ("dien", "bce", RECSYS_BCE_STEPS),
+                                   ("wide-deep", "bce", RECSYS_BCE_STEPS),
+                                   ("sasrec", "fopo", RECSYS_FOPO_STEPS),
+                                   ("dien", "fopo", DIEN_FOPO_STEPS)):
+        tag = f"{arch} {objective}"
+        cfg = get_arch(arch).SMOKE_CONFIG if smoke else get_arch(arch).CONFIG
+        t0 = time.perf_counter()
+        params = recsys.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        opt = adam(lr)
+        state = opt.init(params)
+        record = []
+        plan = None
+        if objective == "fopo":
+            plan = recording_plan(recsys.fopo_plan(cfg), record)
+        step = recsys.make_train_step(cfg, opt, objective, plan=plan)
+        rng = np.random.default_rng(0)
+        batches = [recsys_batch(cfg, rng, objective) for _ in range(steps)]
+        tower = recsys.sasrec_user_vector if cfg.kind == "sasrec" else recsys.dien_user_vector
+        if objective == "fopo":
+            # the CLI's positives are uniform over 10^6 items: no draw would
+            # hit one and every gradient would be 0. Two of a row's four are
+            # drawn from its top-64 under the initial weights instead.
+            with torch.no_grad():
+                for nb in batches:
+                    h = tower(cfg, params, torch.from_numpy(nb["hist"]).to(dev))
+                    top = topk_streaming(h, params["items"], 64, block_items=8192)
+                    pick = rng.integers(0, 64, (h.shape[0], 2))
+                    nb["positives"][:, :2] = np.take_along_axis(
+                        top.indices.cpu().numpy(), pick, 1)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        replay_n = RECSYS_REPLAY_FOPO if objective == "fopo" else RECSYS_REPLAY_BCE
+        starts, losses, times = [], [], []
+        for i, nb in enumerate(batches):
+            if i <= replay_n:  # the state before step i; the last one ends the replay
+                starts.append((tree_cpu(params), tree_cpu(state)))
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+            t = time.perf_counter()
+            params, state, loss = step(params, state, batch, i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(loss))
+            check(math.isfinite(losses[-1]), f"{tag} step {i + 1}: loss {losses[-1]}")
+        # the CPU replay, each step from the card's state before it
+        t0 = time.perf_counter()
+        cpu_opt = adam(lr)
+        off, worst_loss, hits = 0, 0.0, []
+        for i in range(replay_n):
+            p0, s0 = starts[i]
+            batch = {k: torch.from_numpy(v) for k, v in batches[i].items()}
+            seen = []
+            cstep = recsys.make_train_step(cfg, grads_seen(cpu_opt, seen), objective)
+            kw = {}
+            if objective == "fopo":
+                topk, sample = record[i]
+                kw["sample"] = type(sample)(*(t.cpu() for t in sample))
+                if i == 0:
+                    with torch.no_grad():
+                        h = tower(cfg, p0, batch["hist"])
+                        mine = topk_streaming(h, p0["items"], cfg.fopo_top_k, block_items=8192)
+                    topk_err((topk.scores, topk.indices), (mine.scores, mine.indices),
+                             f"{tag} step 1 top-K, card vs CPU")
+            p1, _, loss = cstep(p0, s0, batch, i, **kw)
+            if objective == "fopo":
+                hit = (kw["sample"].actions[:, :, None] == batch["positives"][:, None, :]).any(-1)
+                hits.append(float(hit.float().mean()))
+            check(abs(float(loss) - losses[i]) <= 1e-6 + 1e-5 * abs(losses[i]),
+                  f"{tag} replay step {i + 1}: loss {float(loss)} vs the card's {losses[i]}")
+            worst_loss = max(worst_loss, abs(float(loss) - losses[i]))
+            for g, a, b in zip(tree_leaves(seen[0]), tree_leaves(p1),
+                               tree_leaves(starts[i + 1][0])):
+                off += theta_gate(a, b, g, lr, f"{tag} replay step {i + 1}")
+        cpu_s = time.perf_counter() - t0
+        res = dict(p50_ms=percentile(times[1:], 50), p99_ms=percentile(times[1:], 99),
+                   first_ms=times[0], losses=losses, n_params=n_params)
+        out[tag] = res
+        rows = cfg.field_vocab * 4 if cfg.kind == "wide_deep" else cfg.item_vocab
+        draws = (f" on the card's draws, at most {100 * max(hits):.2f} % of them rewarded,"
+                 if objective == "fopo" else "")
+        log(f"[recsys-train] {tag}: {rows} rows x {cfg.embed_dim}, {n_params / 1e6:.1f} M "
+            f"parameters, set up in {setup_s:.2f} s; {steps} steps of batch 64: loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f}; step 1 {times[0]:.2f} ms, then p50 "
+            f"{res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms; CPU replay of {replay_n} "
+            f"steps{draws} ({cpu_s:.1f} s): loss max |diff| {worst_loss:.3g}, parameters by "
+            f"theta_gate ({off} entries past 1e-6 where the gradient is near 0)")
+        del params, state, starts, record, batches
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    secs = time.perf_counter() - t_phase
+    log(f"[recsys-train] phase 7b took {secs:.1f} s, peak device memory {peak:.2f} GB")
+    out.update(peak_gb=peak, seconds=secs)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # flash attention (K9): kernel vs plain version
 # ---------------------------------------------------------------------------
 
@@ -2769,6 +2959,9 @@ def flash_phase() -> dict:
         ("training B 1 bf16", (1, LM_TRAIN_S, 8, 4, 256), dict(logit_cap=50.0), torch.bfloat16),
         ("S 8192 window 4096", (1, 8192, 8, 4, 256), dict(logit_cap=50.0, window=4096),
          torch.bfloat16),
+        # OLMoE-1B-7B: head_dim 128, a GQA group of 1, no soft-cap, no window
+        ("olmoe prefill", (LM_BATCH, LM_PROMPT, 16, 16, 128), {}, torch.bfloat16),
+        ("olmoe training B 1 fp32", (1, LM_TRAIN_S, 16, 16, 128), {}, torch.float32),
     ]:
         sets = [inputs(b, s_, s_, h, kv, d, dtype) for _ in range(2)]
         compare(tag, *sets[0], **kw)
@@ -2786,7 +2979,7 @@ def flash_phase() -> dict:
             f"bound {b_ms:.4f} ms ({b_by}: {note}; {nbytes / 1e6:.2f} MB, "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); kernel at {100 * b_ms / t_k:.1f}% of "
             "the bound")
-        if tag == "gemma prefill":
+        if tag in ("gemma prefill", "olmoe prefill"):
             lib = flex_yardstick(sets, plain, kw)
             timing[tag]["library"] = lib
             if isinstance(lib["bf16"], float):
@@ -2974,6 +3167,8 @@ def flash_bwd_phase(dev=None) -> dict:
         ("main path B 1", (1, LM_PROMPT, 8, 4, 256), gemma, (torch.float32, torch.bfloat16)),
         ("S 8192 window 4096", (1, 8192, 8, 4, 256), dict(gemma, window=4096),
          (torch.bfloat16, torch.float32)),
+        # OLMoE-1B-7B's training microbatch: head_dim 128, GQA group 1, no cap
+        ("olmoe main path B 1", (1, LM_PROMPT, 16, 16, 128), {}, (torch.float32, torch.bfloat16)),
     ]:
         for dtype in dtypes:
             sets = [inputs(b, s_, s_, h, kv, d, dtype, **kw) for _ in range(2)]
@@ -3040,6 +3235,219 @@ def near_tie(h1, h2, a: int, b: int, unembed, centroids, n_probe: int) -> tuple[
     return False, f"token gap {gap:.4g} > |dh| |du| = {dh * float(du.norm()):.4g}"
 
 
+@contextlib.contextmanager
+def moe_recorder(rec: list, routes: bool = False):
+    """While open, each call of `moe_ffn` from `repro_torch.models.lm` (one a
+    layer of a prefill, of a decode step or of a training microbatch)
+    appends to ``rec`` its dropped_frac (a 0-dim tensor, read later), its
+    capacity and, with ``routes``, what `route_gate` needs: its input x,
+    the router's weights, each token's top-k experts (by its fp32 router
+    logits), which of its assignments kept a slot (ranked by the
+    reference's one-hot cumsum, apart from `moe_ffn`'s sort), and the gap
+    between its k-th and (k+1)-th logits."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import lm
+    from repro_torch.models.moe import moe_capacity
+
+    base = lm.moe_ffn
+
+    def recorded(x, router_w, *args, num_experts_per_tok, **kw):
+        out, aux = base(x, router_w, *args, num_experts_per_tok=num_experts_per_tok, **kw)
+        k, e = num_experts_per_tok, router_w.shape[-1]
+        cap = moe_capacity(x.shape[0], k, kw["capacity_factor"], e)
+        entry = {"dropped": aux["dropped_frac"].detach(), "capacity": cap}
+        if routes:
+            with torch.no_grad():
+                top = torch.topk(x.detach().float() @ router_w.detach().float(), k + 1, dim=-1)
+                top_e = top.indices[:, :k]
+                flat = top_e.reshape(-1)
+                ranks = torch.cumsum(F.one_hot(flat, e).to(torch.int32), 0, dtype=torch.int32)
+                pos = ranks.gather(1, flat[:, None])[:, 0] - 1
+            entry.update(x=x.detach(), w=router_w.detach(), top_e=top_e,
+                         keep=(pos < cap).reshape(-1, k),
+                         gap=top.values[:, k - 1] - top.values[:, k])
+        rec.append(entry)
+        return out, aux
+
+    lm.moe_ffn = recorded
+    try:
+        yield rec
+    finally:
+        lm.moe_ffn = base
+
+
+def route_gate(ra: list, rb: list, tag: str) -> tuple[list, dict]:
+    """Tokens that two runs of the same MoE calls (``ra`` the kernel path's
+    records, ``rb`` the plain attention's) route differently, and why.
+    A token whose top-k experts differ must sit at a near tie: under run A
+    its gap between the k-th and (k+1)-th router logits is at most
+    2 |x_A - x_B| max_e |w_e| (how far the inputs' difference can move two
+    logits apart), with 1e-5 |x_A| max_e |w_e| for the logits' own fp32
+    rounding. A token whose kept experts differ with the same top-k must
+    come after such a token in the call's token-major order (its rank
+    among an expert's assignments moved). Anything else fails. Returns
+    (per call: a bool mask [T] of the tokens routed differently and the
+    experts they touch in either run), counts)."""
+    import torch
+
+    check(len(ra) == len(rb) and len(ra) > 0, f"{tag}: {len(ra)} vs {len(rb)} MoE calls")
+    out, n_re, n_sh, worst = [], 0, 0, 0.0
+    for a, b in zip(ra, rb):
+        re_ = (torch.sort(a["top_e"], 1).values != torch.sort(b["top_e"], 1).values).any(1)
+        kept = [torch.sort(torch.where(r["keep"], r["top_e"], -1), 1).values for r in (a, b)]
+        moved = re_ | (kept[0] != kept[1]).any(1)
+        idx = torch.nonzero(re_).flatten()
+        first = None
+        if idx.numel():
+            xa, xb = a["x"][idx].float(), b["x"][idx].float()
+            wmax = float(a["w"].float().norm(dim=0).max())
+            bound = 2 * (xa - xb).norm(dim=1) * wmax + 1e-5 * xa.norm(dim=1) * wmax
+            gap = a["gap"][idx]
+            far = gap > bound
+            if bool(far.any()):
+                check(False, f"{tag}: a token routed differently away from a near tie: logit "
+                      f"gap {float(gap[far][0]):.4g} > bound {float(bound[far][0]):.4g}")
+            worst = max(worst, float((gap / bound).max()))
+            first = int(idx.min())
+        shifted = moved & ~re_
+        if bool(shifted.any()):
+            check(first is not None and int(torch.nonzero(shifted).min()) > first,
+                  f"{tag}: a token's kept experts differ with no earlier token rerouted")
+        experts = torch.unique(torch.cat([a["top_e"][moved], b["top_e"][moved]]).flatten())
+        out.append((moved, experts))
+        n_re += int(re_.sum())
+        n_sh += int(shifted.sum())
+    return out, dict(rerouted=n_re, shifted=n_sh, worst_gap_over_bound=worst)
+
+
+def drop_table(rec: list, n_layers: int) -> list[float]:
+    """Per layer, the mean dropped_frac over the recorded calls (taken
+    layer by layer, in order)."""
+    import torch
+
+    check(len(rec) % n_layers == 0, f"{len(rec)} MoE calls for {n_layers} layers")
+    d = torch.stack([r["dropped"] for r in rec]).float().reshape(-1, n_layers)
+    return [float(v) for v in d.mean(0).cpu()]
+
+
+def moe_lm_gate(cfg, route, x, toks_k, dev) -> dict:
+    """The MoE generation gate: the kernel path (K9) and the plain chunked
+    attention, both re-run on batch 0 with their routing recorded: the
+    prefill, then the decode teacher-forced on the kernel path's tokens
+    (``toks_k``). Routing differences are held to `route_gate`; a row is
+    set aside, and counted, once its compared token (the last prompt
+    position, or the decoded token) was routed differently in some layer;
+    the other rows are held to the dense gate's tolerances: hidden states
+    within relative L2 LM_HIDDEN_REL in bf16, token disagreements only at
+    near ties; then one prefill in fp32 (the weights upcast) within rtol
+    1e-4 (atol 1e-4 max |h|)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    plain_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
+    params, planner = route.params, route.planner
+    state = planner.index_state
+    unembed = params.get("unembed", params["embed"])
+    aside = torch.zeros(LM_BATCH, dtype=torch.bool)
+    caches, rels, rels_all, held, ties, agree = {}, [], [], [], [], 0
+    counts = dict(rerouted=0, shifted=0, worst_gap_over_bound=0.0)
+
+    def note(stats):
+        counts["rerouted"] += stats["rerouted"]
+        counts["shifted"] += stats["shifted"]
+        counts["worst_gap_over_bound"] = max(counts["worst_gap_over_bound"],
+                                             stats["worst_gap_over_bound"])
+
+    for t in range(LM_GEN):
+        rec, hs = {}, {}
+        for path, c in (("kernel", cfg), ("plain", plain_cfg)):
+            rec[path] = []
+            with moe_recorder(rec[path], routes=True):
+                if t == 0:
+                    cache = lm.init_cache(c, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+                    hs[path], caches[path] = lm.prefill(c, params, x, cache, return_hidden=True)
+                else:
+                    hs[path], caches[path] = lm.decode_step(c, params, toks_k[:, t - 1],
+                                                            caches[path], return_hidden=True)
+        per_row = LM_PROMPT if t == 0 else 1
+        moved, stats = route_gate(rec["kernel"], rec["plain"],
+                                  "bf16 prefill" if t == 0 else f"bf16 decode step {t}")
+        note(stats)
+        for m, _ in moved:
+            aside |= m.reshape(LM_BATCH, per_row)[:, -1].cpu()
+        del rec
+        hk, hp = hs["kernel"], hs["plain"]
+        if t == 0:
+            # the recorded re-run of the kernel path is the served one
+            check(torch.equal(toks_k[:, 0], route.next_token(hk)),
+                  "the recorded kernel prefill gives other tokens than the served run")
+        live = ~aside.to(hk.device)
+        rels_all.append(rel_l2(hk, hp))
+        if bool(live.any()):
+            rels.append(rel_l2(hk[live], hp[live]))
+            check(rels[-1] <= LM_HIDDEN_REL,
+                  f"step {t}: hidden states differ, relative L2 {rels[-1]} over the rows held")
+        held.append(int(live.sum()))
+        tp = route.next_token(hp)
+        for r in range(LM_BATCH):
+            a, b = int(toks_k[r, t]), int(tp[r])
+            if a == b:
+                agree += 1
+                continue
+            ok, why = near_tie(hk[r], hp[r], a, b, unembed, state.centroids, planner.n_probe)
+            ties.append(f"step {t} row {r}: kernel {a} / plain {b}; {why}")
+            check(ok, "a token disagreement away from a near tie: " + ties[-1])
+    del caches
+    log(f"[olmoe gate] bf16, kernel vs plain chunked attention over {LM_GEN} steps (prefill, "
+        f"then decode teacher-forced): tokens routed differently {counts['rerouted']} (each at a "
+        f"near tie: logit gap / bound at most {counts['worst_gap_over_bound']:.3g}), tokens "
+        f"whose kept experts moved behind them {counts['shifted']}; rows held step by step "
+        f"{held} of {LM_BATCH}; hidden states relative L2 max "
+        f"{max(rels) if rels else float('nan'):.3g} over the rows held (<= {LM_HIDDEN_REL}), "
+        f"over every row (not held) {max(rels_all):.3g}; token agreement "
+        f"{agree}/{LM_BATCH * LM_GEN}" + "".join(f"\n[olmoe gate]   {s}" for s in ties))
+    torch.cuda.empty_cache()
+
+    # one prefill batch in fp32: the same weights upcast
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = {k: (v.float() if torch.is_tensor(v) else {n: w.float() for n, w in v.items()})
+                for k, v in params.items()}
+    rec, outs = {}, {}
+    for path, flash in (("kernel", True), ("plain", False)):
+        cc = dataclasses.replace(c32, use_flash_kernel=flash)
+        cache = lm.init_cache(cc, LM_BATCH, LM_PROMPT, device=dev)
+        rec[path] = []
+        t0 = time.perf_counter()
+        with moe_recorder(rec[path], routes=True):
+            outs[path], _ = lm.prefill(cc, params32, x, cache, return_hidden=True)
+        torch.cuda.synchronize()
+        log(f"[olmoe gate] fp32 prefill ({path} attention) {time.perf_counter() - t0:.2f} s")
+        del cache
+    moved, stats32 = route_gate(rec["kernel"], rec["plain"], "fp32 prefill")
+    aside32 = torch.zeros(LM_BATCH, dtype=torch.bool)
+    for m, _ in moved:
+        aside32 |= m.reshape(LM_BATCH, LM_PROMPT)[:, -1].cpu()
+    del rec, params32
+    live = ~aside32.to(outs["kernel"].device)
+    e32 = float("nan")
+    if bool(live.any()):
+        e32 = close_err(outs["kernel"][live], outs["plain"][live], "fp32 prefill hidden",
+                        rtol=1e-4, atol=1e-4, sums=True)
+    log(f"[olmoe gate] fp32 prefill, kernel vs plain: tokens routed differently "
+        f"{stats32['rerouted']}, kept experts moved {stats32['shifted']}, rows set aside "
+        f"{int(aside32.sum())}/{LM_BATCH}; the rest within rtol 1e-4 (atol 1e-4 max |h|): max abs "
+        f"{e32:.3g}, relative L2 {rel_l2(outs['kernel'], outs['plain']):.3g}")
+    del outs
+    torch.cuda.empty_cache()
+    return dict(bf16=dict(counts, rows_held=held, rel_max=max(rels) if rels else None,
+                          rel_max_all_rows=max(rels_all),
+                          token_agreement=agree / (LM_BATCH * LM_GEN)),
+                fp32=dict(stats32, rows_aside=int(aside32.sum()), max_abs=e32))
+
+
 def lm_phase(cfg=None, dev=None) -> dict:
     """The Gemma-2 2B generation path at full width on the card: the
     engine's run with its launch counts, stage times, a profiled batch,
@@ -3061,9 +3469,14 @@ def lm_phase(cfg=None, dev=None) -> dict:
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in params["layers"].values()) + sum(
         params[k].numel() for k in ("embed", "final_norm"))
+    n_params += params["unembed"].numel() if "unembed" in params else 0
+    moe = (f", {cfg.num_experts} experts of d_ff {cfg.moe_d_ff} top {cfg.num_experts_per_tok} at "
+           f"capacity factor {cfg.capacity_factor} (decode {max(cfg.capacity_factor, 2.0)})"
+           if cfg.num_experts else "")
     log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
-        f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.dh}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, window {cfg.sliding_window} on even layers, caps "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.dh}, d_ff {cfg.d_ff}{moe}, vocab "
+        f"{cfg.vocab_size}, window {cfg.sliding_window}"
+        f"{' on even layers' if cfg.local_global_alternating else ''}, caps "
         f"{cfg.attn_logit_softcap}/{cfg.final_logit_softcap}, {cfg.dtype}: {n_params / 1e9:.3f} B "
         f"parameters ({n_params * 2 / 1e9:.2f} GB), random from seed 0 in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -3129,16 +3542,19 @@ def lm_phase(cfg=None, dev=None) -> dict:
         stages[name].append(dt)
         return out, dt
 
+    drops = {"prefill": [], "decode": []}  # MoE: each layer's dropped_frac, call by call
     for i in range(0, LM_REQUESTS, LM_BATCH):
         x = route.prepare(prompts[i:i + LM_BATCH])
-        (hidden, cache), _ = timed("prefill", lambda: route.prefill(x))
+        with moe_recorder(drops["prefill"]):
+            (hidden, cache), _ = timed("prefill", lambda: route.prefill(x))
         hs, ts = [hidden], []
         for t in range(LM_GEN):
             tok, dr = timed("retrieval", lambda: route.next_token(hidden))
             ts.append(tok)
             if t + 1 < LM_GEN:
-                (hidden, cache), dd = timed("decode", lambda: lm.decode_step(
-                    cfg, route.params, tok, cache, return_hidden=True))
+                with moe_recorder(drops["decode"]):
+                    (hidden, cache), dd = timed("decode", lambda: lm.decode_step(
+                        cfg, route.params, tok, cache, return_hidden=True))
                 hs.append(hidden)
                 steps.append(dr + dd)
         hiddens.append(hs)
@@ -3152,6 +3568,15 @@ def lm_phase(cfg=None, dev=None) -> dict:
         f"{percentile(steps, 50):.3f} ms, p99 {percentile(steps, 99):.3f} ms over {len(steps)} "
         f"steps; the stage pass reproduces {int((again == served).sum())}/{served.size} served "
         "tokens")
+    drop_frac = None
+    if cfg.num_experts:
+        drop_frac = {k: drop_table(v, cfg.num_layers) for k, v in drops.items()}
+        for k, v in drop_frac.items():
+            log(f"[lm] moe_ffn dropped_frac by layer at {k} (mean over its "
+                f"{len(drops[k]) // cfg.num_layers} calls; capacity {drops[k][0]['capacity']} a "
+                "call): "
+                + ", ".join(f"{d:.4f}" for d in v) + f"; mean {sum(v) / len(v):.4f}")
+    del drops
 
     # where a batch's device time goes: one profiled batch
     from torch.profiler import ProfilerActivity, profile
@@ -3199,6 +3624,15 @@ def lm_phase(cfg=None, dev=None) -> dict:
         f"{nbytes / 1e6:.2f} MB); kernel at {100 * b_ms / t_k:.1f}% of the bound; max_abs_err "
         f"{ivf_err:.3g}")
     del sets
+
+    if cfg.num_experts:
+        gate = moe_lm_gate(cfg, route, route.prepare(prompts[:LM_BATCH]), tokens[0], dev)
+        del hiddens, tokens, route, engine, params, planner, state
+        torch.cuda.empty_cache()
+        return dict(counts=counts, ivf_lm=ivf_lm, idle=idle, gate=gate, drop_frac=drop_frac,
+                    token_agreement=gate["bf16"]["token_agreement"], prefill_ms=med["prefill"],
+                    step_p50_ms=percentile(steps, 50), step_p99_ms=percentile(steps, 99),
+                    tokens_per_s=served.size / makespan)
 
     # the gate: the same prompts and weights through the plain chunked
     # attention (use_flash_kernel=False), on the card
@@ -3262,7 +3696,8 @@ def lm_phase(cfg=None, dev=None) -> dict:
     del params32, outs, hiddens, tokens, route, engine, params, planner, state
     torch.cuda.empty_cache()
     return dict(counts=counts, ivf_lm=ivf_lm, token_agreement=agree / (LM_BATCH * LM_GEN),
-                idle=idle)
+                idle=idle, prefill_ms=med["prefill"], step_p50_ms=percentile(steps, 50),
+                step_p99_ms=percentile(steps, 99), tokens_per_s=served.size / makespan)
 
 
 # ---------------------------------------------------------------------------
@@ -3285,7 +3720,7 @@ def lm_train_gate(cfg, batch, dev) -> dict:
     import torch
 
     from repro_torch.models import lm
-    from repro_torch.optim import Optimizer, adam
+    from repro_torch.optim import adam
     from repro_torch.optim.optimizers import tree_leaves
 
     gcfg = dataclasses.replace(cfg, num_layers=LM_GATE_LAYERS)
@@ -3293,26 +3728,43 @@ def lm_train_gate(cfg, batch, dev) -> dict:
     params = lm.init_params(gcfg, torch.Generator(device=dev).manual_seed(1), dev)
     state = opt.init(params)
     x, y = batch[:, :-1], batch[:, 1:]
-    names = ["embed", "final_norm", *(f"layers.{n}" for n in params["layers"])]
+    names = [n for k, v in params.items()
+             for n in ([f"layers.{m}" for m in v] if k == "layers" else [k])]
     out = {}
     for step, (loss_tol, grad_tol) in ((1, GATE_BF16), (2, GATE_FP32)):
-        res = {}
+        res, rec = {}, {}
         for path, flash in (("kernel", True), ("plain", False)):
             seen = []
-
-            def update(g, s_, p_, seen=seen):
-                seen.append(g)
-                return opt.update(g, s_, p_)
-
+            # the plain path's step only hands over its gradients: no update
+            # (the two paths' updated states would not fit beside each other)
             train_step = lm.make_train_step(dataclasses.replace(gcfg, use_flash_kernel=flash),
-                                            Optimizer(init=opt.init, update=update))
-            p_new, s_new, loss = train_step(params, state, x, y)
+                                            grads_seen(opt, seen, update=flash))
+            with moe_recorder(rec.setdefault(path, []), routes=bool(gcfg.num_experts)):
+                p_new, s_new, loss = train_step(params, state, x, y)
             res[path] = (p_new, s_new, float(loss), seen[0])
         (pk, sk, lk, gk), (_, _, lp, gp) = res["kernel"], res["plain"]
         check(math.isfinite(lk) and math.isfinite(lp),
               f"gate step {step}: loss not finite ({lk}, {lp})")
         rel_loss = abs(lk - lp) / abs(lp)
-        rels = [rel_l2(a, b) for a, b in zip(tree_leaves(gk), tree_leaves(gp))]
+        # MoE: experts that a token routed differently reached, per layer, are
+        # set aside in the expert and router gradients (see `route_gate`)
+        aside, moved = {}, ""
+        if gcfg.num_experts:
+            diff, stats = route_gate(rec["kernel"], rec["plain"], f"gate step {step}")
+            base = params["layers"]["router"]
+            per = base.stride(0) * base.element_size()
+            for (m, experts), r in zip(diff, rec["kernel"]):
+                if bool(m.any()):
+                    layer = (r["w"].data_ptr() - base.data_ptr()) // per
+                    aside.setdefault(layer, set()).update(experts.tolist())
+            moved = (f"; tokens routed differently {stats['rerouted']} (near ties), kept "
+                     f"experts moved {stats['shifted']}, (layer, expert) pairs set aside "
+                     f"{sum(len(v) for v in aside.values())}")
+        del rec
+        held = [held_slices(n, a, b, aside)
+                for n, a, b in zip(names, tree_leaves(gk), tree_leaves(gp))]
+        rels = [rel_l2(a, b) if a.numel() else 0.0 for a, b in held]  # an empty leaf: all aside
+        del held
         worst = max(range(len(rels)), key=rels.__getitem__)
         grad_dtype = _dtypes(gk)
         check(rel_loss <= loss_tol, f"gate step {step}: loss {lk} vs plain {lp} "
@@ -3326,7 +3778,7 @@ def lm_train_gate(cfg, batch, dev) -> dict:
             f"{LM_GATE_LAYERS} layers at full width, {LM_TRAIN_B} x {LM_TRAIN_S} tokens): loss "
             f"kernel {lk:.6f}, plain {lp:.6f}, relative {rel_loss:.3g} (held <= {loss_tol}); "
             f"gradients relative L2 max {rels[worst]:.3g} at {names[worst]} (held <= {grad_tol}); "
-            f"params {got[0]}, moments {got[1]} after the step, as the reference's Adam")
+            f"params {got[0]}, moments {got[1]} after the step, as the reference's Adam{moved}")
         out[step] = dict(loss_rel=rel_loss, grad_rel=rels[worst])
         params, state = pk, sk
         del res, gk, gp
@@ -3335,7 +3787,24 @@ def lm_train_gate(cfg, batch, dev) -> dict:
     return out
 
 
-def lm_train_phase(cfg=None, dev=None) -> dict:
+def held_slices(name: str, a, b, aside: dict):
+    """A gradient leaf of the kernel and the plain path without the (layer,
+    expert) slices in ``aside`` ({layer: experts}): the experts' weights
+    [L, E, ...] and the router's columns [L, d, E]; other leaves whole."""
+    import torch
+
+    if not aside or name not in ("layers.router", "layers.we_gate", "layers.we_up",
+                                 "layers.we_down"):
+        return a, b
+    if name == "layers.router":
+        a, b = a.transpose(1, 2), b.transpose(1, 2)
+    keep = torch.ones(a.shape[:2], dtype=torch.bool, device=a.device)
+    for layer, experts in aside.items():
+        keep[layer, sorted(experts)] = False
+    return a[keep], b[keep]
+
+
+def lm_train_phase(cfg=None, dev=None, steps: int = LM_TRAIN_STEPS) -> dict:
     """Gemma-2 2B training at full width on the card, through K9 and K10:
     LM_TRAIN_STEPS Adam steps of a global batch of LM_TRAIN_B x LM_TRAIN_S
     tokens in microbatches of LM_TRAIN_MICRO rows, remat on; launch counts
@@ -3374,7 +3843,7 @@ def lm_train_phase(cfg=None, dev=None) -> dict:
         f"row(s) (strided), remat on, use_flash_kernel=True")
     rng = np.random.default_rng(0)
     batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_TRAIN_B, LM_TRAIN_S + 1)))
-               .to(dev) for _ in range(LM_TRAIN_STEPS + 1)]
+               .to(dev) for _ in range(steps + 1)]
     counters = [(fk.flash_attention_fwd_cuda, "launches"),
                 (fk.flash_attention_bwd_cuda, "launches"),
                 (fr.flash_attention_ref, "calls"), (fr.flash_attention_bwd_ref, "calls")]
@@ -3384,7 +3853,7 @@ def lm_train_phase(cfg=None, dev=None) -> dict:
     times, losses = [], []
     for fn, attr in counters:
         setattr(fn, attr, 0)
-    for i in range(LM_TRAIN_STEPS):
+    for i in range(steps):
         before = (fk.flash_attention_fwd_cuda.launches, fk.flash_attention_bwd_cuda.launches)
         toks = batches[i]
         t = time.perf_counter()
@@ -3409,7 +3878,7 @@ def lm_train_phase(cfg=None, dev=None) -> dict:
     fp32_ms = [t * 1e3 for t in times[1:]]
     p50 = percentile(fp32_ms, 50)
     tokens = LM_TRAIN_B * LM_TRAIN_S
-    log(f"[lm-train] {LM_TRAIN_STEPS} steps: step 1 (bf16) {times[0] * 1e3:.1f} ms; fp32 steps "
+    log(f"[lm-train] {steps} steps: step 1 (bf16) {times[0] * 1e3:.1f} ms; fp32 steps "
         f"p50 {p50:.1f} ms, p99 {percentile(fp32_ms, 99):.1f} ms over {len(fp32_ms)}; "
         f"{tokens / (p50 / 1e3):.1f} tokens/s at the fp32 p50 ({tokens / times[0]:.1f} at step "
         f"1); peak device memory {peak / 1e9:.2f} GB allocated; counts {counts} "
@@ -3450,6 +3919,108 @@ def lm_train_phase(cfg=None, dev=None) -> dict:
     return dict(counts=counts, step1_ms=times[0] * 1e3, p50_ms=p50,
                 p99_ms=percentile(fp32_ms, 99), tokens_per_s=tokens / (p50 / 1e3), peak=peak,
                 idle=idle, gate=gate)
+
+
+def lm_head_phase(cfg, dev=None) -> dict:
+    """`fopo_lm_head_loss` at full width (phase 11b): the final hidden
+    states [N, d] of one LM_PROMPT-token prompt (the first served one) of
+    ``cfg`` with its weights from seed 0, the frozen unembedding [V, d],
+    the config's defaults (S 256, K 128, eps 0.5, the streaming top-K at
+    block_items 8192) and `examples/lm_fopo_head.py`'s reward (tokens
+    100-199), in fp32. The loss on its own draws and on the same draws
+    made from its pieces (the streaming top-K, `MixtureProposal` from the
+    same seed) agree; the loss, ESS and the hidden states' gradient are
+    held to the CPU on those draws (loss rtol 1e-5 / atol 1e-7, gradient
+    rtol 1e-4 / atol 1e-6 max |grad|, the CPU test's tolerances). No
+    hand-written kernel is on this path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import FopoLMHeadConfig, fopo_lm_head_loss
+    from repro_torch.core.proposals import MixtureProposal
+    from repro_torch.mips.streaming import topk_streaming
+    from repro_torch.models import lm
+
+    dev = torch.device(dev or "cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, LM_PROMPT))).to(dev)
+    with torch.inference_mode():
+        hidden = lm.final_hidden(cfg, params, prompt)[0].float()
+    emb = params.get("unembed", params["embed"]).float()
+    del params
+    torch.cuda.empty_cache()
+    hcfg = FopoLMHeadConfig(vocab_size=cfg.vocab_size)
+
+    def rewards(actions):
+        return ((actions >= 100) & (actions < 200)).float()
+
+    def run(h0, e, **kw):
+        h = h0.clone().requires_grad_(True)
+        loss, aux = fopo_lm_head_loss(h, e, rewards, 0, hcfg, **kw)
+        (grad,) = torch.autograd.grad(loss, h)
+        return loss.detach(), aux["ess"], grad
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, ess, grad = run(hidden, emb)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        topk = topk_streaming(hidden, emb, hcfg.top_k, hcfg.block_items)
+        sample = MixtureProposal(hcfg.vocab_size, hcfg.epsilon).sample(
+            torch.Generator(device=dev).manual_seed(0), topk.indices, topk.scores,
+            hcfg.num_samples)
+    loss2, _, grad2 = run(hidden, emb, sample=sample)
+    close_err(loss2, loss, "lm head: the pieces' draws vs its own", rtol=1e-6, atol=0.0)
+    close_err(grad2, grad, "lm head grad: the pieces' draws vs its own", rtol=1e-6, atol=0.0)
+    hits = float(rewards(sample.actions).mean())
+    t0 = time.perf_counter()
+    cpu_sample = type(sample)(*(t.cpu() for t in sample))
+    lc, essc, gc = run(hidden.cpu(), emb.cpu(), sample=cpu_sample)
+    cpu_s = time.perf_counter() - t0
+    el = close_err(loss, lc, "lm head loss, card vs CPU", rtol=1e-5, atol=1e-7)
+    close_err(ess, essc, "lm head ESS, card vs CPU", rtol=1e-5, atol=0.0)
+    eg = close_err(grad, gc, "lm head grad, card vs CPU", rtol=1e-4, atol=1e-6, sums=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    secs = time.perf_counter() - t_phase
+    log(f"[lm-head] {cfg.name}: fopo_lm_head_loss over N {hidden.shape[0]} hidden states of d "
+        f"{hidden.shape[1]}, vocab {cfg.vocab_size}, S {hcfg.num_samples}, K {hcfg.top_k}, eps "
+        f"{hcfg.epsilon}, streaming top-K (block_items {hcfg.block_items}), fp32: loss "
+        f"{float(loss):.6g}, ESS {float(ess):.4g}, reward (tokens 100-199) in {100 * hits:.2f}% "
+        f"of the draws; loss and gradient {ms:.2f} ms on the card; the same draws from its "
+        f"pieces agree; CPU on the card's draws ({cpu_s:.1f} s): loss |diff| {el:.3g}, gradient "
+        f"max |diff| {eg:.3g}; phase {secs:.1f} s, peak device memory {peak:.2f} GB")
+    del hidden, emb, grad, grad2, gc, sample, topk
+    torch.cuda.empty_cache()
+    return dict(loss=float(loss), ess=float(ess), ms=ms, loss_err=el, grad_err=eg, peak_gb=peak,
+                seconds=secs)
+
+
+def olmoe_phase() -> dict:
+    """OLMoE-1B-7B on the card (phase 11b): generation at full width through
+    `lm_phase` (K9 prefill, K7 greedy head at L 2048, its MoE gate), training
+    cut to OLMOE_TRAIN_LAYERS layers through `lm_train_phase` (K9, K10, the
+    gate's routing), then the FOPO LM head at full width."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("olmoe-1b-7b").CONFIG
+    t0 = time.perf_counter()
+    gen = lm_phase(cfg=cfg)
+    torch.cuda.empty_cache()
+    log(f"[olmoe] generation phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train = lm_train_phase(cfg=dataclasses.replace(cfg, num_layers=OLMOE_TRAIN_LAYERS),
+                           steps=OLMOE_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    log(f"[olmoe] training phase ({OLMOE_TRAIN_LAYERS} of {cfg.num_layers} layers, the rest at "
+        f"full width) {time.perf_counter() - t0:.1f} s")
+    head = lm_head_phase(cfg)
+    return dict(gen=gen, train=train, head=head)
 
 
 def sass_of(source) -> str:
@@ -4258,6 +4829,9 @@ def main() -> int:
         rres[arch] = recsys_phase(arch)
         torch.cuda.empty_cache()
 
+    # 7b. recsys training at full width, replayed on the CPU
+    rtrain = recsys_train_phase()
+
     # 8. flash attention (K9) against its plain version
     log("[kernels] flash_attention (K9) vs its plain version, on the card (fp32 out: rtol "
         f"{RTOL}, atol {ATOL} scaled by max |out| (sums of terms of both signs); bf16 out: rtol "
@@ -4278,6 +4852,9 @@ def main() -> int:
     # 11. the Gemma-2 2B training path at full width, and its gate
     tlm = lm_train_phase()
 
+    # 11b. OLMoE-1B-7B: generation at full width, training at 4 layers, the FOPO LM head
+    olm = olmoe_phase()
+
     # 12. the kernels line, the card, the result
     t = kres["timing"]["main K=10"]
     entries = [{
@@ -4286,11 +4863,13 @@ def main() -> int:
         "source": str(kernel.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ivf_topk/kernel.py:86",
         "launches": (launches + lres["counts"]["ivf_probe_topk_cuda.launches"]
+                     + olm["gen"]["counts"]["ivf_probe_topk_cuda.launches"]
                      + sum(r["ivf_launches"] for r in rres.values())
                      + mres["counts"]["ivf_probe_topk_cuda.launches"]
                      + clu["launches"] + dres["counts"]["ivf_probe_topk_cuda.launches"]),
         "max_abs_err": max(kres["max_abs_err"], lres["ivf_lm"]["max_abs_err"],
-                           mres["k7_err"], clu["max_abs_err"]),
+                           olm["gen"]["ivf_lm"]["max_abs_err"], mres["k7_err"],
+                           clu["max_abs_err"]),
         "ms": t["ms"],
         "kernel_ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -4302,6 +4881,7 @@ def main() -> int:
             ("k256", kres["timing"]["main K=256"]),
             ("full_lists_l2304", kres["timing"]["full lists L=2304"]),
             ("lm_shape", lres["ivf_lm"]),
+            ("olmoe_lm_shape_l2048", olm["gen"]["ivf_lm"]),
             ("dien_l18", rres["dien"]["ivf_l18"]),
             ("training_k256_main", mres["gates"]["k7_main_k256"]),
             ("training_k256_live_delta", mres["gates"]["k7_delta_live"]),
@@ -4364,7 +4944,9 @@ def main() -> int:
         "source": str(flk.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/flash_attention/kernel.py:104",
         "launches": (lres["counts"]["flash_attention_fwd_cuda.launches"]
-                     + tlm["counts"]["flash_attention_fwd_cuda.launches"]),
+                     + tlm["counts"]["flash_attention_fwd_cuda.launches"]
+                     + olm["gen"]["counts"]["flash_attention_fwd_cuda.launches"]
+                     + olm["train"]["counts"]["flash_attention_fwd_cuda.launches"]),
         "max_abs_err": fres["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -4374,6 +4956,8 @@ def main() -> int:
         "shape": "B 8, S 2048, H 8, KV 4, D 256, causal, cap 50, bf16 (the Gemma-2 prefill)",
         "training_b1_fp32": {k: ft["training B 1 fp32"][k] for k in keys},
         "training_b1_bf16": {k: ft["training B 1 bf16"][k] for k in keys},
+        "olmoe_prefill": {k: ft["olmoe prefill"][k] for k in (*keys, "library_ms")},
+        "olmoe_training_b1_fp32": {k: ft["olmoe training B 1 fp32"][k] for k in keys},
         "hmma_in_sass": sass[flk.SOURCE.name],
     })
     # K10's headline is the main path's shape: one 2048-token row per
@@ -4385,7 +4969,8 @@ def main() -> int:
         "route": "cuda",
         "source": str(flk.BWD_SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/flash_attention/backward.py:136",
-        "launches": tlm["counts"]["flash_attention_bwd_cuda.launches"],
+        "launches": (tlm["counts"]["flash_attention_bwd_cuda.launches"]
+                     + olm["train"]["counts"]["flash_attention_bwd_cuda.launches"]),
         "max_abs_err": bres["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -4398,6 +4983,8 @@ def main() -> int:
         "main_path_b1_bf16": {k: bt["main path B 1 bf16"][k] for k in keys},
         "b4_bf16": {k: t4[k] for k in keys},
         "b4_fp32": {k: bt["training B 4 fp32"][k] for k in keys},
+        "olmoe_main_path_b1_fp32": {k: bt["olmoe main path B 1 fp32"][k] for k in keys},
+        "olmoe_main_path_b1_bf16": {k: bt["olmoe main path B 1 bf16"][k] for k in keys},
         "b4_bf16_fwd_bwd": {
             "flex_attention_ms": t4["library"]["ms"],
             "port_k9_k10_ms": t4["library"]["port_ms"],

@@ -1,7 +1,8 @@
 """Serving launcher of the port: the continuous-batching engine over the
 SASRec or DIEN retrieval route (through the `ivf_topk` CUDA kernel), the
 DIN or Wide&Deep dense-candidate route (each request scores a fixed pool
-of 500 candidates, `np.arange(500)`) or the Gemma-2 generation route
+of 500 candidates, `np.arange(500)`) or the LM generation route (any LM
+arch: gemma2-2b, olmoe-1b-7b, arctic-480b, granite-8b, mistral-large-123b)
 (prefill, then greedy decoding with every next token through the same
 `ivf_topk` plan path).
 
@@ -21,7 +22,7 @@ the arch's SMOKE_CONFIG with random weights from a fixed seed, and the
 payloads are the reference CLI's: a history of ids in [-1, item_vocab)
 (sasrec, dien, din), 40 sparse ids in [0, 10^6) and normal dense
 features (wide-deep), or a random prompt of ``--prompt-len`` tokens
-answered with ``--gen-len`` generated ones (gemma2-2b). The run needs
+answered with ``--gen-len`` generated ones (the LM arches). The run needs
 CUDA unless ``--device cpu`` is given. ``--ladder`` arms the retrieval
 degradation ladder on the live index of the MIPS arches (sasrec, dien):
 32 held probe histories, a recall probe every 4 batches, floor 0.5.
@@ -38,8 +39,8 @@ building its own index, behind least-loaded routing, health checks and
 bounded retry. ``--chaos`` scripts a replica death (replica 1 dies at its
 first dispatch and is marked dead at its first failure); the run must
 still answer every request by re-queuing onto the survivors, and exits
-non-zero if it does not. The arches that are not ported are refused with
-a message naming their slice (ROADMAP Queue A item 6, models).
+non-zero if it does not. graphcast (the GNN, not ported yet) is refused
+with a message naming its slice (ROADMAP Queue A item 6, models).
 """
 from __future__ import annotations
 

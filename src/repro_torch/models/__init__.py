@@ -1,1 +1,2 @@
-"""Models of the port (SASRec so far) and their config dataclasses."""
+"""Models of the port (the LM family with its mixture of experts, and the
+recsys models) and their config dataclasses."""

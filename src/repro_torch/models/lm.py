@@ -29,7 +29,14 @@ on the numbers. `make_train_step` takes gradients with
 microbatches, splits the batch the reference's strided way and adds the
 microbatches' gradients in place, in the parameters' dtype.
 
-Not ported yet: the MoE layers (`moe_ffn`).
+Mixture-of-experts models (``cfg.num_experts`` > 0) run `models.moe.moe_ffn`
+in place of the dense MLP, over the block's [B * S] tokens flattened, as
+the reference does: prefill and the training forward at
+``cfg.capacity_factor``, `decode_step` at ``max(capacity_factor, 2.0)``
+over its B tokens. A short serving batch is padded by the engine, so the
+padding rows take capacity as in the reference. ``cfg.dense_residual``
+(Arctic) adds the dense gated MLP, run in parallel on the same input.
+`forward` returns the layers' summed load-balancing loss.
 """
 from __future__ import annotations
 
@@ -42,11 +49,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.configs_base import LMConfig
 from repro_torch.models.layers import gated_mlp, rms_norm, rope, softcap
-from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.models.moe import moe_ffn
+from repro_torch.optim.optimizers import tree_leaves, value_and_grad
 
 __all__ = [
-    "KVCache", "decode_step", "forward", "init_cache", "init_params", "loss_and_grads",
-    "loss_fn", "make_train_step", "prefill",
+    "KVCache", "decode_step", "final_hidden", "forward", "init_cache", "init_params",
+    "loss_and_grads", "loss_fn", "make_train_step", "prefill",
 ]
 
 
@@ -63,20 +71,14 @@ def _dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else _DTYPES[name]
 
 
-def _check_dense(cfg: LMConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name} is a mixture of experts; moe_ffn is not ported to "
-            "repro_torch yet (it comes with the models slice)"
-        )
-
-
 def init_params(cfg: LMConfig, generator: torch.Generator, device=None) -> Any:
     """Random parameters: N(0, 1 / fan_in) matrices drawn in fp32 from
     ``generator`` (on its device unless ``device`` says otherwise) and
     cast to ``cfg.dtype``; zero norm scales (the norm's gain is 1 +
-    scale)."""
-    _check_dense(cfg)
+    scale). A mixture of experts has `router` [n, d, E] and the experts'
+    `we_gate` / `we_up` [n, E, d, f] and `we_down` [n, E, f, d] (f =
+    ``moe_d_ff or d_ff``) in place of the dense MLP, which it keeps only
+    with ``dense_residual``."""
     dev = device if device is not None else generator.device
     dtype = _dtype(cfg.dtype)
     d, dh, h, kv = cfg.d_model, cfg.dh, cfg.num_heads, cfg.num_kv_heads
@@ -93,10 +95,21 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device=None) -> Any:
         "wk": mat((n, d, kv * dh), d),
         "wv": mat((n, d, kv * dh), d),
         "wo": mat((n, h * dh, d), h * dh),
-        "w_gate": mat((n, d, cfg.d_ff), d),
-        "w_up": mat((n, d, cfg.d_ff), d),
-        "w_down": mat((n, cfg.d_ff, d), cfg.d_ff),
     }
+    if cfg.num_experts:
+        e, eff = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+        layers.update(
+            router=mat((n, d, e), d),
+            we_gate=mat((n, e, d, eff), d),
+            we_up=mat((n, e, d, eff), d),
+            we_down=mat((n, e, eff, d), eff),
+        )
+    if not cfg.num_experts or cfg.dense_residual:
+        layers.update(
+            w_gate=mat((n, d, cfg.d_ff), d),
+            w_up=mat((n, d, cfg.d_ff), d),
+            w_down=mat((n, cfg.d_ff, d), cfg.d_ff),
+        )
     params = {
         "embed": mat((cfg.vocab_size, d), d),
         "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
@@ -165,10 +178,30 @@ def _layers(params) -> list[dict]:
     return [{name: ws[i] for name, ws in per_name.items()} for i in range(n)]
 
 
+def _ffn(cfg: LMConfig, y: torch.Tensor, layer: dict,
+         capacity_factor: float) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The block's FFN over y [B, S, d]: (out, the MoE aux loss or None).
+    A mixture of experts routes the B * S tokens of this call together."""
+    dense = lambda: gated_mlp(  # noqa: E731
+        y, layer["w_gate"], layer["w_up"], layer["w_down"], cfg.gated_act)
+    if not cfg.num_experts:
+        return dense(), None
+    b, s, d = y.shape
+    out, aux = moe_ffn(
+        y.reshape(b * s, d), layer["router"], layer["we_gate"], layer["we_up"],
+        layer["we_down"], num_experts_per_tok=cfg.num_experts_per_tok,
+        capacity_factor=capacity_factor, act=cfg.gated_act,
+    )
+    out = out.reshape(b, s, d)
+    if cfg.dense_residual:
+        out = out + dense()
+    return out, aux["aux_loss"]
+
+
 def _block(cfg: LMConfig, x: torch.Tensor, layer: dict, positions: torch.Tensor,
-           window: int | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+           window: int | None):
     """One transformer block over x [B, S, d]: (x out, this layer's k, v
-    [B, S, KV, Dh])."""
+    [B, S, KV, Dh], its MoE aux loss or None)."""
     b, s, _ = x.shape
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.dh
     y = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
@@ -177,9 +210,9 @@ def _block(cfg: LMConfig, x: torch.Tensor, layer: dict, positions: torch.Tensor,
     v_ = (y @ layer["wv"]).reshape(b, s, kv, dh)
     att = _self_attention(cfg, q, k_, v_, window=window)
     x = x + att.reshape(b, s, h * dh) @ layer["wo"]
-    y = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
-    x = x + gated_mlp(y, layer["w_gate"], layer["w_up"], layer["w_down"], cfg.gated_act)
-    return x, k_, v_
+    ffn_out, aux = _ffn(cfg, rms_norm(x, layer["mlp_norm"], cfg.rms_eps), layer,
+                        cfg.capacity_factor)
+    return x + ffn_out, k_, v_, aux
 
 
 @torch.inference_mode()
@@ -190,12 +223,11 @@ def prefill(cfg: LMConfig, params, tokens: torch.Tensor, cache: KVCache,
     logits [B, V] — or, with ``return_hidden``, its hidden state [B, d]
     after the final norm (the serve route's MIPS query over the unembed
     rows; the soft-cap is monotonic, so the argmax is the same)."""
-    _check_dense(cfg)
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for i, layer in enumerate(_layers(params)):
-        x, k_, v_ = _block(cfg, x, layer, positions, layer_window(cfg, i))
+        x, k_, v_, _ = _block(cfg, x, layer, positions, layer_window(cfg, i))
         cache.k[i, :, :s] = k_.to(cache.k.dtype)
         cache.v[i, :, :s] = v_.to(cache.v.dtype)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -207,8 +239,8 @@ def decode_step(cfg: LMConfig, params, token: torch.Tensor, cache: KVCache,
                 *, return_hidden: bool = False):
     """One decode step: token [B] at position ``cache.length`` -> (logits
     [B, V], or the hidden state [B, d] with ``return_hidden``; the cache
-    with that position written)."""
-    _check_dense(cfg)
+    with that position written). A mixture of experts routes the B tokens
+    at capacity factor ``max(cfg.capacity_factor, 2.0)``, as the reference."""
     b = token.shape[0]
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.dh
     pos_i = cache.length
@@ -227,7 +259,7 @@ def decode_step(cfg: LMConfig, params, token: torch.Tensor, cache: KVCache,
         )
         x = x + att.reshape(b, 1, h * dh) @ layer["wo"]
         y = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
-        x = x + gated_mlp(y, layer["w_gate"], layer["w_up"], layer["w_down"], cfg.gated_act)
+        x = x + _ffn(cfg, y, layer, max(cfg.capacity_factor, 2.0))[0]
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _head(cfg, params, x[:, 0], return_hidden), cache._replace(length=pos_i + 1)
 
@@ -237,23 +269,38 @@ def decode_step(cfg: LMConfig, params, token: torch.Tensor, cache: KVCache,
 # ---------------------------------------------------------------------------
 
 def forward(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (soft-capped logits [B, S, V], the MoE aux loss: a
-    0-dim fp32 zero, the port's models being dense)."""
-    _check_dense(cfg)
+    """tokens [B, S] -> (soft-capped logits [B, S, V], the MoE aux loss: the
+    layers' load-balancing losses summed, a 0-dim fp32 zero for a dense
+    model)."""
+    x, aux_loss = _trunk(cfg, params, tokens)
+    return _head(cfg, params, x, False), aux_loss
+
+
+def final_hidden(cfg: LMConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S] -> the hidden states [B, S, d] after the final norm,
+    before the unembedding: what the FOPO LM head (`core.lm_head`) reads."""
+    return _trunk(cfg, params, tokens)[0]
+
+
+def _trunk(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The layers and the final norm: (hidden [B, S, d], summed aux loss)."""
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(_layers(params)):
         def fn(x_, layer=layer, window=layer_window(cfg, i)):
-            return _block(cfg, x_, layer, positions, window)[0]
+            x_, _, _, aux = _block(cfg, x_, layer, positions, window)
+            return x_, aux
 
         if cfg.remat and torch.is_grad_enabled():
             # the layer draws no random numbers: no RNG state to keep
-            x = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+            x, aux = checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = fn(x)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return _head(cfg, params, x, False), torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = fn(x)
+        if aux is not None:
+            aux_loss = aux_loss + aux
+    return rms_norm(x, params["final_norm"], cfg.rms_eps), aux_loss
 
 
 def loss_fn(cfg: LMConfig, params, tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -269,15 +316,9 @@ def loss_fn(cfg: LMConfig, params, tokens: torch.Tensor, labels: torch.Tensor) -
 def loss_and_grads(cfg: LMConfig, params, tokens: torch.Tensor,
                    labels: torch.Tensor) -> tuple[torch.Tensor, Any]:
     """(loss, gradients shaped and typed like ``params``), by
-    `torch.autograd.grad` over the parameter leaves (detached views, so
-    the caller's tensors are not touched)."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    it = iter(leaves)
-    tree = tree_map(lambda _: next(it), params)
-    with torch.enable_grad():
-        loss = loss_fn(cfg, tree, tokens, labels)
-        grads = iter(torch.autograd.grad(loss, leaves))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    `optim.optimizers.value_and_grad` (the caller's tensors are not
+    touched)."""
+    return value_and_grad(lambda tree: loss_fn(cfg, tree, tokens, labels), params)
 
 
 def make_train_step(cfg: LMConfig, optimizer):

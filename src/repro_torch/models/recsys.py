@@ -1,4 +1,5 @@
-"""Recsys models of the port: DIN, DIEN, SASRec and Wide&Deep, for serving.
+"""Recsys models of the port: DIN, DIEN, SASRec and Wide&Deep, for serving
+and training.
 
 Parameters are plain trees of tensors with the reference's layout
 (`repro/models/recsys.py`), so `repro_torch.convert.recsys_params_from_numpy`
@@ -9,8 +10,20 @@ carries the reference's weights across one to one. Each model exposes
 `lax.scan`s over the history (DIEN's GRU and AUGRU) are Python loops over
 T with the same masked update. The reference's candidate scoring takes
 one query (B = 1); here it takes a batch of B and gives each row the
-reference's answer. Training (`bce_loss`, `make_train_step`) comes with
-the recsys training part of the models slice (ROADMAP Queue A item 6).
+reference's answer.
+
+Training: `bce_loss` is the pointwise ranking loss (DIN, DIEN, Wide&Deep);
+`make_train_step(cfg, optimizer, objective)` returns the reference's
+``(params, opt_state, batch, seed) -> (params, opt_state, loss)`` step,
+with gradients by `optim.optimizers.value_and_grad` (a leaf the loss
+does not reach gets a zero gradient, as `jax.grad` gives) and the update
+by ``optimizer``. ``objective="fopo"`` is the paper's
+policy learning over the catalog (SASRec, DIEN): `fopo_plan` resolves
+the step's `ExecutionPlan` once, and the item table, detached, is the
+fixed beta (Assumption 1) while it still trains through the towers'
+history embedding. Its draws come from a `torch.Generator` seeded with
+the step's ``seed`` (the reference's from a JAX key: equal in
+distribution only); ``sample=`` hands the step another run's draws.
 """
 from __future__ import annotations
 
@@ -22,16 +35,20 @@ from repro_torch.embeddings.bag import _M32, hash_bucket
 from repro_torch.mips.streaming import topk_streaming
 from repro_torch.models.configs_base import RecsysConfig
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, rms_norm
+from repro_torch.optim.optimizers import value_and_grad
 
 __all__ = [
+    "bce_loss",
     "dien_forward",
     "dien_init",
     "dien_user_vector",
     "din_forward",
     "din_init",
     "din_retrieval_scores",
+    "fopo_plan",
     "forward",
     "init_params",
+    "make_train_step",
     "retrieval_topk",
     "sasrec_forward",
     "sasrec_init",
@@ -310,6 +327,117 @@ def forward(cfg: RecsysConfig, params, batch: dict) -> torch.Tensor:
     if cfg.kind == "wide_deep":
         return wide_deep_forward(cfg, params, batch["sparse"], batch["dense"])
     raise ValueError(cfg.kind)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def bce_loss(cfg: RecsysConfig, params, batch: dict) -> torch.Tensor:
+    """Mean binary cross-entropy of the ranking logits against
+    ``batch["label"]``, in the reference's stable form
+    max(l, 0) - l y + log1p(exp(-|l|))."""
+    logits = forward(cfg, params, batch)
+    y = batch["label"].float()
+    return torch.mean(
+        torch.maximum(logits, logits.new_zeros(())) - logits * y
+        + torch.log1p(torch.exp(-torch.abs(logits)))
+    )
+
+
+def _sharded_retriever(top_k: int, dist, block_items: int = 8192):
+    """(h [B, L], beta [P, L]) -> TopK [B, K] on every rank: each rank
+    takes its data rows of the batch and its model slab of beta
+    (`mips.sharded.context_sharded_topk`, merged along `model`), then the
+    data ranks' rows are gathered back, as the reference's ambient-mesh
+    call returns the whole batch's."""
+    from repro_torch.dist.collectives import all_gather
+    from repro_torch.dist.fopo import data_rows, shard_rows
+    from repro_torch.mips.exact import TopK
+    from repro_torch.mips.sharded import context_sharded_topk
+
+    def retriever(h, beta):
+        p = beta.shape[0]
+        local = context_sharded_topk(
+            data_rows(h, dist), shard_rows(beta, dist), top_k, dist=dist,
+            block_items=block_items, num_valid=p if p % dist.n_model else None,
+        )
+        return TopK(*(all_gather(t, dist.data_group, dim=0, name="topk_rows") for t in local))
+
+    return retriever
+
+
+_TOWERS = {"sasrec": sasrec_user_vector, "dien": dien_user_vector}
+
+
+def fopo_plan(cfg: RecsysConfig, retriever_mode: str = "streaming", *, dist=None):
+    """The `ExecutionPlan` of the FOPO objective: S, K and eps from
+    ``cfg``, the streaming retriever at block_items 8192, or with
+    ``retriever_mode="sharded"`` the 2-D sharded top-K over ``dist`` (a
+    `DistConfig`; the reference runs it on its ambient mesh)."""
+    from repro_torch.core.fopo import FOPOConfig
+    from repro_torch.core.plan import ExecutionPlan, make_retriever
+
+    fcfg = FOPOConfig(
+        num_items=cfg.item_vocab, num_samples=cfg.fopo_num_samples, top_k=cfg.fopo_top_k,
+        epsilon=cfg.fopo_epsilon, retriever="streaming",
+    )
+    if retriever_mode == "sharded":
+        if dist is None:
+            raise ValueError('retriever_mode="sharded" needs dist= (a DistConfig)')
+        retriever = _sharded_retriever(fcfg.top_k, dist)
+    else:
+        retriever = make_retriever(fcfg, block_items=8192)
+    return ExecutionPlan.resolve(fcfg, retriever=retriever)
+
+
+def make_train_step(
+    cfg: RecsysConfig, optimizer, objective: str = "bce",
+    retriever_mode: str = "streaming", *, dist=None, plan=None,
+):
+    """(params, opt_state, batch, seed) -> (params, opt_state, loss).
+
+    objective "bce": `bce_loss` over ``batch`` (``hist`` / ``target`` or
+    ``sparse`` / ``dense``, and ``label``); ``seed`` is unused.
+    objective "fopo": the FOPO surrogate of the SASRec or DIEN user tower
+    over the catalog, rewarded by `make_session_reward(batch["positives"])`
+    on ``batch["hist"]``; ``seed`` seeds the step's draws. ``plan``
+    replaces `fopo_plan(cfg, retriever_mode, dist=dist)`; the step's
+    keyword ``sample=`` (a `ProposalSample`) replaces its draws."""
+    if objective != "fopo":
+        def train_step(params, opt_state, batch, seed=None):  # noqa: ARG001 — uniform signature
+            loss, grads = value_and_grad(lambda p: bce_loss(cfg, p, batch), params)
+            params, opt_state = optimizer.update(grads, opt_state, params)
+            return params, opt_state, loss
+
+        return train_step
+
+    from repro_torch.core.policy import SoftmaxPolicy
+    from repro_torch.core.rewards import make_session_reward
+
+    if cfg.kind not in _TOWERS:
+        raise ValueError(f"fopo objective unsupported for {cfg.kind}")
+    tower = _TOWERS[cfg.kind]
+    policy = SoftmaxPolicy(tower=lambda p, x: tower(cfg, p, x), item_dim=cfg.embed_dim)
+    plan = plan if plan is not None else fopo_plan(cfg, retriever_mode, dist=dist)
+
+    def train_step(params, opt_state, batch, seed: int, *, sample=None):
+        reward_fn = make_session_reward(batch["positives"])
+        hist = batch["hist"]
+
+        def loss(p):
+            beta = p["items"].detach()  # Assumption 1: the item table is the fixed beta
+            if sample is None:
+                return plan.execute(policy, p, seed, hist, beta, reward_fn)[0]
+            valid = sample.actions >= 0
+            rewards = (reward_fn(sample.actions.clamp(min=0)) * valid).detach()
+            return plan.surrogate(policy, p, hist, beta, sample, rewards)[0]
+
+        loss_val, grads = value_and_grad(loss, params)
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, loss_val
+
+    return train_step
 
 
 def retrieval_topk(cfg: RecsysConfig, params, batch: dict, k: int = 100):

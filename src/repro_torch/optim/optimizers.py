@@ -37,6 +37,7 @@ __all__ = [
     "sgd",
     "tree_leaves",
     "tree_map",
+    "value_and_grad",
 ]
 
 Params = Any
@@ -66,6 +67,21 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [] if tree is None else [tree]
+
+
+def value_and_grad(loss_fn, params) -> tuple[torch.Tensor, Any]:
+    """(loss, gradients shaped and typed like ``params``) of
+    ``loss_fn(params)``, by `torch.autograd.grad` over detached views of
+    the leaves (the caller's tensors are not touched); a leaf the loss
+    does not reach gets zeros, as `jax.grad` gives."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(leaves)
+    tree = tree_map(lambda _: next(it), params)
+    with torch.enable_grad():
+        loss = loss_fn(tree)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter(g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves))
+    return loss.detach(), tree_map(lambda _: next(it), params)
 
 
 def constant_schedule(lr: float):

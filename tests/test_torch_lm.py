@@ -125,7 +125,21 @@ def test_layer_windows_alternate_as_the_reference_selects():
 
 
 def test_mixture_of_experts_waits_for_the_models_slice():
-    cfg = dataclasses.replace(get_arch("gemma2-2b").SMOKE_CONFIG, num_experts=4,
-                              num_experts_per_tok=2)
-    with pytest.raises(NotImplementedError, match="moe_ffn"):
-        lm.init_params(cfg, torch.Generator().manual_seed(0))
+    """The models slice has landed: Gemma-2's SMOKE_CONFIG made a mixture
+    of 4 experts (top 2) has the reference's MoE leaves and shapes (and no
+    dense MLP), a positive aux loss, and prefill's last logits equal to
+    `forward`'s (the same B x S tokens routed; rtol 1e-5 / atol 2e-5)."""
+    over = dict(num_experts=4, num_experts_per_tok=2)
+    cfg = dataclasses.replace(get_arch("gemma2-2b").SMOKE_CONFIG, **over)
+    jcfg = dataclasses.replace(jax_get_arch("gemma2-2b").SMOKE_CONFIG, **over)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    jshapes = jax.eval_shape(lambda k: jax_lm.init_params(jcfg, k), jax.random.PRNGKey(0))
+    assert {k: tuple(v.shape) for k, v in params["layers"].items()} == {
+        k: v.shape for k, v in jshapes["layers"].items()}
+    assert "w_gate" not in params["layers"]
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)))
+    with torch.no_grad():
+        logits, aux = lm.forward(cfg, params, toks)
+    assert float(aux) > 0
+    last, _ = lm.prefill(cfg, params, toks, lm.init_cache(cfg, B, MAX_LEN))
+    np.testing.assert_allclose(last.numpy(), logits[:, -1].numpy(), rtol=1e-5, atol=2e-5)

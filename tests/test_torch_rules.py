@@ -263,15 +263,18 @@ def test_lm_entry_points_refuse_cuda_without_cuda(monkeypatch):
     "arch", ["gemma2-2b", "mistral-large-123b", "granite-8b", "olmoe-1b-7b", "arctic-480b"]
 )
 def test_lm_archs_resolve_only_when_ported(arch):
-    """gemma2-2b resolves to the port's config module; the other LM
-    arches still raise, naming the models slice."""
-    if arch == "gemma2-2b":
-        mod = get_arch(arch)
-        assert mod.FAMILY == "lm" and mod.CONFIG.name == arch
-        assert mod.__name__ == "repro_torch.configs.gemma2_2b"
-    else:
-        with pytest.raises(NotImplementedError, match="models slice"):
-            get_arch(arch)
+    """Every LM arch is ported: each resolves to the port's config module,
+    whose CONFIG and SMOKE_CONFIG are the reference's, field for field."""
+    import dataclasses
+
+    from repro.configs import get_arch as jax_get_arch
+
+    mod = get_arch(arch)
+    assert mod.FAMILY == "lm" and mod.CONFIG.name == arch
+    assert mod.__name__ == f"repro_torch.configs.{arch.replace('-', '_')}"
+    ref = jax_get_arch(arch)
+    for name in ("CONFIG", "SMOKE_CONFIG"):
+        assert dataclasses.asdict(getattr(mod, name)) == dataclasses.asdict(getattr(ref, name))
 
 
 def test_planner_probe_waits_for_the_health_slice():
@@ -325,8 +328,21 @@ def test_recsys_entry_points_refuse_cuda_without_cuda(monkeypatch, arch):
             DenseCandidateRoute(cfg, params, candidates=np.arange(10))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_cli.main(["--arch", arch, "--requests", "1"])
-    with pytest.raises(SystemExit, match="models slice"):
-        train_cli.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--arch", arch, "--steps", "1"])
+
+
+@pytest.mark.parametrize("arch", ["sasrec", "olmoe-1b-7b", "arctic-480b", "granite-8b",
+                                  "mistral-large-123b"])
+def test_models_slice_entry_points_refuse_cuda_without_cuda(monkeypatch, arch):
+    """The arches the models slice brings to training (and the LM ones to
+    serving) ask for CUDA by default and raise where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--arch", arch, "--steps", "1"])
+    if arch != "sasrec":
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve_cli.main(["--arch", arch, "--requests", "1"])
 
 
 _IMPORTS_SLICE = """
@@ -355,7 +371,11 @@ assert not bad, bad
      "repro_torch.serve.cluster", "repro_torch.serve"),
     ("repro_torch.dist", "repro_torch.dist.collectives", "repro_torch.dist.fopo",
      "repro_torch.mips.sharded", "repro_torch.core.plan", "repro_torch.train.trainer"),
-], ids=["embeddings", "embedding_bag", "recsys", "health", "obs_cluster", "dist"])
+    ("repro_torch.models.moe", "repro_torch.models.lm", "repro_torch.core.lm_head",
+     "repro_torch.core", "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.arctic_480b",
+     "repro_torch.configs.granite_8b", "repro_torch.configs.mistral_large_123b",
+     "repro_torch.launch.train"),
+], ids=["embeddings", "embedding_bag", "recsys", "health", "obs_cluster", "dist", "models"])
 def test_embedding_slice_modules_import_no_jax(modules):
     """This slice's modules, each set alone in a fresh interpreter."""
     res = subprocess.run(
@@ -367,9 +387,12 @@ def test_embedding_slice_modules_import_no_jax(modules):
 
 def test_unported_arch_names_the_models_item():
     """An arch that is not ported names its slice and its ROADMAP item
-    (Queue A item 6, models)."""
+    (Queue A item 6, models); graphcast, the GNN, is the one left, and
+    its training is refused naming the GNN."""
     with pytest.raises(NotImplementedError, match=r"models slice \(ROADMAP Queue A item 6\)"):
         get_arch("graphcast")
+    with pytest.raises(SystemExit, match=r"models slice \(ROADMAP Queue A item 6: the GNN\)"):
+        train_cli.main(["--arch", "graphcast", "--steps", "1", "--device", "cpu"])
 
 
 def test_serve_cli_cluster_chaos_with_obs_dir_answers_every_request(tmp_path, capsys):

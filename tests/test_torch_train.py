@@ -460,4 +460,4 @@ def test_cli_refuses_cuda_without_cuda_and_other_arches(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(["--arch", "fopo-paper", "--steps", "1"])
     with pytest.raises(SystemExit, match="models slice"):
-        train_cli.main(["--arch", "sasrec", "--steps", "1", "--device", "cpu"])
+        train_cli.main(["--arch", "graphcast", "--steps", "1", "--device", "cpu"])
