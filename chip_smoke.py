@@ -169,7 +169,14 @@ more each:
                   split bit for bit. Logged: each rank's step p50, the bytes,
                   calls and host ms of each collective a step (gloo through
                   the host: not NCCL's cost), times and every process's
-                  peak memory
+                  peak memory. int8 gradient compression in both drills:
+                  each rank `compressed_all_reduce`s a GraphCast-sized
+                  gradient tree drawn from its own seed (16 leaves, 26.15 M
+                  fp32 entries), then all-reduces the same tree in plain
+                  fp32; every rank's result equals, on the CPU, the formula
+                  from the ranks' own `quantize_int8` outputs (the int32 sum
+                  exactly, the mean scale within rtol 4e-7); `STATS`' bytes,
+                  calls and host ms and the wall ms of both logged
   6. embedding    the embedding-bag kernel (K8) against its plain version,
                   bit for bit: small shapes (D 1, 18, 32, 128, 130, 132,
                   264; T 1, 7, 100, 129, 300: past a round of 128 ids;
@@ -209,6 +216,34 @@ more each:
                   1e-6, parameters by `theta_gate`, the first FOPO step's
                   top-K held to the CPU's. Peak memory and seconds logged.
                   No hand-written kernel is on this path
+  7c. graphcast   GraphCast training at full width (`configs/graphcast.py:
+                  CONFIG`: 16 layers, d_hidden 512, n_vars 227, sum, scan +
+                  remat, fp32; random weights from seed 0), Adam(1e-3), 6
+                  steps a cell: minibatch_lg (`random_graph(232,965,
+                  avg_degree=GNN_DEGREE)`, its build timed; the 232,965 x 602
+                  feature table and the targets on the card; each step
+                  `sample_neighbors` on the host, 1024 seeds, fanout (15,
+                  10), `gnn.subgraph_inputs` gathers the subgraph into the
+                  cell's `gnn.static_shape`, n 169,984 / e 168,960, the
+                  loss masked to the seeds),
+                  full_graph_sm (2708 nodes, the first 10,556 edges of
+                  `random_graph(2708, 4)`, d_feat 1433) and molecule (128
+                  graphs of 30 nodes and 64 edges, d_feat 32), padded to 512.
+                  Each: step p50 / p99, host sampling, peak memory, a
+                  profiled step's idle share (the phase fails without one),
+                  model FLOPs a second (`launch.costs`, at the padded
+                  shapes and, for minibatch_lg, at the sampled subgraphs'
+                  mean size) and their share of 67 TFLOP/s, the same step
+                  run twice (bitwise equal, or the max |diff|). Then one
+                  step at full width cut to 2 layers on full_graph_sm
+                  replayed on the CPU in fp32 and fp64 (the loss within rtol
+                  1e-4 of the fp64 one; each gradient leaf within 2x the
+                  CPU fp32's distance from the fp64 one or within 1e-4 of
+                  its largest; the Adam update by `theta_gate` within 1e-6
+                  but where |g| is under the bound Adam's eps gives), and
+                  `python -m
+                  repro_torch.launch.train --arch graphcast --steps 3` on
+                  the card. No hand-written kernel is on this path
  8. flash        the flash-attention kernel (K9) against its plain
                   version in fp32 and bf16, out and lse: small shapes
                   (ragged S, windows 8 / 64, cap 50, q_offset > 0, GQA
@@ -324,6 +359,11 @@ LM_PROMPT, LM_GEN, LM_BATCH, LM_REQUESTS, LM_TOP_K = 2048, 16, 8, 16, 4
 # recsys training (phase 7b): steps on BCE, on FOPO (SASRec, DIEN), and replayed on the CPU
 RECSYS_BCE_STEPS, RECSYS_FOPO_STEPS, DIEN_FOPO_STEPS = 10, 20, 5
 RECSYS_REPLAY_BCE, RECSYS_REPLAY_FOPO = 2, 3
+# GraphCast training (phase 7c): steps a cell, layers of the CPU replay, the
+# minibatch_lg graph's average degree (Reddit's 492, 114.6 M edges over 232,965
+# nodes, cut to a third: the host build took 51.5 s at 492, 30.8 s at 246)
+GNN_STEPS, GNN_REPLAY_LAYERS, GNN_DEGREE = 6, 2, 164
+ADAM_EPS = 1e-8  # `repro_torch.optim.adam`'s default
 BF16_RTOL = 2.0**-7  # one bf16 ulp at the bottom of a binade
 LM_HIDDEN_REL = 5e-2  # bf16 prefill hidden states, kernel vs plain path (relative L2)
 # LM training: global batch 4 x 2048 in microbatches of 1 row, 6 Adam steps
@@ -352,6 +392,32 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def device_profile(fn, calls: int = 1) -> tuple[list, float, float]:
+    """One run of ``fn`` (``calls`` steps or batches) under the torch
+    profiler with device activity only: each entry is a kernel, a copy or
+    a fill, so their times add up to the device's busy time without
+    double counts. Returns the entries with device time as (ms a call,
+    name, count), the busy ms and the wall ms a call; the device's idle
+    share is 1 - busy / wall. Fails if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    evs = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None) or getattr(ev, "device_time_total", 0.0)
+        if us > 0:
+            evs.append((us / 1e3 / calls, ev.key, ev.count))
+    busy = sum(t for t, _, _ in evs)
+    check(busy > 0, "the profiler saw no device time")
+    return evs, busy, wall
 
 
 def time_ms(fn, arg_sets: list, iters: int) -> float:
@@ -1202,45 +1268,25 @@ def train_phase(ds, theta0) -> dict:
         f"{TRAIN_STEPS - 1} (step 0 {hist['step_time'][0] * 1e3:.3f} ms)")
 
     # where a step's device time goes: a profiled window of a few steps
-    from torch.profiler import ProfilerActivity, profile
-
-    # device activity only: each entry is a kernel, a copy or a fill, so
-    # their times add up to the device's busy time without double counts
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.train(PROFILED_STEPS)
-        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
-    def device_us(ev) -> float:
-        return getattr(ev, "self_device_time_total", None) or getattr(ev, "device_time_total", 0.0)
-
+    evs, busy, wall = device_profile(lambda: tr.train(PROFILED_STEPS), PROFILED_STEPS)
     groups = {"mips_topk": 0.0, "fused_sampler": 0.0, "snis_fwd": 0.0, "snis_bwd": 0.0,
               "other": 0.0}
     bwd_kernels = 0
-    for ev in prof.key_averages():
-        dt = device_us(ev) / PROFILED_STEPS / 1e3
-        if dt <= 0:
-            continue
-        name = ev.key
+    for dt, name, count in evs:
         group = ("mips_topk" if "mips_" in name else "fused_sampler" if "fused_sampler" in name
                  else "snis_fwd" if "snis_fwd" in name else "snis_bwd" if "snis_bwd" in name
                  else "other")
         groups[group] += dt
-        bwd_kernels += ev.count if group == "snis_bwd" else 0
-    busy = sum(groups.values())
-    if busy > 0:
-        check(bwd_kernels == PROFILED_STEPS,
-              f"the backward ran {bwd_kernels} kernels in {PROFILED_STEPS} steps, not one a step")
-        log(f"[train] the backward: {bwd_kernels} kernel(s) in {PROFILED_STEPS} profiled steps")
-        log(f"[train] profiled {PROFILED_STEPS} steps: device ms per step by kernel: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in groups.items())
-            + f"; busy {busy:.4f} of {wall:.4f} ms wall per step (profiled), device idle "
-            f"{100 * (1 - busy / wall):.1f}%")
-        other = sorted(((device_us(e) / PROFILED_STEPS / 1e3, e.key)
-                        for e in prof.key_averages() if device_us(e) > 0), reverse=True)[:8]
-        log("[train] top device entries (ms per step): "
-            + "; ".join(f"{n[:48]} {t:.4f}" for t, n in other))
-    else:
-        log("[train] the profiler reported no device time on this machine")
+        bwd_kernels += count if group == "snis_bwd" else 0
+    check(bwd_kernels == PROFILED_STEPS,
+          f"the backward ran {bwd_kernels} kernels in {PROFILED_STEPS} steps, not one a step")
+    log(f"[train] the backward: {bwd_kernels} kernel(s) in {PROFILED_STEPS} profiled steps")
+    log(f"[train] profiled {PROFILED_STEPS} steps: device ms per step by kernel: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in groups.items())
+        + f"; busy {busy:.4f} of {wall:.4f} ms wall per step (profiled), device idle "
+        f"{100 * (1 - busy / wall):.1f}%")
+    log("[train] top device entries (ms per step): "
+        + "; ".join(f"{n[:48]} {t:.4f}" for t, n, _ in sorted(evs, reverse=True)[:8]))
 
     # the first steps again on the CPU, through the plain versions
     t0 = time.perf_counter()
@@ -1546,32 +1592,20 @@ def maintained_train_phase(ds, theta0) -> dict:
         f"{hist['step_time'][0] * 1e3:.3f} ms)")
 
     # where a maintained step's device time goes: a profiled window
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.train(PROFILED_STEPS)
-        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    evs, busy, wall = device_profile(lambda: tr.train(PROFILED_STEPS), PROFILED_STEPS)
     groups = {"ivf_topk": 0.0, "fused_sampler": 0.0, "snis_fwd": 0.0, "snis_bwd": 0.0,
               "gemm": 0.0, "other": 0.0}
-    for ev in prof.key_averages():
-        dt = (getattr(ev, "self_device_time_total", None)
-              or getattr(ev, "device_time_total", 0.0)) / PROFILED_STEPS / 1e3
-        name = ev.key
+    for dt, name, _ in evs:
         group = ("ivf_topk" if "ivf_" in name else "fused_sampler" if "fused_sampler" in name
                  else "snis_fwd" if "snis_fwd" in name else "snis_bwd" if "snis_bwd" in name
                  else "gemm" if "gemm" in name.lower() or "sgemm" in name else "other")
-        groups[group] += max(dt, 0.0)
-    busy = sum(groups.values())
+        groups[group] += dt
     profile_ms = dict(groups, busy=busy, wall=wall)
-    if busy > 0:
-        log(f"[maintain] profiled {PROFILED_STEPS} steps (a refresh each): device ms per step "
-            + ", ".join(f"{k} {v:.4f}" for k, v in groups.items())
-            + f" (gemm: the refresh's assignment and cluster sums, the tower); busy "
-            f"{busy:.4f} of {wall:.4f} ms wall per step (profiled), device idle "
-            f"{100 * (1 - busy / wall):.1f}%")
-    else:
-        log("[maintain] the profiler reported no device time on this machine")
+    log(f"[maintain] profiled {PROFILED_STEPS} steps (a refresh each): device ms per step "
+        + ", ".join(f"{k} {v:.4f}" for k, v in groups.items())
+        + f" (gemm: the refresh's assignment and cluster sums, the tower); busy "
+        f"{busy:.4f} of {wall:.4f} ms wall per step (profiled), device idle "
+        f"{100 * (1 - busy / wall):.1f}%")
 
     # the maintenance ops' device times at P 750,000 (CUDA graphs: capture
     # also shows that none of them reads a device value on the host)
@@ -1668,16 +1702,18 @@ def maintained_train_phase(ds, theta0) -> dict:
                 seeds=seeds, seconds=secs, peak_gb=peak, profile_ms=profile_ms)
 
 
-def theta_gate(got, want, grad, lr: float, tag: str) -> int:
+def theta_gate(got, want, grad, lr: float, tag: str, small_below: float | None = None) -> int:
     """theta after one Adam step from the same state: within 1e-6 of the
-    card's but for entries whose gradient is under 1e-4 of the largest,
-    where Adam's g / (|g| + eps) turns fp32 noise in g into an update
-    difference of a few % of lr; those stay within 2 lr. Returns their
-    count."""
+    card's but for entries whose gradient is small (|g| at most
+    ``small_below``, by default 1e-4 of the largest), where Adam's g / (|g|
+    + eps) turns fp32 noise in g into an update difference of a few % of
+    lr; those stay within 2 lr. Returns the count of entries past 1e-6."""
     got, want, grad = got.cpu(), want.cpu(), grad.cpu()
     diff = (got - want).abs()
     off = diff > 1e-6
-    small = grad.abs() <= 1e-4 * float(grad.abs().max())
+    if small_below is None:
+        small_below = 1e-4 * float(grad.abs().max())
+    small = grad.abs() <= small_below
     bad = off & ~small
     if bad.any():
         check(False, f"{tag}: differs by {float(diff[bad].max())} where the gradient is not small")
@@ -2640,7 +2676,7 @@ def grads_seen(opt, seen: list, update: bool = True):
     return Optimizer(init=opt.init, update=step)
 
 
-def recsys_train_phase(dev=None, smoke: bool = False) -> dict:
+def recsys_train_phase() -> dict:
     """Recsys training at the full CONFIG widths (phase 7b), random weights
     from seed 0, Adam(1e-3), batches of 64 drawn as the launcher draws
     them: DIN, DIEN and Wide&Deep on BCE (RECSYS_BCE_STEPS steps each),
@@ -2655,8 +2691,7 @@ def recsys_train_phase(dev=None, smoke: bool = False) -> dict:
     leaf by `theta_gate`; at the first FOPO step the CPU's top-K is held
     to the card's. No hand-written kernel is on this path (the retriever,
     the sampler and the surrogate are plain torch, as the reference's are
-    plain JAX). (``dev`` and ``smoke`` default to the card and the full
-    CONFIGs; SMOKE_CONFIGs on the CPU rehearse the phase.)"""
+    plain JAX)."""
     import numpy as np
     import torch
 
@@ -2667,7 +2702,7 @@ def recsys_train_phase(dev=None, smoke: bool = False) -> dict:
     from repro_torch.optim import adam
     from repro_torch.optim.optimizers import tree_leaves
 
-    dev = torch.device(dev or "cuda")
+    dev = torch.device("cuda")
     lr = 1e-3
     out = {}
     t_phase = time.perf_counter()
@@ -2678,7 +2713,7 @@ def recsys_train_phase(dev=None, smoke: bool = False) -> dict:
                                    ("sasrec", "fopo", RECSYS_FOPO_STEPS),
                                    ("dien", "fopo", DIEN_FOPO_STEPS)):
         tag = f"{arch} {objective}"
-        cfg = get_arch(arch).SMOKE_CONFIG if smoke else get_arch(arch).CONFIG
+        cfg = get_arch(arch).CONFIG
         t0 = time.perf_counter()
         params = recsys.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
         opt = adam(lr)
@@ -2765,6 +2800,264 @@ def recsys_train_phase(dev=None, smoke: bool = False) -> dict:
     secs = time.perf_counter() - t_phase
     log(f"[recsys-train] phase 7b took {secs:.1f} s, peak device memory {peak:.2f} GB")
     out.update(peak_gb=peak, seconds=secs)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# GraphCast training at full width (phase 7c)
+# ---------------------------------------------------------------------------
+
+def gnn_fixed_inputs(cell, n_vars: int, rng) -> tuple:
+    """(feats, src, dst, targets, mask) as numpy for a cell whose graph is
+    fixed: full_graph_sm's `random_graph(2708, avg_degree=4)` cut to its
+    first 10,556 edges (the cell's count; messages from a CSR row's
+    neighbours to the row), molecule's 128 block-diagonal graphs of 30
+    nodes and 64 edges (no self-loops). Padded to the cell's
+    `gnn.static_shape` (-1 edges, zero rows out of the loss)."""
+    import numpy as np
+
+    from repro_torch.data import random_graph
+    from repro_torch.models import gnn
+
+    if cell.global_batch:
+        k, nn, ee = cell.global_batch, cell.n_nodes, cell.n_edges
+        s = rng.integers(0, nn, (k, ee))
+        d = (s + rng.integers(1, nn, (k, ee))) % nn
+        off = (np.arange(k) * nn)[:, None]
+        src, dst, n_real = (s + off).ravel(), (d + off).ravel(), k * nn
+    else:
+        g = random_graph(cell.n_nodes, avg_degree=4, seed=0)
+        src = g.indices[:cell.n_edges]
+        dst = np.repeat(np.arange(cell.n_nodes), np.diff(g.indptr))[:cell.n_edges]
+        n_real = cell.n_nodes
+    n, e = gnn.static_shape(cell)
+    edges = np.full((2, e), -1, np.int32)
+    edges[0, :len(src)], edges[1, :len(dst)] = src, dst
+    feats = np.zeros((n, cell.d_feat), np.float32)
+    feats[:n_real] = rng.standard_normal((n_real, cell.d_feat))
+    targets = np.zeros((n, n_vars), np.float32)
+    targets[:n_real] = rng.standard_normal((n_real, n_vars))
+    mask = (np.arange(n) < n_real).astype(np.float32)
+    return feats, edges[0], edges[1], targets, mask
+
+
+def gnn_train_phase() -> dict:
+    """GraphCast training at full width (phase 7c): `configs/graphcast.py:
+    CONFIG` (16 layers, d_hidden 512, n_vars 227, sum, scan + remat, fp32;
+    random weights from seed 0), `gnn.make_train_step` with Adam(1e-3),
+    GNN_STEPS steps a cell (step 1 out of p50 / p99):
+    minibatch_lg (the 232,965 x 602 feature table and the targets on the
+    card; each step `sample_neighbors` on the host, 1024 seeds, fanout
+    (15, 10), and `gnn.subgraph_inputs` gathers the subgraph's rows into
+    the cell's `gnn.static_shape`, n 169,984 and e 168,960, the loss
+    masked to the seeds; the graph `random_graph(232,965,
+    avg_degree=GNN_DEGREE)`, its build timed), full_graph_sm and molecule
+    (`gnn_fixed_inputs`). For each: step p50 / p99, host sampling, peak
+    memory, a profiled step's idle share, model FLOPs a second
+    (`launch.costs.gnn_model_flops`, the padded shapes; for minibatch_lg
+    also at the sampled subgraphs' mean size) and their share of 67
+    TFLOP/s fp32, and the same step run twice from one state (bitwise
+    equal or the max |diff|: `index_add` adds with atomics). Then the CPU
+    replay (full width but GNN_REPLAY_LAYERS layers, on full_graph_sm, in
+    fp32 and fp64: the loss within rtol 1e-4 of the fp64 one, each
+    gradient leaf within 2x the CPU fp32's distance from the fp64 one or
+    within 1e-4 of its largest, the post-Adam parameters by `theta_gate`
+    against the fp64 step) and the train CLI on the card. No hand-written
+    kernel is on this path (the reference's GNN calls no Pallas kernel)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import random_graph, sample_neighbors
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import costs
+    from repro_torch.models import gnn
+    from repro_torch.optim import adam
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    dev = resolve_device("cuda")  # IEEE fp32 matmuls (TF32 off)
+    mod = get_arch("graphcast")
+    cfg = mod.CONFIG
+    lr, out, card = 1e-3, {}, card_line()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+
+    def to_dev(arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    for name in ("minibatch_lg", "full_graph_sm", "molecule"):
+        cell = mod.SHAPES[name]
+        n, e = gnn.static_shape(cell)
+        t0 = time.perf_counter()
+        extra = ""
+        if cell.batch_nodes:
+            graph = random_graph(cell.n_nodes, avg_degree=GNN_DEGREE, seed=0)
+            build_s = time.perf_counter() - t0
+            gen = torch.Generator(device=dev).manual_seed(1)
+            table = torch.randn((cell.n_nodes, cell.d_feat), generator=gen, device=dev)
+            table_y = torch.randn((cell.n_nodes, cfg.n_vars), generator=gen, device=dev)
+            extra = (f"graph random_graph({cell.n_nodes}, avg_degree={GNN_DEGREE}): "
+                     f"{len(graph.indices)} edges built in {build_s:.2f} s; feature table "
+                     f"{cell.n_nodes} x {cell.d_feat} ({table.numel() * 4 / 1e6:.0f} MB) and "
+                     "targets on the device; ")
+
+            def batch():
+                """A sampled batch: (host seconds, a function that gathers it
+                on the device, (nodes, valid edges))."""
+                t = time.perf_counter()
+                seeds = rng.choice(cell.n_nodes, cell.batch_nodes, replace=False)
+                sub = sample_neighbors(graph, seeds, cell.fanout, rng)
+                host_s = time.perf_counter() - t
+                return (host_s, lambda: gnn.subgraph_inputs(sub, table, table_y, n, e),
+                        (len(sub.node_ids), int((sub.edge_src >= 0).sum())))
+        else:
+            fixed = to_dev(gnn_fixed_inputs(cell, cfg.n_vars, rng))
+
+            def batch():
+                return 0.0, lambda: fixed, None
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        params = gnn.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                 d_feat=cell.d_feat)
+        opt = adam(lr)
+        state = opt.init(params)
+        step = gnn.make_train_step(cfg, opt)
+        times, host, losses, sizes = [], [], [], []
+        for i in range(GNN_STEPS):
+            host_s, gather, size = batch()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            inputs = gather()
+            params, state, loss = step(params, state, *inputs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            host.append(host_s * 1e3)
+            losses.append(float(loss))
+            sizes.append(size)
+            check(math.isfinite(losses[-1]), f"graphcast {name} step {i + 1}: loss {losses[-1]}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # the same step twice from one state (the last batch)
+        a = step(params, state, *inputs)
+        b = step(params, state, *inputs)
+        diff = max(float((x - y).abs().max()) for x, y in zip(tree_leaves(a[0]), tree_leaves(b[0])))
+        same = diff == 0.0 and float(a[2]) == float(b[2])
+        loss_diff = abs(float(a[2]) - float(b[2]))
+        del a, b
+        _, busy, prof_ms = device_profile(lambda: step(params, state, *inputs))
+        idle = 100 * (1 - busy / prof_ms)
+        flops = costs.gnn_model_flops(cfg, cell)
+        p50, p99 = percentile(times[1:], 50), percentile(times[1:], 99)
+        res = dict(p50_ms=p50, p99_ms=p99, first_ms=times[0], host_ms=percentile(host, 50),
+                   peak_gb=peak, idle=idle, model_tflop=flops / 1e12,
+                   tflops=flops / (p50 / 1e3) / 1e12, repeat_bitwise=same,
+                   repeat_max_diff=diff, repeat_loss_diff=loss_diff, losses=losses)
+        res["fp32_share"] = res["tflops"] * 1e12 / FP32_FLOPS
+        out[name] = res
+        sub = ""
+        if cell.batch_nodes:
+            # the work on the sampled nodes and valid edges alone: the padded
+            # shapes' rows and edges past them are executed but carry nothing
+            m_mean = sum(s[0] for s in sizes) / len(sizes)
+            k_mean = sum(s[1] for s in sizes) / len(sizes)
+            useful = costs.gnn_model_flops(cfg, dataclasses.replace(
+                cell, batch_nodes=0, fanout=(), n_nodes=round(m_mean), n_edges=round(k_mean)))
+            res.update(graph_build_s=build_s, useful_tflop=useful / 1e12,
+                       useful_share=useful / (p50 / 1e3) / FP32_FLOPS)
+            sub = (f"; host sampling p50 {res['host_ms']:.1f} ms a step (subgraphs of "
+                   f"{min(s[0] for s in sizes)}-{max(s[0] for s in sizes)} nodes and "
+                   f"{min(s[1] for s in sizes)}-{max(s[1] for s in sizes)} valid edges; at "
+                   f"their mean size the model FLOPs are {useful / 1e12:.3f} T a step, "
+                   f"{100 * res['useful_share']:.1f} % of 67 TFLOP/s fp32 at the p50)")
+        log(f"[graphcast] {name}: {extra}n {n}, e {e}, d_feat {cell.d_feat}; set up in "
+            f"{setup_s:.2f} s; {GNN_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+            f"1 {times[0]:.1f} ms, then p50 {p50:.2f} ms, p99 {p99:.2f} ms{sub}; peak device "
+            f"memory {peak:.2f} GB; model FLOPs at the padded shapes {flops / 1e12:.3f} T a step, "
+            f"{res['tflops']:.2f} TFLOP/s at the p50, {100 * res['fp32_share']:.1f} % of 67 "
+            f"TFLOP/s fp32; profiled step {prof_ms:.1f} ms, device idle {idle:.1f} %; the same "
+            "step twice: "
+            + ("bitwise equal" if same else f"not bitwise equal, parameters max |diff| "
+               f"{diff:.3g}, loss |diff| {loss_diff:.3g}") + f" ({card})")
+        del params, state, inputs, step
+        if cell.batch_nodes:
+            del graph, table, table_y
+        torch.cuda.empty_cache()
+
+    # the CPU replay: one step at full width, GNN_REPLAY_LAYERS layers,
+    # full_graph_sm, in fp32 and in fp64 (the exact gradient to fp32's eye)
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, num_layers=GNN_REPLAY_LAYERS)
+    cell = mod.SHAPES["full_graph_sm"]
+    arrays = gnn_fixed_inputs(cell, cfg.n_vars, np.random.default_rng(1))
+    params = gnn.init_params(cfg2, torch.Generator(device=dev).manual_seed(2), d_feat=cell.d_feat)
+    p0 = tree_cpu(params)
+    seen = []
+    p1, _, loss = gnn.make_train_step(cfg2, grads_seen(adam(lr), seen))(
+        params, adam(lr).init(params), *to_dev(arrays))
+    cpu = {}
+    for dt in (torch.float32, torch.float64):
+        p_dt = tree_map(lambda t: t.to(dt), p0)
+        got = []
+        c1, _, closs = gnn.make_train_step(cfg2, grads_seen(adam(lr), got))(
+            p_dt, adam(lr).init(p_dt), *(torch.from_numpy(a).to(dt) if a.dtype == np.float32
+                                         else torch.from_numpy(a) for a in arrays))
+        cpu[dt] = (float(closs), got[0], c1)
+    exact = cpu[torch.float64][0]
+    check(abs(float(loss) - exact) <= 1e-4 * abs(exact),
+          f"graphcast replay: loss {float(loss)} vs the CPU's {exact} (fp64)")
+    rel, small, off = [], [], 0
+    for gc, g32, g64, a, b in zip(tree_leaves(seen[0]), tree_leaves(cpu[torch.float32][1]),
+                                  tree_leaves(cpu[torch.float64][1]), tree_leaves(p1),
+                                  tree_leaves(cpu[torch.float64][2])):
+        top = float(g64.abs().max())
+        e_card = float((gc.double().cpu() - g64).abs().max())
+        e_cpu = float((g32.double() - g64).abs().max())
+        rel.append((e_card / top, e_cpu / top))
+        # the card's fp32 within 2x the CPU fp32's distance from the exact
+        # gradient, or within 1e-4 of the leaf's largest: the encoder's sums
+        # over 3072 nodes sit ~1e-4 of their largest from it in fp32
+        check(e_card <= max(1e-4 * top, 2 * e_cpu),
+              f"graphcast replay gradient: {e_card:.3g} from the fp64 one against the CPU "
+              f"fp32's {e_cpu:.3g} (largest {top:.3g})")
+        # Adam's first step moves an entry by lr g / (|g| + eps). Where |g| is
+        # at least 2 e_card the card's entry has its sign and half its size,
+        # so the two moves differ by at most 2 lr eps e_card / g^2: 5e-7 (half
+        # the gate, the rest for the parameters' fp32 rounding) where g^2 is
+        # 4 lr eps e_card / 1e-6. Smaller entries are near 0, held within 2 lr
+        near0 = max(1e-4 * top, 2 * e_card, math.sqrt(4 * lr * ADAM_EPS * e_card / 1e-6))
+        small.append(near0 / top)
+        off += theta_gate(b.float(), a, g64.float(), lr, "graphcast replay parameters",
+                          small_below=near0)
+    replay_s = time.perf_counter() - t0
+    out["replay"] = dict(loss_diff=abs(float(loss) - exact), grad_rel=rel, near0=small,
+                         noisy=off)
+    log(f"[graphcast] CPU replay at full width, {GNN_REPLAY_LAYERS} layers, full_graph_sm: loss "
+        f"{float(loss):.6f} on the card, |diff| from the CPU's fp64 {abs(float(loss) - exact):.3g}"
+        f" (the CPU's fp32 {abs(cpu[torch.float32][0] - exact):.3g}); each gradient leaf's max "
+        "|diff| from the fp64 one over its largest, card / CPU fp32: "
+        + ", ".join(f"{c:.2g} / {f:.2g}" for c, f in rel) + " (held: the card within 2x the CPU "
+        "fp32's or 1e-4); the post-Adam parameters by theta_gate against the fp64 step within "
+        "1e-6, entries near 0 (|g| under " + ", ".join(f"{x:.2g}" for x in small)
+        + f" of their leaf's largest) within 2 lr ({off} entries past 1e-6); {replay_s:.1f} s")
+    del params, p0, p1, cpu, seen
+    torch.cuda.empty_cache()
+
+    # the train CLI on the card
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "graphcast",
+         "--steps", "3"], capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    lines = re.findall(r"^step (\d+): loss=([-0-9.]+)$", res.stdout, re.M)
+    check(res.returncode == 0 and [i for i, _ in lines] == ["0", "1", "2"]
+          and all(math.isfinite(float(x)) for _, x in lines),
+          f"the train CLI --arch graphcast: rc {res.returncode}\n{res.stdout[-2000:]}"
+          f"\n{res.stderr[-2000:]}")
+    log(f"[graphcast] python -m repro_torch.launch.train --arch graphcast --steps 3 on the "
+        f"card: losses {', '.join(x for _, x in lines)} ({time.perf_counter() - t0:.1f} s)")
+    secs = time.perf_counter() - t_phase
+    log(f"[graphcast] phase 7c took {secs:.1f} s ({card})")
+    out["seconds"] = secs
     return out
 
 
@@ -3579,33 +3872,16 @@ def lm_phase(cfg=None, dev=None) -> dict:
     del drops
 
     # where a batch's device time goes: one profiled batch
-    from torch.profiler import ProfilerActivity, profile
-
     x = route.prepare(prompts[:LM_BATCH])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        route.run(x)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-
-    def device_us(ev) -> float:
-        return getattr(ev, "self_device_time_total", None) or getattr(ev, "device_time_total", 0.0)
-
-    evs = [(device_us(e) / 1e3, e.key) for e in prof.key_averages() if device_us(e) > 0]
-    busy = sum(t for t, _ in evs)
-    idle = None
-    if busy > 0:
-        idle = 100 * (1 - busy / wall)
-        flash_ms = sum(t for t, n in evs if "flash_fwd" in n)
-        ivf_ms = sum(t for t, n in evs if "ivf_" in n)
-        log(f"[lm] profiled batch: device busy {busy:.3f} of {wall:.3f} ms wall (profiled), idle "
-            f"{idle:.1f}%; K9 {flash_ms:.3f} ms ({cfg.num_layers} launches), ivf_topk "
-            f"{ivf_ms:.3f} ms ({2 * LM_GEN} launches)")
-        log("[lm] top device entries (ms per batch): " + "; ".join(
-            f"{n[:48]} {t:.3f}" for t, n in sorted(evs, reverse=True)[:10]))
-    else:
-        log("[lm] the profiler reported no device time on this machine")
+    evs, busy, wall = device_profile(lambda: route.run(x))
+    idle = 100 * (1 - busy / wall)
+    flash_ms = sum(t for t, n, _ in evs if "flash_fwd" in n)
+    ivf_ms = sum(t for t, n, _ in evs if "ivf_" in n)
+    log(f"[lm] profiled batch: device busy {busy:.3f} of {wall:.3f} ms wall (profiled), idle "
+        f"{idle:.1f}%; K9 {flash_ms:.3f} ms ({cfg.num_layers} launches), ivf_topk "
+        f"{ivf_ms:.3f} ms ({2 * LM_GEN} launches)")
+    log("[lm] top device entries (ms per batch): " + "; ".join(
+        f"{n[:48]} {t:.3f}" for t, n, _ in sorted(evs, reverse=True)[:10]))
 
     # ivf_topk at the LM shape, on the route's index and its decode queries
     sets = []
@@ -3885,34 +4161,18 @@ def lm_train_phase(cfg=None, dev=None, steps: int = LM_TRAIN_STEPS) -> dict:
         f"({per_step[0]} K9 and {per_step[1]} K10 launches per step)")
 
     # where a step's device time goes: one more step, profiled
-    from torch.profiler import ProfilerActivity, profile
-
     toks = batches[-1]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, state, loss = train_step(params, state, toks[:, :-1], toks[:, 1:])
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-
-    def device_us(ev) -> float:
-        return getattr(ev, "self_device_time_total", None) or getattr(ev, "device_time_total", 0.0)
-
-    evs = [(device_us(e) / 1e3, e.key) for e in prof.key_averages() if device_us(e) > 0]
-    busy = sum(t for t, _ in evs)
-    idle = None
-    if busy > 0:
-        idle = 100 * (1 - busy / wall)
-        k9 = sum(t for t, n in evs if "flash_fwd" in n)
-        k10 = sum(t for t, n in evs if "flash_bwd" in n)
-        log(f"[lm-train] profiled fp32 step: device busy {busy:.1f} of {wall:.1f} ms wall "
-            f"(profiled), idle {idle:.1f}%; K9 {k9:.1f} ms ({per_step[0]} launches), K10 "
-            f"{k10:.1f} ms ({per_step[1]} launches)")
-        log("[lm-train] top device entries (ms per step): " + "; ".join(
-            f"{n[:48]} {t:.1f}" for t, n in sorted(evs, reverse=True)[:10]))
-    else:
-        log("[lm-train] the profiler reported no device time on this machine")
-    del params, state, loss, prof
+    evs, busy, wall = device_profile(
+        lambda: train_step(params, state, toks[:, :-1], toks[:, 1:]))
+    idle = 100 * (1 - busy / wall)
+    k9 = sum(t for t, n, _ in evs if "flash_fwd" in n)
+    k10 = sum(t for t, n, _ in evs if "flash_bwd" in n)
+    log(f"[lm-train] profiled fp32 step: device busy {busy:.1f} of {wall:.1f} ms wall "
+        f"(profiled), idle {idle:.1f}%; K9 {k9:.1f} ms ({per_step[0]} launches), K10 "
+        f"{k10:.1f} ms ({per_step[1]} launches)")
+    log("[lm-train] top device entries (ms per step): " + "; ".join(
+        f"{n[:48]} {t:.1f}" for t, n, _ in sorted(evs, reverse=True)[:10]))
+    del params, state
     torch.cuda.empty_cache()
 
     gate = lm_train_gate(cfg, batches[0], dev)
@@ -4219,6 +4479,107 @@ def snapshot(tr) -> dict:
             "v": st["v"]["w"].cpu().clone(), "step": st["step"].cpu().clone()}
 
 
+def grad_tree(dev, seed: int):
+    """A GraphCast-sized gradient tree: graphcast's CONFIG at d_feat 602 (16
+    leaves, 26,149,091 fp32 entries), N(0, 1) entries times 10^-(1 + i % 4)
+    in leaf i, from a generator on ``dev`` seeded ``seed``."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn
+    from repro_torch.optim.optimizers import tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scales = (10.0 ** -(1 + i % 4) for i in range(10**6))
+    return tree_map(lambda t: torch.randn(t.shape, generator=gen, device=dev) * next(scales),
+                    gnn.init_params(get_arch("graphcast").CONFIG, gen, 602))
+
+
+def compression_drill(dev, seed: int, group=None) -> dict:
+    """`compressed_all_reduce` of `grad_tree(dev, seed)` over ``group``,
+    then a plain fp32 all-reduce of the same tree (`collectives.all_reduce`
+    a leaf): this rank's `quantize_int8` outputs (q, scale) and its
+    compressed result a leaf, on the host, and each run's `STATS` and
+    wall ms (from a synchronised start to a synchronised end)."""
+    import torch
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.optim.compression import compressed_all_reduce, quantize_int8
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    t_drill = time.perf_counter()
+    tree = grad_tree(dev, seed)
+    out = {"q": [], "scale": []}
+    for x in tree_leaves(tree):
+        q, scale = quantize_int8(x)
+        out["q"].append(q.cpu().numpy())
+        out["scale"].append(scale.cpu().numpy())
+    # the backend's first int32 and fp32 all-reduces of this size, untimed
+    first = tree_leaves(tree)[0]
+    C.all_reduce(first.to(torch.int32), group=group)
+    C.all_reduce(first, group=group)
+    runs = (("compressed", lambda: compressed_all_reduce(tree, group)),
+            ("plain", lambda: tree_map(lambda g: C.all_reduce(g, group=group, name="plain_fp32"),
+                                       tree)))
+    for tag, fn in runs:
+        C.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"{tag}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{tag}_stats"] = {k: dict(v) for k, v in C.STATS.items()}
+        if tag == "compressed":
+            out["result"] = [r.cpu().numpy() for r in tree_leaves(res)]
+        del res
+    out["drill_s"] = time.perf_counter() - t_drill
+    return out
+
+
+def compression_gate(drills: list, tag: str) -> float:
+    """Each rank's compressed result against the formula on the CPU, built
+    from the ranks' own `quantize_int8` outputs: the int32 sum of their q
+    times the mean of their scales. The int32 sum exactly (result / mean
+    scale rounds back to it), the value within rtol 4e-7 (the backend may
+    add the scales in another order). Returns the max |diff|."""
+    import numpy as np
+    import torch
+
+    worst = 0.0
+    for i in range(len(drills[0]["q"])):
+        q_sum = sum(torch.from_numpy(d["q"][i]).to(torch.int32) for d in drills)
+        scales = [torch.from_numpy(np.asarray(d["scale"][i])) for d in drills]
+        mean = sum(scales[1:], scales[0]) / len(drills)
+        want = q_sum.float() * mean
+        for r, d in enumerate(drills):
+            got = torch.from_numpy(d["result"][i])
+            check(torch.equal(torch.round(got / mean).to(torch.int32), q_sum),
+                  f"{tag} leaf {i}, rank {r}: the int32 sum differs from the formula's")
+            worst = max(worst, close_err(got, want, f"{tag} leaf {i}, rank {r}", rtol=4e-7,
+                                         atol=0.0))
+    return worst
+
+
+def compression_line(drill: dict, err: float, world: int) -> str:
+    """The log line of a compression drill: bytes, calls and host ms from
+    `STATS`, the wall ms, beside the plain fp32 all-reduce."""
+    comp, plain = drill["compressed_stats"], drill["plain_stats"]
+    cb = sum(v["bytes"] for v in comp.values())
+    pb = sum(v["bytes"] for v in plain.values())
+    numel = sum(q.size for q in drill["q"])
+    return (f"{len(drill['q'])} leaves, {numel} fp32 entries a rank, world of {world}: "
+            "compressed_all_reduce " + ", ".join(
+                f"{k} {v['calls']} calls {v['bytes']} B {v['seconds'] * 1e3:.2f} "
+                "host ms" for k, v in comp.items())
+            + f", {drill['compressed_ms']:.2f} ms wall; plain fp32 all-reduce " + ", ".join(
+                f"{k} {v['calls']} calls {v['bytes']} B {v['seconds'] * 1e3:.2f} "
+                "host ms" for k, v in plain.items())
+            + f", {drill['plain_ms']:.2f} ms wall (after one untimed all-reduce of each "
+            f"dtype); bytes compressed / plain {cb / pb:.6f}; the drill {drill['drill_s']:.1f} s; "
+            f"every rank's result equals the formula from the ranks' own quantize_int8 "
+            f"outputs (int32 sum exact, max |diff| {err:.3g})")
+
+
 def dist_rank_main(rank: int, port: int, tmp: str) -> int:
     """One rank of drill B (spawned by `dist_phase`): the gloo grid data 2
     x model 2 on the one card. The kernels were built by phase 2: a rank
@@ -4388,6 +4749,13 @@ def dist_rank_main(rank: int, port: int, tmp: str) -> int:
     got = restore_sharded(str(path / "ckpt"), "beta", shard_id=d.model_rank, num_shards=2)
     check(np.array_equal(got, slab), f"rank {rank}: the restored shard is not its slab")
     info["ckpt_s"] = time.perf_counter() - t0
+
+    # int8 gradient compression over the world: a GraphCast-sized tree a rank
+    comp = compression_drill(dev, 100 + rank)
+    for key in ("q", "scale", "result"):
+        for i, a in enumerate(comp.pop(key)):
+            out[f"comp/{key}{i}"] = a
+    info["comp"] = comp
     info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     info["rank_s"] = time.perf_counter() - t_rank
     np.savez(path / f"rank{rank}.npz", **out)
@@ -4464,6 +4832,8 @@ def dist_phase(ds, theta0) -> dict:
         check(counts_a[f"{fn}.launches"] == DIST_A_STEPS, f"drill A: {fn} {counts_a}")
     check(all(v == 0 for k, v in counts_a.items() if k.endswith(".calls")),
           f"drill A: a plain version ran on the card: {counts_a}")
+    comp_a = compression_drill(dev, 100)
+    comp_a_err = compression_gate([comp_a], "drill A compression")
     tdist.destroy_process_group()
     secs_a = time.perf_counter() - t0
     del a, b, ra, rb, r
@@ -4474,6 +4844,9 @@ def dist_phase(ds, theta0) -> dict:
         f"sampled scores equal bit for bit, losses within rtol 1e-6, theta "
         f"{'bit for bit equal' if same_a else f'by theta_gate ({noisy_a} noisy entries)'} "
         f"after {DIST_A_STEPS} steps; counts {counts_a}; {secs_a:.1f} s")
+    log("[dist] drill A int8 compression (nccl; host ms are NCCL's enqueue): "
+        + compression_line(comp_a, comp_a_err, 1))
+    del comp_a
 
     # drill B: gloo, four ranks on the one card, data 2 x model 2
     t0 = time.perf_counter()
@@ -4589,6 +4962,18 @@ def dist_phase(ds, theta0) -> dict:
         check(np.array_equal(outs[r]["guard/w"], gw), f"drill B guard: theta of rank {r} differs")
     check(np.array_equal(gw[GUARD_AT], gw[GUARD_AT - 1]), "drill B guard: step not skipped")
     check(not np.array_equal(gw[GUARD_AT + 1], gw[GUARD_AT]), "drill B guard: no step after it")
+
+    # the compression drill: every rank's result against the formula
+    drills = [dict(**i["comp"], **{key: [o[f"comp/{key}{j}"] for j in range(
+        sum(1 for k in o if k.startswith("comp/q")))] for key in ("q", "scale", "result")})
+        for i, o in zip(infos, outs)]
+    t0 = time.perf_counter()
+    comp_b_err = compression_gate(drills, "drill B compression")
+    log("[dist] drill B int8 compression (gloo through the host, rank 0's STATS): "
+        + compression_line(drills[0], comp_b_err, 4)
+        + "; the ranks' drills " + ", ".join(f"{d['drill_s']:.1f}" for d in drills)
+        + f" s, the gate on the CPU {time.perf_counter() - t0:.1f} s")
+    del drills
 
     counts = {}
     for c in [counts_a] + [i[f"{tag}_counts"] for i in infos for tag in ("exact", "maint",
@@ -4831,6 +5216,9 @@ def main() -> int:
 
     # 7b. recsys training at full width, replayed on the CPU
     rtrain = recsys_train_phase()
+
+    # 7c. GraphCast training at full width, replayed on the CPU
+    gtrain = gnn_train_phase()
 
     # 8. flash attention (K9) against its plain version
     log("[kernels] flash_attention (K9) vs its plain version, on the card (fp32 out: rtol "

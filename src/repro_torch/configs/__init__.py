@@ -1,8 +1,8 @@
 """Architecture registry of the port: --arch <id> resolves here.
 
-The ids are the reference's. An arch that is not ported yet (graphcast,
-the GNN) raises NotImplementedError naming it; an unknown id raises
-KeyError.
+The ids are the reference's, every one of them ported. Each config
+module exports FAMILY, CONFIG, SHAPES, SKIPPED_SHAPES and SMOKE_CONFIG;
+an unknown id raises KeyError.
 """
 from __future__ import annotations
 
@@ -10,16 +10,20 @@ import importlib
 import types
 
 ARCH_IDS = [
+    # LM family (5)
     "mistral-large-123b",
     "granite-8b",
     "gemma2-2b",
     "olmoe-1b-7b",
     "arctic-480b",
+    # GNN (1)
     "graphcast",
+    # recsys (4)
     "dien",
     "sasrec",
     "wide-deep",
     "din",
+    # the paper's own experiment
     "fopo-paper",
 ]
 
@@ -31,6 +35,7 @@ PORTED = {
     "gemma2-2b": "gemma2_2b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "arctic-480b": "arctic_480b",
+    "graphcast": "graphcast",
     "din": "din",
     "dien": "dien",
     "wide-deep": "wide_deep",
@@ -38,12 +43,20 @@ PORTED = {
 
 
 def get_arch(arch_id: str) -> types.ModuleType:
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; available: {ARCH_IDS}")
     if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet (ported: "
-            f"{sorted(PORTED)}); it comes with the models slice (ROADMAP Queue A "
-            "item 6), its GNN part"
-        )
+        raise KeyError(f"unknown arch {arch_id!r}; available: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{PORTED[arch_id]}")
+
+
+def all_cells(include_skipped: bool = False):
+    """Yield (arch_id, shape_name, cell, skipped_reason or None) for the
+    assigned pool (40 cells, fopo-paper not among them), in the
+    reference's order. Like the reference's, every cell is yielded, the
+    skipped ones with their reason, whatever ``include_skipped`` says."""
+    del include_skipped  # the reference's signature; it filters nothing
+    for arch_id in ARCH_IDS:
+        if arch_id == "fopo-paper":
+            continue
+        mod = get_arch(arch_id)
+        for shape_name, cell in mod.SHAPES.items():
+            yield arch_id, shape_name, cell, mod.SKIPPED_SHAPES.get(shape_name)

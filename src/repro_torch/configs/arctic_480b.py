@@ -36,7 +36,7 @@ CONFIG = LMConfig(
 )
 
 SHAPES = dict(LM_SHAPES)
-SKIPPED_SHAPES = {"long_500k": "pure full-attention arch"}
+SKIPPED_SHAPES = {"long_500k": "pure full-attention arch (DESIGN.md §5)"}
 
 SMOKE_CONFIG = dataclasses.replace(
     CONFIG,

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.configs.shapes import RECSYS_SHAPES
 from repro_torch.models.configs_base import RecsysConfig
 
 FAMILY = "recsys"
@@ -23,6 +24,9 @@ CONFIG = RecsysConfig(
     gru_dim=108,
     mlp_dims=(200, 80),
 )
+
+SHAPES = dict(RECSYS_SHAPES)
+SKIPPED_SHAPES: dict[str, str] = {}
 
 SMOKE_CONFIG = dataclasses.replace(
     CONFIG, item_vocab=2000, seq_len=20, gru_dim=24, mlp_dims=(32, 16)

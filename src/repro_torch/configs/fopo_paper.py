@@ -39,6 +39,7 @@ SHAPES = {
         name="serve_argmax", kind="retrieval", global_batch=1024, n_candidates=750_000
     ),
 }
+SKIPPED_SHAPES: dict[str, str] = {}
 
 SMOKE_CONFIG = dataclasses.replace(
     CONFIG,

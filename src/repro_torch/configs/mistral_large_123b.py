@@ -33,7 +33,8 @@ CONFIG = LMConfig(
 
 SHAPES = dict(LM_SHAPES)
 SKIPPED_SHAPES = {
-    "long_500k": "pure full-attention arch; 500k dense KV cache reserved for sub-quadratic archs"
+    "long_500k": "pure full-attention arch; 500k dense KV cache reserved for "
+                 "sub-quadratic archs (DESIGN.md §5)"
 }
 
 SMOKE_CONFIG = dataclasses.replace(

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.configs.shapes import RECSYS_SHAPES
 from repro_torch.models.configs_base import RecsysConfig
 
 FAMILY = "recsys"
@@ -24,6 +25,9 @@ CONFIG = RecsysConfig(
     fopo_num_samples=1000,
     fopo_epsilon=0.8,
 )
+
+SHAPES = dict(RECSYS_SHAPES)
+SKIPPED_SHAPES: dict[str, str] = {}
 
 SMOKE_CONFIG = dataclasses.replace(
     CONFIG, item_vocab=2000, seq_len=16, fopo_top_k=32, fopo_num_samples=64

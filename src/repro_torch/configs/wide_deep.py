@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.configs.shapes import RECSYS_SHAPES
 from repro_torch.models.configs_base import RecsysConfig
 
 FAMILY = "recsys"
@@ -24,6 +25,9 @@ CONFIG = RecsysConfig(
     n_dense=13,
     field_vocab=1_000_000,
 )
+
+SHAPES = dict(RECSYS_SHAPES)
+SKIPPED_SHAPES: dict[str, str] = {}
 
 SMOKE_CONFIG = dataclasses.replace(
     CONFIG, field_vocab=500, item_vocab=2000, mlp_dims=(64, 32), n_sparse=8, n_dense=4

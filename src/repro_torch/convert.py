@@ -16,6 +16,7 @@ from repro_torch.models.lm import KVCache
 
 __all__ = [
     "adam_state_from_numpy",
+    "gnn_params_from_numpy",
     "ivf_index_from_numpy",
     "kv_cache_from_numpy",
     "linear_tower_params_from_numpy",
@@ -56,6 +57,14 @@ def recsys_params_from_numpy(tree: dict) -> dict:
     dicts) / `attn_w` / `mlp`, Wide&Deep's `embed` / `wide` /
     `dense_wide` / `deep`, SASRec's `items` / `pos` / `blocks`; an MLP is
     a list of {"w", "b"} layers."""
+    return _tree(tree)
+
+
+def gnn_params_from_numpy(tree: dict) -> dict:
+    """The reference's `gnn.init_params` tree (leaves as numpy arrays) as
+    the port's GNN parameters, the same layout: `encoder` and `decoder`
+    MLPs, and `edge_mlps` / `node_mlps` with every leaf stacked
+    [num_layers, ...]; an MLP is a list of {"w", "b"} layers."""
     return _tree(tree)
 
 

@@ -8,6 +8,10 @@ Three estimators, in decreasing per-step cost:
   * `covariance_surrogate` the paper's estimator: SNIS + covariance
                            gradient, O(S K), catalog-size-free
 
+and `covariance_gradient_dense_reference`, the O(P) gradient of
+`exact_objective` that the tests and the gradient-quality comparison
+hold the estimators to.
+
 Each returns a scalar surrogate loss whose gradient (autograd) equals
 minus the desired policy-gradient estimate. Coefficients inside the
 surrogates are detached: Algorithm 1 evaluates the weights, it does not
@@ -38,9 +42,11 @@ from repro_torch.kernels.snis_covgrad.ops import (
     snis_covgrad_bwd,
     snis_scores_fused,
 )
+from repro_torch.optim.optimizers import value_and_grad
 
 __all__ = [
     "FusedCovarianceLoss",
+    "covariance_gradient_dense_reference",
     "covariance_surrogate",
     "exact_objective",
     "fused_covariance_loss",
@@ -58,6 +64,24 @@ def exact_objective(
     """R_hat = mean_i sum_a pi(a|x_i) r(a, x_i); loss = -R_hat."""
     log_pi = policy.log_probs(params, x, beta)  # [B, P]
     return -torch.mean(torch.sum(torch.exp(log_pi) * rewards_dense, dim=-1))
+
+
+def covariance_gradient_dense_reference(
+    policy: SoftmaxPolicy,
+    params,
+    x: torch.Tensor,
+    beta: torch.Tensor,
+    rewards_dense: torch.Tensor,  # [B, P]
+):
+    """O(P) closed form of the policy gradient for tests: the gradient of
+    `exact_objective` (the loss -R_hat) with respect to ``params``, by
+    `torch.autograd.grad`, as the reference's `jax.grad` gives it. By the
+    covariance identity (Eq. 8) it is -Cov_pi[r, grad f], the negated
+    covariance gradient the surrogates' gradients estimate; a tree shaped
+    like ``params``."""
+    return value_and_grad(
+        lambda p: exact_objective(policy, p, x, beta, rewards_dense), params
+    )[1]
 
 
 def reinforce_surrogate(

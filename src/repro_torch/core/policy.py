@@ -17,6 +17,8 @@ __all__ = [
     "SoftmaxPolicy",
     "linear_tower_apply",
     "linear_tower_init",
+    "make_linear_policy",
+    "make_mlp_policy",
     "mlp_tower_apply",
     "mlp_tower_init",
 ]
@@ -109,6 +111,19 @@ class SoftmaxPolicy:
         s = self.scores(params, x, beta)  # [B, P]
         g = gumbel((num_samples,) + tuple(s.shape), generator, s.device)
         return torch.argmax(s[None] + g, dim=-1).T
+
+
+def make_linear_policy(dim_context: int, item_dim: int) -> SoftmaxPolicy:
+    """The paper's linear policy h_theta(x) = theta^T x. ``dim_context``
+    is the reference's argument and sizes nothing here: the tower's
+    parameters come from `linear_tower_init`."""
+    del dim_context
+    return SoftmaxPolicy(tower=linear_tower_apply, item_dim=item_dim)
+
+
+def make_mlp_policy(item_dim: int) -> SoftmaxPolicy:
+    """A policy over an MLP tower (`mlp_tower_init` / `mlp_tower_apply`)."""
+    return SoftmaxPolicy(tower=mlp_tower_apply, item_dim=item_dim)
 
 
 def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:

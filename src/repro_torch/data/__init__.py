@@ -1,5 +1,12 @@
-"""Data of the port: the synthetic session-completion generator and the
-checkpointable batch loader (numpy, host-side)."""
+"""Data of the port: the synthetic session-completion generator, the
+checkpointable batch loader and the GNN's neighbour sampler (numpy,
+host-side)."""
+from repro_torch.data.graph_sampling import (
+    CSRGraph,
+    SampledSubgraph,
+    random_graph,
+    sample_neighbors,
+)
 from repro_torch.data.loader import BatchLoader, LoaderState
 from repro_torch.data.synthetic import (
     SessionDataset,
@@ -12,11 +19,15 @@ from repro_torch.data.synthetic import (
 
 __all__ = [
     "BatchLoader",
+    "CSRGraph",
     "LoaderState",
+    "SampledSubgraph",
     "SessionDataset",
     "SyntheticConfig",
     "clustered_catalog",
     "generate_sessions",
     "goodreads_like",
+    "random_graph",
+    "sample_neighbors",
     "twitch_like",
 ]

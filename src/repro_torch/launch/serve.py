@@ -39,8 +39,8 @@ building its own index, behind least-loaded routing, health checks and
 bounded retry. ``--chaos`` scripts a replica death (replica 1 dies at its
 first dispatch and is marked dead at its first failure); the run must
 still answer every request by re-queuing onto the survivors, and exits
-non-zero if it does not. graphcast (the GNN, not ported yet) is refused
-with a message naming its slice (ROADMAP Queue A item 6, models).
+non-zero if it does not. graphcast (the GNN) has no serving path and is
+refused, as the reference refuses it.
 """
 from __future__ import annotations
 
@@ -131,10 +131,7 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit("--replicas must be >= 1")
     if args.chaos and args.replicas < 2:
         raise SystemExit("--chaos needs --replicas >= 2 (survivors must exist)")
-    try:
-        mod = get_arch(args.arch)
-    except NotImplementedError as exc:
-        raise SystemExit(str(exc)) from None
+    mod = get_arch(args.arch)
     if mod.FAMILY not in ("lm", "recsys"):
         raise SystemExit(f"{mod.SMOKE_CONFIG.name} ({mod.FAMILY}) has no serving path")
     device = resolve_device(args.device)

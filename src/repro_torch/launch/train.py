@@ -15,13 +15,20 @@
   `adam(1e-3)`, batches of 64 drawn from ``np.random.default_rng(0)``,
   sasrec on the FOPO objective (step i draws from seed i), the others on
   BCE, one ``step i: loss=... [objective]`` line per step.
+* graphcast (the GNN) runs the reference's `_train_gnn` recipe:
+  SMOKE_CONFIG (random weights from seed 0) over ``random_graph(512,
+  avg_degree=8, seed=0)`` (src = the CSR's indices mod 512, dst = each
+  CSR row repeated), 16 input features and the targets drawn from
+  ``np.random.default_rng(0)``, `adam(1e-3)`, every node in the loss,
+  one ``step i: loss=...`` line per step; `chip_smoke.py` trains
+  GraphCast at full width.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch fopo-paper --steps 200
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b --steps 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec --steps 5 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch graphcast --steps 3 --device cpu
 
-The run needs CUDA unless ``--device cpu`` is given. graphcast (the GNN)
-is refused, naming the slice that brings its training.
+The run needs CUDA unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -54,6 +61,28 @@ def _train_lm(mod, steps: int, device: torch.device) -> None:
         params, st, loss = step(params, st, toks[:, :-1], toks[:, 1:])
         loss = float(loss)  # waits for the step
         print(f"step {i}: loss={loss:.4f} ({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+
+
+def _train_gnn(mod, steps: int, device: torch.device) -> None:
+    from repro_torch.data import random_graph
+    from repro_torch.models import gnn
+
+    cfg = mod.SMOKE_CONFIG
+    g = random_graph(512, avg_degree=8, seed=0)
+    d_feat = 16
+    params = gnn.init_params(cfg, torch.Generator(device=device).manual_seed(0), d_feat=d_feat)
+    opt = adam(1e-3)
+    step = gnn.make_train_step(cfg, opt)
+    st = opt.init(params)
+    rng = np.random.default_rng(0)
+    feats = torch.from_numpy(rng.normal(size=(512, d_feat)).astype(np.float32)).to(device)
+    targets = torch.from_numpy(rng.normal(size=(512, cfg.n_vars)).astype(np.float32)).to(device)
+    src = torch.from_numpy((g.indices % 512).astype(np.int32)).to(device)
+    dst = torch.from_numpy(np.repeat(np.arange(512), np.diff(g.indptr)).astype(np.int32)).to(device)
+    mask = torch.ones((512,), device=device)
+    for i in range(steps):
+        params, st, loss = step(params, st, feats, src, dst, targets, mask)
+        print(f"step {i}: loss={float(loss):.4f}")
 
 
 def recsys_batch(cfg, rng: np.random.Generator, objective: str, b: int = 64) -> dict:
@@ -102,11 +131,6 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.arch == "graphcast":
-        raise SystemExit(
-            "training --arch graphcast is not ported to repro_torch yet; it comes "
-            "with the models slice (ROADMAP Queue A item 6: the GNN)"
-        )
     mod = get_arch(args.arch)
     device = resolve_device(args.device)
     print(f"arch={args.arch} family={mod.FAMILY} (smoke scale on {device})")
@@ -115,6 +139,9 @@ def main(argv: list[str] | None = None) -> None:
         return
     if mod.FAMILY == "recsys":
         _train_recsys(mod, args.steps, device)
+        return
+    if mod.FAMILY == "gnn":
+        _train_gnn(mod, args.steps, device)
         return
     cfg = mod.SMOKE_CONFIG
     data = generate_sessions(

@@ -1,5 +1,5 @@
-"""Config dataclasses of the ported architectures (the LM family and
-recsys) and the dry-run shape cell the configs list."""
+"""Config dataclasses of the ported architectures (the LM family, recsys
+and the GNN) and the dry-run shape cell the configs list."""
 from __future__ import annotations
 
 import dataclasses
@@ -82,6 +82,20 @@ class LMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    num_layers: int = 16
+    d_hidden: int = 512
+    aggregator: str = "sum"
+    n_vars: int = 227  # output variables per node (GraphCast)
+    mesh_refinement: int = 6  # recorded; input graphs are provided per cell
+    d_feat: int = 128  # input node feature dim (overridden per shape cell)
+    dtype: str = "float32"
+    remat: bool = True
+    scan_layers: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     name: str
     kind: Literal["din", "dien", "sasrec", "wide_deep"] = "din"
@@ -105,11 +119,18 @@ class RecsysConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
-    """One (architecture x input-shape) cell: the reference's fields that
-    the ported configs set (the graph fields come with the GNN slice)."""
+    """One (architecture x input-shape) dry-run cell, the reference's
+    fields."""
 
     name: str
-    kind: str  # train | prefill | decode | retrieval (the reference also has serve, graph)
+    kind: str  # train | prefill | decode | serve | retrieval | graph
     seq_len: int = 0
     global_batch: int = 0
+    # gnn fields
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: tuple[int, ...] = ()
+    # recsys fields
     n_candidates: int = 0

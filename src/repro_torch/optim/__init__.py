@@ -1,4 +1,11 @@
-"""Optimizers of the port (the reference's `repro.optim.optimizers`)."""
+"""Optimizers of the port (the reference's `repro.optim.optimizers`) and
+int8 gradient compression (`repro.optim.compression`)."""
+from repro_torch.optim.compression import (
+    compressed_all_reduce,
+    dequantize_int8,
+    error_feedback_compress,
+    quantize_int8,
+)
 from repro_torch.optim.optimizers import (
     Optimizer,
     adam,
@@ -14,7 +21,11 @@ __all__ = [
     "adam",
     "adamw",
     "clip_by_global_norm",
+    "compressed_all_reduce",
     "constant_schedule",
     "cosine_schedule",
+    "dequantize_int8",
+    "error_feedback_compress",
+    "quantize_int8",
     "sgd",
 ]

@@ -23,6 +23,7 @@ from repro.core import rewards as jrew  # noqa: E402
 from repro.core import snis as jsnis  # noqa: E402
 from repro_torch.constants import LOG_Q_PAD  # noqa: E402
 from repro_torch.core import gradients, policy, proposals, rewards, snis  # noqa: E402
+from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -291,3 +292,50 @@ def test_fused_and_unfused_paths_agree():
     torch.testing.assert_close(out[True][1], out[False][1], **TOL)
     for k in snis.DIAGNOSTIC_KEYS:
         torch.testing.assert_close(out[True][2][k], out[False][2][k], **TOL)
+
+
+def test_policy_helpers_match_reference():
+    """`make_linear_policy` / `make_mlp_policy` build the reference's
+    policies: the same towers, the same item_dim, the same scores on the
+    reference's weights."""
+    x, w, beta, _, _, _ = _sampled(seed=15)
+    lin_t, lin_j = policy.make_linear_policy(12, 12), jpol.make_linear_policy(12, 12)
+    assert lin_t.tower is policy.linear_tower_apply and lin_t.item_dim == lin_j.item_dim == 12
+    _close(lin_t.log_probs({"w": _t(w)}, _t(x), _t(beta)),
+           lin_j.log_probs({"w": jnp.asarray(w)}, jnp.asarray(x), jnp.asarray(beta)))
+    jm = jpol.mlp_tower_init(jax.random.PRNGKey(3), (12, 16, 12))
+    tm = {"layers": [{k: _t(v) for k, v in lay.items()} for lay in jm["layers"]]}
+    mlp_t, mlp_j = policy.make_mlp_policy(12), jpol.make_mlp_policy(12)
+    assert mlp_t.tower is policy.mlp_tower_apply and mlp_t.item_dim == mlp_j.item_dim == 12
+    _close(mlp_t.scores(tm, _t(x), _t(beta)), mlp_j.scores(jm, jnp.asarray(x), jnp.asarray(beta)))
+
+
+@pytest.mark.parametrize("tower", ["linear", "mlp"])
+def test_covariance_gradient_dense_reference_matches_reference(tower):
+    """The O(P) dense gradient against the reference's and against the
+    gradient of `exact_objective` taken directly (the covariance
+    identity, Eq. 8, as `tests/test_gradients.py` checks it); a tree
+    shaped like the parameters, which it leaves untouched."""
+    x, w, beta, _, _, _ = _sampled(seed=16)
+    dense = (np.random.default_rng(16).random((5, 200)) < 0.05).astype(np.float32)
+    if tower == "linear":
+        jparams, tparams = {"w": jnp.asarray(w)}, {"w": _t(w)}
+        jp, tp = jpol.make_linear_policy(12, 12), policy.make_linear_policy(12, 12)
+    else:
+        jparams = jpol.mlp_tower_init(jax.random.PRNGKey(4), (12, 16, 12))
+        tparams = {"layers": [{k: _t(v) for k, v in lay.items()} for lay in jparams["layers"]]}
+        jp, tp = jpol.make_mlp_policy(12), policy.make_mlp_policy(12)
+    args = (_t(x), _t(beta), _t(dense))
+    got = gradients.covariance_gradient_dense_reference(tp, tparams, *args)
+    want = jgrad.covariance_gradient_dense_reference(
+        jp, jparams, jnp.asarray(x), jnp.asarray(beta), jnp.asarray(dense))
+    assert len(tree_leaves(got)) == len(jax.tree.leaves(want))
+    tree_map(_close, got, jax.tree.map(np.asarray, want))  # leaf by leaf, by name
+    # the same as autograd through exact_objective itself
+    live = [t.clone().requires_grad_(True) for t in tree_leaves(tparams)]
+    it = iter(live)
+    direct = torch.autograd.grad(
+        gradients.exact_objective(tp, tree_map(lambda _: next(it), tparams), *args), live)
+    for g, d in zip(tree_leaves(got), direct):
+        torch.testing.assert_close(g, d, rtol=0, atol=0)
+    assert all(not t.requires_grad for t in tree_leaves(tparams))

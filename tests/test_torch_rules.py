@@ -333,14 +333,14 @@ def test_recsys_entry_points_refuse_cuda_without_cuda(monkeypatch, arch):
 
 
 @pytest.mark.parametrize("arch", ["sasrec", "olmoe-1b-7b", "arctic-480b", "granite-8b",
-                                  "mistral-large-123b"])
+                                  "mistral-large-123b", "graphcast"])
 def test_models_slice_entry_points_refuse_cuda_without_cuda(monkeypatch, arch):
     """The arches the models slice brings to training (and the LM ones to
     serving) ask for CUDA by default and raise where there is none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(["--arch", arch, "--steps", "1"])
-    if arch != "sasrec":
+    if arch not in ("sasrec", "graphcast"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve_cli.main(["--arch", arch, "--requests", "1"])
 
@@ -375,7 +375,10 @@ assert not bad, bad
      "repro_torch.core", "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.arctic_480b",
      "repro_torch.configs.granite_8b", "repro_torch.configs.mistral_large_123b",
      "repro_torch.launch.train"),
-], ids=["embeddings", "embedding_bag", "recsys", "health", "obs_cluster", "dist", "models"])
+    ("repro_torch.models.gnn", "repro_torch.data.graph_sampling", "repro_torch.optim.compression",
+     "repro_torch.launch.costs", "repro_torch.configs.graphcast"),
+], ids=["embeddings", "embedding_bag", "recsys", "health", "obs_cluster", "dist", "models",
+        "models_gnn"])
 def test_embedding_slice_modules_import_no_jax(modules):
     """This slice's modules, each set alone in a fresh interpreter."""
     res = subprocess.run(
@@ -385,14 +388,20 @@ def test_embedding_slice_modules_import_no_jax(modules):
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def test_unported_arch_names_the_models_item():
-    """An arch that is not ported names its slice and its ROADMAP item
-    (Queue A item 6, models); graphcast, the GNN, is the one left, and
-    its training is refused naming the GNN."""
-    with pytest.raises(NotImplementedError, match=r"models slice \(ROADMAP Queue A item 6\)"):
-        get_arch("graphcast")
-    with pytest.raises(SystemExit, match=r"models slice \(ROADMAP Queue A item 6: the GNN\)"):
-        train_cli.main(["--arch", "graphcast", "--steps", "1", "--device", "cpu"])
+def test_unported_arch_names_the_models_item(capsys):
+    """Every arch is ported since the models slice (ROADMAP Queue A item
+    6) finished with the GNN: graphcast resolves, trains on the CPU
+    through the train CLI, and the serve CLI refuses it as the reference
+    does ("has no serving path"); an unknown id is still a KeyError."""
+    mod = get_arch("graphcast")
+    assert mod.FAMILY == "gnn" and mod.CONFIG.num_layers == 16
+    train_cli.main(["--arch", "graphcast", "--steps", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert re.findall(r"^step (\d): loss=[0-9.]+$", out, re.M) == ["0", "1"]
+    with pytest.raises(SystemExit, match=r"^graphcast \(gnn\) has no serving path$"):
+        serve_cli.main(["--arch", "graphcast", "--device", "cpu"])
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("graphcast-2")
 
 
 def test_serve_cli_cluster_chaos_with_obs_dir_answers_every_request(tmp_path, capsys):
