@@ -316,7 +316,21 @@ more each:
                   the streaming top-K), held to the CPU on the card's draws.
                   Phases 8 and 9 also check and time K9 and K10 at OLMoE's
                   shapes (head_dim 128, a GQA group of 1, no cap, no window)
- 12. a JSON line of the kernels, then the card's name and power limit,
+ 12. the dry run (`repro_torch.launch.dryrun`) against the card: four
+     cell programs as DTensors on a 1 x 1 mesh over a real NCCL group of
+     one rank (GraphCast molecule, SASRec serve_p99, Gemma-2 2B
+     prefill_32k --opt at global batch 1, K9 at S 32768, and train_4k
+     --opt at global batch 1, K9 and K10, its layers cut to what the dry
+     run says fits beside the plain run's outputs), each run on the card
+     under the op walker and dry-run at the same mesh and shapes: the
+     walker's FLOPs equal the dry run's, the dry run's peak lies within
+     5 % + 64 MiB of max_memory_allocated, the outputs equal the plain
+     step's (bitwise or within `outputs_gate`), K9 / K10 launched once a
+     layer; step time against the roofline bound logged. Then three
+     production cells dry-run on the 256-rank pod mesh (Gemma-2 train_4k
+     baseline and --opt, SASRec train_batch), and K9's host cost a call
+     through its registered operator against its ctypes wrapper
+ 13. a JSON line of the kernels, then the card's name and power limit,
      then the last line {"ok": true, "device": {...}}
 
 Any failed check raises, and the script exits non-zero without the last
@@ -372,6 +386,11 @@ LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_MICRO, LM_TRAIN_STEPS, LM_GATE_LAYERS = 4, 2048
 OLMOE_TRAIN_LAYERS, OLMOE_TRAIN_STEPS = 4, 4
 # the training gate, kernel vs plain attention: (loss relative, gradient leaf relative L2)
 GATE_BF16, GATE_FP32 = (1e-2, 5e-2), (1e-5, 1e-4)
+# the dry run held to the card (phase 12): its peak within DRY_MEM_REL of the
+# card's max_memory_allocated plus DRY_MEM_ABS bytes (cuBLAS workspaces, the
+# allocator's rounding); the Gemma-2 training cell's layers chosen so that the
+# dry run's peak plus its outputs fit DRY_TRAIN_FIT bytes
+DRY_MEM_REL, DRY_MEM_ABS, DRY_TRAIN_FIT = 0.05, 64 << 20, 64e9
 
 
 def log(msg: str) -> None:
@@ -3065,17 +3084,6 @@ def gnn_train_phase() -> dict:
 # flash attention (K9): kernel vs plain version
 # ---------------------------------------------------------------------------
 
-def live_pairs(sq: int, skv: int, causal: bool, window, q_offset: int) -> int:
-    """Unmasked (query, key) pairs of one head: what the kernel must
-    compute (the masked ones it skips or discards)."""
-    import numpy as np
-
-    qpos = q_offset + np.arange(sq)
-    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
-    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq, dtype=np.int64)
-    return int(np.maximum(0, hi - lo + 1).sum())
-
-
 def tensor_core_ms(flops: float, passes: int, rate: float) -> float:
     """The least time of one product that the kernels run on the tensor
     cores in ``passes`` passes at ``rate``, or of the same product as fp32
@@ -3090,8 +3098,9 @@ def flash_bound(b, sq, skv, h, kv, d, itemsize, causal, window, q_offset) -> tup
     on the tensor cores: bf16 inputs q k^T in one pass (exact) and p v in
     three (p in three bf16 terms) at 989 TFLOP/s; fp32 inputs three tf32
     passes each (3xTF32) at 495. The two products' times add."""
-    nbytes = (2 * b * sq * h * d + 2 * b * skv * kv * d) * itemsize + b * h * sq * 4
-    flops = b * h * live_pairs(sq, skv, causal, window, q_offset) * 2 * d
+    from repro_torch.kernels.flash_attention.kernel import attention_work
+
+    flops, _, nbytes = attention_work(b, sq, skv, h, kv, d, itemsize, causal, window, q_offset)
     if itemsize == 2:
         t_o = tensor_core_ms(flops, 1, BF16_FLOPS) + tensor_core_ms(flops, 3, BF16_FLOPS)
         note = (f"q k^T {flops / 1e9:.2f} GFLOP x 1 + p v {flops / 1e9:.2f} GFLOP x 3 "
@@ -3298,8 +3307,10 @@ def flash_bwd_bound(b, sq, skv, h, kv, d, itemsize, causal, window, q_offset) ->
     inputs s and dp in one pass (exact), dv, dq and dk in two (p and ds in
     two bf16 terms) at 989 TFLOP/s; fp32 inputs three tf32 passes each at
     495. The five products' times add."""
-    nbytes = (3 * b * sq * h * d + 4 * b * skv * kv * d) * itemsize + 2 * b * h * sq * 4
-    flops = b * h * live_pairs(sq, skv, causal, window, q_offset) * 2 * d
+    from repro_torch.kernels.flash_attention.kernel import attention_work
+
+    flops, _, nbytes = attention_work(b, sq, skv, h, kv, d, itemsize, causal, window, q_offset,
+                                      backward=True)
     if itemsize == 2:
         t_o = 2 * tensor_core_ms(flops, 1, BF16_FLOPS) + 3 * tensor_core_ms(flops, 2, BF16_FLOPS)
         note = (f"5 products of {flops / 1e9:.2f} GFLOP: s, dp x 1 and dv, dq, dk x 2 passes "
@@ -5023,6 +5034,351 @@ def dist_phase(ds, theta0) -> dict:
     return dict(counts=counts, secs=secs)
 
 
+# ---------------------------------------------------------------------------
+# 12. the dry run against the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def cell_cut(arch: str, shape: str, cell_kw=None, cfg_kw=None):
+    """The arch's ``shape`` cell and its config with fields replaced while
+    the block runs (`launch.specs` reads both from the config module)."""
+    from repro_torch.configs import get_arch
+
+    mod = get_arch(arch)
+    shapes, cfg = mod.SHAPES, mod.CONFIG
+    mod.SHAPES = {**shapes, shape: dataclasses.replace(shapes[shape], **(cell_kw or {}))}
+    mod.CONFIG = dataclasses.replace(cfg, **(cfg_kw or {}))
+    try:
+        yield
+    finally:
+        mod.SHAPES, mod.CONFIG = shapes, cfg
+
+
+def real_args(prog, dev, seed: int) -> tuple:
+    """Real tensors on ``dev`` for a cell program's abstract arguments:
+    matrices N(0, 1 / fan_in) and vectors 0 for the parameters, the
+    optimizer's state 0, valid token / item ids, normal features, a
+    GNN's last 5 % of edges padded with -1 and its loss mask 1."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import tree_map_with_path
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    family = get_arch(prog.arch_id).FAMILY
+
+    def zeros(x):
+        return torch.zeros(x.shape, dtype=x.dtype, device=dev) if torch.is_tensor(x) else x
+
+    def param(_, x):
+        if x.dim() < 2:
+            return zeros(x)
+        w = torch.randn(x.shape, generator=gen, device=dev) / math.sqrt(x.shape[-2])
+        return w.to(x.dtype)
+
+    def ids(x, hi: int, lo: int = 0):
+        return torch.randint(lo, hi, x.shape, generator=gen, device=dev, dtype=x.dtype)
+
+    params = tree_map_with_path(param, prog.args[0])
+    rest = list(prog.args[1:])
+    out = [params]
+    if prog.donate_argnums == (0, 1):  # a train step: the optimizer's state
+        out.append(tree_map_with_path(lambda _, x: zeros(x), rest.pop(0)))
+    if family == "lm":
+        vocab = params["embed"].shape[0]
+        out += [ids(x, vocab) if torch.is_tensor(x) and x.dim() == 2 else
+                tree_map_with_path(lambda _, y: zeros(y), x) for x in rest]
+    elif family == "gnn":
+        feats, src, dst, targets, mask = rest
+        n = feats.shape[0]
+        edges = [ids(src, n), ids(dst, n)]
+        for e in edges:
+            e[-(e.shape[0] // 20):] = -1
+        out += [torch.randn(feats.shape, generator=gen, device=dev), *edges,
+                torch.randn(targets.shape, generator=gen, device=dev),
+                torch.ones(mask.shape, device=dev)]
+    else:
+        items = params["items"].shape[0]
+        out += [{k: ids(x, items) if not x.dtype.is_floating_point else
+                 torch.randn(x.shape, generator=gen, device=dev) for k, x in batch.items()}
+                for batch in rest]
+    return tuple(out)
+
+
+def local_leaves(tree) -> list:
+    """The tensors of an output tree, a DTensor as its local tensor."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._pytree import tree_leaves
+
+    return [t.to_local() if isinstance(t, DTensor) else t
+            for t in tree_leaves(tree) if torch.is_tensor(t)]
+
+
+def diff_and_scale(x, y, chunk: int = 1 << 24) -> tuple[float, float]:
+    """(max |x - y|, max |y|) in fp64, a chunk at a time: the outputs of
+    two training steps are on the card already."""
+    xf, yf = x.reshape(-1), y.reshape(-1)
+    d = scale = 0.0
+    for i in range(0, xf.numel(), chunk):
+        a, b = xf[i:i + chunk].double(), yf[i:i + chunk].double()
+        d = max(d, (a - b).abs().max().item())
+        scale = max(scale, b.abs().max().item())
+    return d, scale
+
+
+def outputs_gate(got, want, tag: str, lr: float | None, low_precision: bool = False) -> dict:
+    """The DTensor run's outputs against the plain run's, leaf by leaf:
+    bitwise equal, or within fp32 rtol 1e-5 of the leaf's largest
+    magnitude (+ 1e-6), bf16 one ulp of it; a train step's parameters
+    within 2 lr (Adam's first step moves an entry by about lr whatever
+    its gradient, so a gradient that differs in its last bits, from
+    atomic adds or a GQA group summed in another order, moves it by up to
+    2 lr; 2^-7 more where g * g is rounded to bf16) and its moments
+    within 1e-2 of the leaf's largest, 2^-5 with ``low_precision`` (bf16
+    parameters in, whose gradients are sums of bf16 terms, rounded in
+    another order by the atomic adds and by the KV repeat's backward,
+    which sums a GQA group in bf16 where K10 sums it in fp32). Returns the
+    largest difference,
+    how many leaves were bitwise equal and the leaves past their
+    tolerance."""
+    import torch
+
+    a, b = local_leaves(got), local_leaves(want)
+    check(len(a) == len(b), f"[dryrun] {tag}: {len(a)} outputs against {len(b)}")
+    worst, same, bad = 0.0, 0, []
+    n_params = len(a) // 3 if lr is not None else 0  # (params, {step, m, v}, loss)
+    for i, (x, y) in enumerate(zip(a, b)):
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f"[dryrun] {tag}: output {i} {tuple(x.shape)} {x.dtype} against "
+              f"{tuple(y.shape)} {y.dtype}")
+        if torch.equal(x, y):
+            same += 1
+            continue
+        d, scale = diff_and_scale(x, y)
+        if lr is not None and i < n_params:
+            tol = 2 * lr * (1 + 2.0**-7)  # |u| = |g| / sqrt(v): v from bf16(g * g) in bf16
+        elif lr is not None and i < len(a) - 1:
+            tol = (2.0**-5 if low_precision else 1e-2) * scale
+        elif y.dtype == torch.bfloat16:
+            tol = BF16_RTOL * scale
+        else:
+            tol = RTOL * scale + ATOL
+        if d > tol:
+            bad.append(f"output {i} {tuple(y.shape)} differs by {d:.3e} (tolerance {tol:.3e})")
+        worst = max(worst, d)
+    return {"max_abs_diff": worst, "bitwise_leaves": same, "leaves": len(a), "failed": bad}
+
+
+def held_cell(mesh, dev, tag: str, arch: str, shape: str, opt: bool, lr=None,
+              seed: int = 0) -> dict:
+    """One cell on the card's 1 x 1 mesh (phase 12a): the DTensor step run
+    for real under the op walker (max_memory_allocated, the kernels'
+    launches), the dry run of the same program (FLOPs equal, peak within
+    DRY_MEM_REL + DRY_MEM_ABS), one untimed-walker step for its time, and
+    the plain step on the same tensors (outputs within `outputs_gate`)."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels.flash_attention import kernel as flk
+    from repro_torch.launch import dryrun, jaxpr_cost, specs
+
+    t_cell = time.perf_counter()
+    prog = specs.build_program(arch, shape, opt=opt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    args = real_args(prog, dev, seed)
+    dargs = specs.distribute(mesh, args, prog.in_specs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flk.flash_attention_fwd_cuda.launches = flk.flash_attention_bwd_cuda.launches = 0
+    r = jaxpr_cost.analyze(prog.fn, *dargs)
+    torch.cuda.synchronize()
+    launches = {"flash_attention_fwd_cuda.launches": flk.flash_attention_fwd_cuda.launches,
+                "flash_attention_bwd_cuda.launches": flk.flash_attention_bwd_cuda.launches}
+    card_peak = torch.cuda.max_memory_allocated() - m0
+    out_d = r.pop("out")
+    if shape.startswith("prefill"):  # the cache is written in place: keep the DTensor run's
+        out_d = (out_d[0], [t.to_local().clone() for t in (out_d[1].k, out_d[1].v)])
+    row = dryrun.run_cell(arch, shape, multi_pod=False, opt=opt, mesh=mesh)
+    pred = row["memory"]["peak_bytes"]
+    # the step's time without the walker (one eager call, host work included;
+    # the plain tensors the step makes replicated over the mesh, as `analyze` does)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with implicit_replication():
+        out_t = prog.fn(*dargs)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    del out_t, dargs
+    torch.cuda.empty_cache()
+    # the plain step on the same tensors
+    out_p = prog.fn(*args)
+    if shape.startswith("prefill"):
+        out_p = (out_p[0], [out_p[1].k, out_p[1].v])
+    bf16_in = any(t.dtype == torch.bfloat16 for t in local_leaves(args[0]))
+    gate = outputs_gate(out_d, out_p, tag, lr, low_precision=bf16_in)
+    del out_p, out_d, args
+    torch.cuda.empty_cache()
+    rf = row["roofline"]
+    res = {"flops": r["flops"], "bytes": r["bytes"], "predicted_peak_bytes": pred,
+           "card_peak_bytes": card_peak, "step_s": step_s,
+           "bound_s": rf["step_time_lower_bound_s"], "dominant": rf["dominant"],
+           "useful_flops_ratio": row["useful_flops_ratio"], "kernel_ops": r["kernel_ops"],
+           "launches": launches, "traced_at": row["traced_at"], **gate,
+           "seconds": time.perf_counter() - t_cell}
+    log(f"[dryrun] {tag}: FLOPs {r['flops']:.6e} (dry run = walker over the card's step), "
+        f"bytes {r['bytes']:.6e}; peak predicted {pred / 1e9:.3f} GB, card "
+        f"{card_peak / 1e9:.3f} GB ({(pred - card_peak) / card_peak * 100:+.2f} %); step "
+        f"{step_s * 1e3:.2f} ms against a bound of {rf['step_time_lower_bound_s'] * 1e3:.4f} ms "
+        f"({rf['dominant']}), useful FLOPs {row['useful_flops_ratio']:.4f}; kernel ops "
+        f"{r['kernel_ops']}, launches {launches}; outputs against the plain step: "
+        f"{gate['bitwise_leaves']}/{gate['leaves']} bitwise, max |diff| "
+        f"{gate['max_abs_diff']:.3e} ({res['seconds']:.1f} s)")
+    check(row["hlo_flops"] == r["flops"],
+          f"[dryrun] {tag}: the dry run counts {row['hlo_flops']} FLOPs, the walker over the "
+          f"card's step {r['flops']}")
+    check(abs(pred - card_peak) <= DRY_MEM_REL * card_peak + DRY_MEM_ABS,
+          f"[dryrun] {tag}: predicted peak {pred / 1e9:.3f} GB, the card's "
+          f"{card_peak / 1e9:.3f} GB")
+    check(not gate["failed"], f"[dryrun] {tag}: {'; '.join(gate['failed'][:5])}")
+    return res
+
+
+def train_layers_that_fit(mesh, arch: str, shape: str, full: int) -> tuple[int, dict]:
+    """The most layers (even: Gemma-2 alternates local and global layers)
+    at which the dry run's peak of the training cell plus its outputs
+    (kept beside the plain run's) fit within DRY_TRAIN_FIT bytes, from the
+    dry run at 2 layers and at the full depth (its need is affine in the
+    layers)."""
+    from repro_torch.launch import dryrun
+
+    def need(layers):
+        with cell_cut(arch, shape, cfg_kw=dict(num_layers=layers)):
+            row = dryrun.run_cell(arch, shape, multi_pod=False, opt=True, mesh=mesh)
+        m = row["memory"]
+        return m["peak_bytes"] + m["output_bytes"] - m["alias_bytes"]
+
+    lo, hi = need(2), need(full)
+    per = (hi - lo) / (full - 2)
+    layers = full if hi <= DRY_TRAIN_FIT else 2 + 2 * int((DRY_TRAIN_FIT - lo) / per // 2)
+    return max(2, min(full, layers)), {"need_2": lo, f"need_{full}": hi}
+
+
+def flash_host_us(dev) -> dict:
+    """Host µs a call of K9 through the registered operator
+    (`ops.flash_attention_fwd`) against its ctypes wrapper alone
+    (`kernel.flash_attention_fwd_cuda`), launched back to back at a small
+    shape (B 1, S 128, H 8, KV 4, D 64, bf16) so the host is the limit."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as flk
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((1, 128, 8, 64), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((1, 128, 4, 64), generator=g, device=dev).to(torch.bfloat16)
+    out = {}
+    for name, fn in (("registered_op", lambda: fops.flash_attention_fwd(q, k, k)),
+                     ("ctypes_wrapper", lambda: flk.flash_attention_fwd_cuda(q, k, k))):
+        best = float("inf")
+        for _ in range(3):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+        out[name] = best
+    return out
+
+
+def dryrun_phase() -> dict:
+    """Phase 12: (a) four cell programs on a real NCCL group of one rank
+    (DTensor on a 1 x 1 mesh), each run on the card and dry-run at the
+    same mesh and shapes, held to each other (`held_cell`); (b) three
+    production cells dry-run on the 256-rank pod mesh on the card's host."""
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # noqa: F401
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    dev = torch.device("cuda")
+    out = {"host_us": flash_host_us(dev)}
+    h = out["host_us"]
+    log(f"[dryrun] K9's host cost a call: {h['registered_op']:.2f} us through the registered "
+        f"operator, {h['ctypes_wrapper']:.2f} us through its ctypes wrapper alone "
+        f"({h['registered_op'] - h['ctypes_wrapper']:+.2f} us)")
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                             world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        cells = {}
+        cells["graphcast molecule"] = held_cell(mesh, dev, "graphcast molecule", "graphcast",
+                                                "molecule", False, lr=1e-4)
+        cells["sasrec serve_p99"] = held_cell(mesh, dev, "sasrec serve_p99", "sasrec",
+                                              "serve_p99", False)
+        with cell_cut("gemma2-2b", "prefill_32k", cell_kw=dict(global_batch=1)):
+            cells["gemma2-2b prefill_32k opt B 1"] = held_cell(
+                mesh, dev, "gemma2-2b prefill_32k --opt, global batch 1", "gemma2-2b",
+                "prefill_32k", True)
+        full = get_arch("gemma2-2b").CONFIG.num_layers
+        with cell_cut("gemma2-2b", "train_4k", cell_kw=dict(global_batch=1)):
+            layers, need = train_layers_that_fit(mesh, "gemma2-2b", "train_4k", full)
+            log(f"[dryrun] gemma2-2b train_4k --opt, global batch 1: {layers} of {full} layers "
+                f"(the dry run's peak plus outputs {need['need_2'] / 1e9:.2f} GB at 2 layers, "
+                f"{need[f'need_{full}'] / 1e9:.2f} GB at {full}; limit "
+                f"{DRY_TRAIN_FIT / 1e9:.0f} GB, both runs' outputs held at once)")
+            with cell_cut("gemma2-2b", "train_4k", cfg_kw=dict(num_layers=layers)):
+                cells["gemma2-2b train_4k opt B 1"] = held_cell(
+                    mesh, dev, f"gemma2-2b train_4k --opt, global batch 1, {layers} layers",
+                    "gemma2-2b", "train_4k", True, lr=1e-4)
+        cells["gemma2-2b train_4k opt B 1"].update(layers=layers, **need)
+    finally:
+        tdist.destroy_process_group()
+    pre, tr = cells["gemma2-2b prefill_32k opt B 1"], cells["gemma2-2b train_4k opt B 1"]
+    n_pre = get_arch("gemma2-2b").CONFIG.num_layers
+    check(pre["launches"]["flash_attention_fwd_cuda.launches"] == n_pre,
+          f"[dryrun] the prefill launched K9 {pre['launches']} times ({n_pre} layers)")
+    check(tr["launches"] == {"flash_attention_fwd_cuda.launches": tr["layers"],
+                             "flash_attention_bwd_cuda.launches": tr["layers"]},
+          f"[dryrun] the training step launched {tr['launches']} ({tr['layers']} layers)")
+    check(pre["kernel_ops"] == {"flash_attention_fwd": n_pre}
+          and tr["kernel_ops"] == {"flash_attention_fwd": tr["layers"],
+                                   "flash_attention_bwd": tr["layers"]},
+          "[dryrun] the walker did not cost K9 / K10 once a layer")
+    out["cells"] = cells
+    # 12b. production cells on the pod mesh
+    prod = {}
+    for arch, shape, opt in (("gemma2-2b", "train_4k", False), ("gemma2-2b", "train_4k", True),
+                             ("sasrec", "train_batch", False)):
+        row = dryrun.run_cell(arch, shape, multi_pod=False, opt=opt)
+        check(row["ok"] and not tdist.is_initialized(), f"[dryrun] {arch} {shape} opt={opt}")
+        rf, m = row["roofline"], row["memory"]
+        tag = f"{arch} {shape} {'opt' if opt else 'baseline'}"
+        prod[tag] = {"trace_s": row["trace_s"], "peak_bytes": m["peak_bytes"],
+                     "bound_s": rf["step_time_lower_bound_s"], "dominant": rf["dominant"],
+                     "kernel_ops": row["kernel_ops"]}
+        log(f"[dryrun] {tag} on the pod mesh (256 ranks): ok, traced in {row['trace_s']} s at "
+            f"{row['traced_at']}; per-device peak {m['peak_bytes'] / 1e9:.2f} GB; bound "
+            f"{rf['step_time_lower_bound_s'] * 1e3:.3f} ms ({rf['dominant']}); kernel ops "
+            f"{row['kernel_ops']}")
+    check(prod["gemma2-2b train_4k opt"]["kernel_ops"].get("flash_attention_bwd", 0) > 0,
+          "[dryrun] the opt training cell costed no K10")
+    out["production"] = prod
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[dryrun] phase 12 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def percentile(values: list[float], p: float) -> float:
     vs = sorted(values)
     return vs[min(len(vs) - 1, max(0, round(p / 100.0 * (len(vs) - 1))))]
@@ -5243,7 +5599,12 @@ def main() -> int:
     # 11b. OLMoE-1B-7B: generation at full width, training at 4 layers, the FOPO LM head
     olm = olmoe_phase()
 
-    # 12. the kernels line, the card, the result
+    # 12. the dry run: four cells on the card's 1 x 1 mesh held to their dry
+    # run, three production cells dry-run on the pod mesh
+    dry = dryrun_phase()
+    dry_k = [c["launches"] for c in dry["cells"].values()]
+
+    # 13. the kernels line, the card, the result
     t = kres["timing"]["main K=10"]
     entries = [{
         "name": "ivf_topk",
@@ -5334,7 +5695,8 @@ def main() -> int:
         "launches": (lres["counts"]["flash_attention_fwd_cuda.launches"]
                      + tlm["counts"]["flash_attention_fwd_cuda.launches"]
                      + olm["gen"]["counts"]["flash_attention_fwd_cuda.launches"]
-                     + olm["train"]["counts"]["flash_attention_fwd_cuda.launches"]),
+                     + olm["train"]["counts"]["flash_attention_fwd_cuda.launches"]
+                     + sum(c["flash_attention_fwd_cuda.launches"] for c in dry_k)),
         "max_abs_err": fres["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -5358,7 +5720,8 @@ def main() -> int:
         "source": str(flk.BWD_SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/flash_attention/backward.py:136",
         "launches": (tlm["counts"]["flash_attention_bwd_cuda.launches"]
-                     + olm["train"]["counts"]["flash_attention_bwd_cuda.launches"]),
+                     + olm["train"]["counts"]["flash_attention_bwd_cuda.launches"]
+                     + sum(c["flash_attention_bwd_cuda.launches"] for c in dry_k)),
         "max_abs_err": bres["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],

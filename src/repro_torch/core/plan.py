@@ -426,7 +426,7 @@ class ExecutionPlan:
     def _draw_uniform(self, seed: int, batch: int, device):
         from repro_torch.core.proposals import ProposalSample, UniformProposal
 
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = _generator(device, seed)
         prop = UniformProposal(self.cfg.num_items)
         if self.dist is None:
             return prop.sample(gen, batch, self.cfg.num_samples, device=device)
@@ -455,7 +455,7 @@ class ExecutionPlan:
                 epsilon=eps, num_items=cfg.num_items, sample_tile=self.sample_tile,
             )
             return ProposalSample(actions=actions, log_q=log_q, topk_slot=slots)
-        gen = torch.Generator(device=topk.scores.device).manual_seed(seed)
+        gen = _generator(topk.scores.device, seed)
 
         def draw(indices, scores):
             return MixtureProposal(cfg.num_items, eps).sample(
@@ -477,3 +477,11 @@ class ExecutionPlan:
             policy, params, x, beta, sample.actions, sample.log_q, rewards,
             fused=self.fused, sample_tile=self.sample_tile, dist=self.dist,
         )
+
+
+def _generator(device, seed: int) -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed``; on the meta device
+    (a trace that runs no draw, `launch.dryrun`) a CPU one, which meta
+    tensors take."""
+    dev = torch.device(device)
+    return torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(seed)

@@ -14,6 +14,10 @@ The wrappers check device, dtype, shape, contiguity and alignment,
 allocate the outputs with `torch.empty`, launch on PyTorch's current
 stream without synchronising, and raise if a launch is refused. Each
 counts its launches in ``.launches``.
+
+`attention_work` is the work either kernel does: what the kernels'
+bounds in `chip_smoke.py` and the op walker's cost rule
+(`launch.jaxpr_cost`) both count.
 """
 from __future__ import annotations
 
@@ -26,14 +30,41 @@ import torch
 from repro_torch.kernels import _build, _launch
 
 __all__ = [
-    "BWD_SOURCE", "HEAD_DIMS", "SOURCE", "bwd_library", "flash_attention_bwd_cuda",
-    "flash_attention_fwd_cuda", "library",
+    "BWD_SOURCE", "HEAD_DIMS", "SOURCE", "attention_work", "bwd_library",
+    "flash_attention_bwd_cuda", "flash_attention_fwd_cuda", "library", "live_pairs",
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths the sources instantiate
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def live_pairs(sq: int, skv: int, causal: bool, window, q_offset: int) -> int:
+    """The (query, key) pairs the masks leave live: the pairs the kernels
+    compute (the masked ones they skip or discard)."""
+    import numpy as np
+
+    qpos = q_offset + np.arange(sq)
+    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq, dtype=np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def attention_work(b: int, sq: int, skv: int, h: int, kv: int, d: int, itemsize: int,
+                   causal: bool, window, q_offset: int,
+                   backward: bool = False) -> tuple[int, int, int]:
+    """(FLOPs of each product, products, bytes) of one call. Each product
+    (q k^T and p v forward; s, dp, dv, dq and dk backward) takes 2 D FLOPs
+    per live (query, key) pair of each of the B H rows. The forward reads
+    q, k, v once and writes out and lse once; the backward reads q, k, v,
+    dO, lse and D once and writes dq, dk and dv once."""
+    flops = b * h * live_pairs(sq, skv, causal, window, q_offset) * 2 * d
+    if backward:
+        nbytes = (3 * b * sq * h * d + 4 * b * skv * kv * d) * itemsize + 2 * b * h * sq * 4
+        return flops, 5, nbytes
+    nbytes = (2 * b * sq * h * d + 2 * b * skv * kv * d) * itemsize + b * h * sq * 4
+    return flops, 2, nbytes
 
 
 @functools.cache

@@ -1,7 +1,8 @@
-"""Roofline arithmetic: the card's constants and the MODEL_FLOPS
-(useful-work) estimators per shape cell (the reference's
-`repro/launch/costs.py`, but for its HLO collective-byte parser, which
-comes with the dry run).
+"""Roofline arithmetic: the card's constants, the collective bytes of one
+rank's program and the MODEL_FLOPS (useful-work) estimators per shape
+cell (the reference's `repro/launch/costs.py`). Where the reference
+parses collectives out of the compiled HLO, `collective_bytes` sums the
+collectives `launch.jaxpr_cost.OpCost` saw one rank issue.
 
 Hardware: one NVIDIA H100 SXM. The constants are NVIDIA's datasheet
 figures at the 700 W power limit, not measurements: 989 TFLOP/s dense
@@ -14,9 +15,12 @@ from __future__ import annotations
 from repro_torch.obs.drift import HBM_BYTES_PER_S
 
 __all__ = [
+    "COLLECTIVES",
     "HBM_BW",
     "LINK_BW",
     "PEAK_FLOPS",
+    "collective_bytes",
+    "collective_kind",
     "gnn_model_flops",
     "lm_model_flops",
     "recsys_model_flops",
@@ -26,6 +30,59 @@ __all__ = [
 PEAK_FLOPS = 989e12  # bf16 FLOP/s, dense, tensor cores (H100 SXM datasheet)
 HBM_BW = HBM_BYTES_PER_S  # bytes/s (H100 SXM datasheet)
 LINK_BW = 450e9  # NVLink bytes/s each direction (H100 SXM datasheet)
+
+COLLECTIVES = (
+    "all-reduce",
+    "all-gather",
+    "reduce-scatter",
+    "all-to-all",
+    "collective-permute",
+)
+
+# c10d op name -> the reference's HLO collective kind; the functional ops
+# (`_c10d_functional`, `c10d_functional`) that DTensor issues, and the
+# process-group ops (`c10d`) a program may call itself
+_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce", "allreduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce", "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather", "allgather_": "all-gather",
+    "_allgather_base_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter", "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
+    "alltoall_base_": "all-to-all",
+    "broadcast": "collective-permute", "broadcast_": "collective-permute",
+    "send": "collective-permute", "recv_": "collective-permute",
+}
+
+
+def collective_kind(func) -> str | None:
+    """The collective kind of an op (an `OpOverload`), or None."""
+    if func.namespace not in ("_c10d_functional", "c10d_functional", "c10d"):
+        return None
+    return _KINDS.get(func._overloadpacket.__name__)
+
+
+def collective_bytes(events) -> dict:
+    """Per-kind totals of the result bytes of the collectives in one
+    rank's program, the reference's keys: each kind, ``total``, ``counts``
+    (the calls of each kind) and ``by_depth`` (bytes by loop depth).
+
+    ``events`` holds (kind, result bytes) per call, each trip of a loop
+    its own (the port's loops run in Python, so a trace holds every trip,
+    all at depth 0; `launch.dryrun` splits its extrapolated totals by
+    loop)."""
+    out = {k: 0 for k in COLLECTIVES}
+    counts = {k: 0 for k in COLLECTIVES}
+    for kind, nb in events:
+        out[kind] += nb
+        counts[kind] += 1
+    out["total"] = sum(out[k] for k in COLLECTIVES)
+    out["counts"] = counts
+    out["by_depth"] = {"0": out["total"]}
+    return out
 
 
 # ---------------------------------------------------------------------------

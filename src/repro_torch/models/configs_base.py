@@ -10,9 +10,10 @@ from typing import Literal
 class LMConfig:
     """The reference's `LMConfig`, every field kept. The port reads the
     model fields, `use_flash_kernel`, `decode_gqa_einsum`, `remat` (a
-    checkpoint per layer in training) and `microbatch`; the sharding and
-    scan knobs (`flash_axes`, `pair_scan`, `scan_layers`) and
-    `moments_dtype` have no effect in a port whose layers run in a Python
+    checkpoint per layer in training), `microbatch` and `flash_axes` (the
+    kernel's batch axes on a DTensor mesh); the dry run's programs
+    (`launch.specs`) read `moments_dtype`. The scan knobs (`pair_scan`,
+    `scan_layers`) have no effect in a port whose layers run in a Python
     loop with a static window each."""
 
     name: str

@@ -40,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.configs_base import GNNConfig
 from repro_torch.models.layers import mlp_apply, mlp_init
-from repro_torch.optim.optimizers import value_and_grad
+from repro_torch.optim.optimizers import grad_like, value_and_grad
 
 __all__ = ["abstract_params", "forward", "init_params", "loss_fn", "make_train_step",
            "static_shape", "subgraph_inputs"]
@@ -80,7 +80,8 @@ def _layers(params) -> list[tuple[list[dict], list[dict]]]:
     (a view per `w[i]` would add a zero-filled full-size gradient per
     layer)."""
     def split(mlp):
-        per = [{k: v.unbind(0) for k, v in layer.items()} for layer in mlp]
+        per = [{k: [grad_like(x) for x in v.unbind(0)] for k, v in layer.items()}
+               for layer in mlp]
         n = len(per[0]["w"])
         return [[{k: v[i] for k, v in layer.items()} for layer in per] for i in range(n)]
 

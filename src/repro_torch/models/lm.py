@@ -50,10 +50,11 @@ from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.configs_base import LMConfig
 from repro_torch.models.layers import gated_mlp, rms_norm, rope, softcap
 from repro_torch.models.moe import moe_ffn
-from repro_torch.optim.optimizers import tree_leaves, value_and_grad
+from repro_torch.optim.optimizers import grad_like, tree_leaves, value_and_grad
 
 __all__ = [
-    "KVCache", "decode_step", "final_hidden", "forward", "init_cache", "init_params",
+    "KVCache", "abstract_cache", "abstract_params", "decode_step", "final_hidden", "forward",
+    "init_cache", "init_params",
     "loss_and_grads", "loss_fn", "make_train_step", "prefill",
 ]
 
@@ -120,6 +121,18 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device=None) -> Any:
     return params
 
 
+def abstract_params(cfg: LMConfig) -> Any:
+    """The parameter tree's shapes and dtypes, on the meta device (the
+    reference's `jax.eval_shape` of `init_params`)."""
+    return init_params(cfg, torch.Generator(), device="meta")
+
+
+def abstract_cache(cfg: LMConfig, batch: int, max_len: int) -> KVCache:
+    """The cache's shapes and dtypes, on the meta device (the reference's
+    `abstract_cache`; its `length` is a 0-dim int32, the port's an int)."""
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, device=None) -> KVCache:
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.dh)
     dt = _dtype(dtype or cfg.dtype)
@@ -140,7 +153,8 @@ def layer_window(cfg: LMConfig, i: int) -> int | None:
 
 def _self_attention(cfg: LMConfig, q, k_, v_, *, window):
     """Dispatch: the chunked plain-torch attention, or the flash-attention
-    kernel (K9) when ``cfg.use_flash_kernel``."""
+    kernel (K9) when ``cfg.use_flash_kernel`` (laid out over
+    ``cfg.flash_axes`` when q is a DTensor)."""
     if not cfg.use_flash_kernel:
         return flash_attention(
             q, k_, v_, causal=True, window=window, logit_cap=cfg.attn_logit_softcap
@@ -148,7 +162,8 @@ def _self_attention(cfg: LMConfig, q, k_, v_, *, window):
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     return fa_ops.flash_attention(
-        q, k_, v_, causal=True, window=window, logit_cap=cfg.attn_logit_softcap
+        q, k_, v_, causal=True, window=window, logit_cap=cfg.attn_logit_softcap,
+        flash_axes=cfg.flash_axes,
     )
 
 
@@ -172,8 +187,10 @@ def _layers(params) -> list[dict]:
     """Per-layer views of the stacked [n_layers, ...] leaves. `unbind`
     makes them in one op, whose backward stacks the layers' gradients once
     (a view per `w[i]` would add a zero-filled full-size gradient per
-    layer)."""
-    per_name = {name: w.unbind(0) for name, w in params["layers"].items()}
+    layer). On a mesh each view's gradient takes the view's layout
+    (`optimizers.grad_like`) before the stack."""
+    per_name = {name: [grad_like(x) for x in w.unbind(0)]
+                for name, w in params["layers"].items()}
     n = len(next(iter(per_name.values())))
     return [{name: ws[i] for name, ws in per_name.items()} for i in range(n)]
 
@@ -309,8 +326,21 @@ def loss_fn(cfg: LMConfig, params, tokens: torch.Tensor, labels: torch.Tensor) -
     logits, aux = forward(cfg, params, tokens)
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)  # [B, S]
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(logz - gold) + 0.01 * aux
+    return torch.mean(logz - _gold(lf, labels)) + 0.01 * aux
+
+
+def _gold(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """lf [B, S, V] at each label: [B, S]. Logits that are a DTensor
+    sharded over the vocab take it as a masked sum (the same number: the
+    label's entry plus zeros), whose backward stays sharded where a
+    gather's would scatter into a replicated [B, S, V] of zeros."""
+    from torch.distributed.tensor import DTensor
+
+    idx = labels.long()[..., None]
+    if isinstance(lf, DTensor):
+        vocab = torch.arange(lf.shape[-1], device=lf.device)
+        return torch.where(vocab == idx, lf, 0.0).sum(dim=-1)
+    return torch.gather(lf, -1, idx)[..., 0]
 
 
 def loss_and_grads(cfg: LMConfig, params, tokens: torch.Tensor,
@@ -337,9 +367,14 @@ def make_train_step(cfg: LMConfig, optimizer):
         else:
             if b != mb * n_micro:
                 raise ValueError(f"batch {b} is not a multiple of microbatch {mb}")
-            loss, grads = loss_and_grads(cfg, params, tokens[0::n_micro], labels[0::n_micro])
+            # rows {j, n_micro + j, ...} as a view of [mb, n_micro, S]: the
+            # same rows as a strided slice, and a batch-sharded DTensor keeps
+            # its sharding through it
+            tok = tokens.reshape(mb, n_micro, -1)
+            lab = labels.reshape(mb, n_micro, -1)
+            loss, grads = loss_and_grads(cfg, params, tok[:, 0], lab[:, 0])
             for j in range(1, n_micro):
-                l_j, g_j = loss_and_grads(cfg, params, tokens[j::n_micro], labels[j::n_micro])
+                l_j, g_j = loss_and_grads(cfg, params, tok[:, j], lab[:, j])
                 for acc, g in zip(tree_leaves(grads), tree_leaves(g_j)):
                     acc.add_(g)
                 loss = loss + l_j

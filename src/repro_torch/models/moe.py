@@ -46,7 +46,8 @@ def expert_ranks(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
     minus one), through a stable sort by expert."""
     n = flat_e.shape[0]
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=num_experts)
+    # the count of each expert (a bincount, written with a fixed-size output)
+    counts = flat_e.new_zeros(num_experts).index_add(0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts  # first sorted slot of each expert
     ranks = torch.empty_like(order)
     ranks[order] = torch.arange(n, device=flat_e.device) - starts[flat_e[order]]

@@ -38,6 +38,7 @@ from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, rms_norm
 from repro_torch.optim.optimizers import value_and_grad
 
 __all__ = [
+    "abstract_params",
     "bce_loss",
     "dien_forward",
     "dien_init",
@@ -314,6 +315,12 @@ def init_params(cfg: RecsysConfig, generator: torch.Generator, device) -> Any:
     with the reference's shapes and scales (its draws differ: another
     generator)."""
     return _INIT[cfg.kind](cfg, generator, device)
+
+
+def abstract_params(cfg: RecsysConfig) -> Any:
+    """The parameter tree's shapes and dtypes, on the meta device (the
+    reference's `jax.eval_shape` of `init_params`)."""
+    return init_params(cfg, torch.Generator(), "meta")
 
 
 def forward(cfg: RecsysConfig, params, batch: dict) -> torch.Tensor:

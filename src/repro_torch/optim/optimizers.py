@@ -34,6 +34,7 @@ __all__ = [
     "clip_by_global_norm",
     "constant_schedule",
     "cosine_schedule",
+    "grad_like",
     "sgd",
     "tree_leaves",
     "tree_map",
@@ -74,7 +75,7 @@ def value_and_grad(loss_fn, params) -> tuple[torch.Tensor, Any]:
     ``loss_fn(params)``, by `torch.autograd.grad` over detached views of
     the leaves (the caller's tensors are not touched); a leaf the loss
     does not reach gets zeros, as `jax.grad` gives."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    leaves = [grad_like(p.detach().requires_grad_(True)) for p in tree_leaves(params)]
     it = iter(leaves)
     tree = tree_map(lambda _: next(it), params)
     with torch.enable_grad():
@@ -82,6 +83,21 @@ def value_and_grad(loss_fn, params) -> tuple[torch.Tensor, Any]:
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     it = iter(g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves))
     return loss.detach(), tree_map(lambda _: next(it), params)
+
+
+def grad_like(t: torch.Tensor) -> torch.Tensor:
+    """``t``, its gradient laid out like it as soon as it is formed, when
+    ``t`` is a DTensor that requires grad: a partial sum is reduced and a
+    replicated one sharded at once, as GSPMD gives a gradient its
+    parameter's sharding, where DTensor would keep the whole unreduced
+    gradient on every rank until it is used. A plain tensor is returned
+    untouched."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor) and t.requires_grad:
+        mesh, placements = t.device_mesh, t.placements
+        t.register_hook(lambda g: g.redistribute(mesh, placements))
+    return t
 
 
 def constant_schedule(lr: float):

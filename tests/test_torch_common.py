@@ -1,6 +1,7 @@
 """Helpers shared by the `test_torch_*` parity tests (this module holds
 no tests): numpy inputs from a seed, JAX-built IVF indexes carried
-across to the port, and the TopK comparison.
+across to the port, the TopK comparison, and the dry run's cells at
+SMOKE widths (`small_cell`).
 
 Tolerances of the TopK comparison: scores rtol=1e-5, atol=1e-6 (fp32
 sums taken in another order); ids compared as sorted sets, exactly
@@ -52,3 +53,22 @@ def assert_topk_equal(port, ref):
     np.testing.assert_array_equal(
         np.sort(port.indices.cpu().numpy(), -1), np.sort(np.asarray(ref.indices), -1)
     )
+
+
+def small_cell(monkeypatch, arch: str, shape: str, **cfg_kw) -> None:
+    """The arch's ``shape`` cell at SMOKE widths, for the dry run's
+    programs (`repro_torch.launch.specs`): its CONFIG becomes SMOKE_CONFIG
+    with ``cfg_kw`` and the cell a small one of the same kind."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    mod = get_arch(arch)
+    monkeypatch.setattr(mod, "CONFIG", dataclasses.replace(mod.SMOKE_CONFIG, **cfg_kw))
+    cell = mod.SHAPES[shape]
+    small = {"train": dict(global_batch=16, seq_len=32),
+             "prefill": dict(global_batch=4, seq_len=64),
+             "decode": dict(global_batch=4, seq_len=64)}.get(cell.kind, {})
+    if mod.FAMILY == "gnn":
+        small = dict(n_nodes=64, n_edges=256, global_batch=4, d_feat=8)
+    monkeypatch.setattr(mod, "SHAPES", {**mod.SHAPES, shape: dataclasses.replace(cell, **small)})
