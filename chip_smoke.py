@@ -330,7 +330,24 @@ more each:
      production cells dry-run on the 256-rank pod mesh (Gemma-2 train_4k
      baseline and --opt, SASRec train_batch), and K9's host cost a call
      through its registered operator against its ctypes wrapper
- 13. a JSON line of the kernels, then the card's name and power limit,
+ 13. step bytes  (run after 5f) one fopo-paper step at full width (P 750,000,
+                  L 100, S 1000, K 256, B 32; fused, fused_sampler, TS 8)
+                  on the pallas and the ivf_pallas routes (the index as
+                  phase 5b builds it, n_probe 8) under the op walker
+                  (`launch.jaxpr_cost.analyze`): the walker's kernel ops
+                  equal the launch counters' deltas (K1-K8 are registered
+                  operators) and no plain version runs; the same step on
+                  meta tensors gives the same bytes, FLOPs and kernel ops
+                  exactly (the rules are shape-only); each kernel op's
+                  term is at least its data's bound (the same work
+                  function fed the step's counts), ratios printed;
+                  `jaxpr_step_bytes` beside `predict_step_bytes`, their
+                  ratio held to a band a route (`STEP_BYTES_BAND`); K8
+                  once through its op at the DLRM bag shape; each op's
+                  host us a call (median of 1200) and device ms in a CUDA
+                  graph against its ctypes wrapper, the capture running
+                  the op's body; phase 5's step p50 / p99 / idle beside
+ 14. a JSON line of the kernels, then the card's name and power limit,
      then the last line {"ok": true, "device": {...}}
 
 Any failed check raises, and the script exits non-zero without the last
@@ -529,21 +546,22 @@ def roof(nbytes: float, nops: float, op_rate: float = FP32_FLOPS) -> tuple[float
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+def ivf_live(probe, lists) -> float:
+    """The live slots of every query's probed lists, summed over the queries."""
+    return float((lists >= 0).sum(dim=1)[probe.long()].sum())
+
+
 def bound_ms(q, probe, lists, list_embs, k) -> tuple[float, str, float]:
-    """The least time for this call's work, from its data: each probed
-    list's ids and its live slots' embeddings read once, the queries and
-    probe ids read, the outputs written; 2L flops per live candidate.
-    Returns (ms, "bytes" or "operations", bytes)."""
-    b, l = q.shape
-    live = (lists >= 0).sum(dim=1)  # [C]
-    per_row_live = live[probe.long()].sum(dim=1)  # [B]
-    n_live = float(per_row_live.sum())
-    nbytes = (
-        b * probe.shape[1] * lists.shape[1] * 4  # list ids
-        + n_live * 4 * l  # live embeddings
-        + q.numel() * 4 + probe.numel() * 4 + b * k * 8
-    )
-    return (*roof(nbytes, 2 * l * n_live), nbytes)
+    """The least time for this call's work, from its data
+    (`kernel.ivf_probe_work` over the live slots): each probed list's ids
+    and its live slots' embeddings read once, the queries and probe ids
+    read, the outputs written; 2L flops per live candidate. Returns (ms,
+    "bytes" or "operations", bytes)."""
+    from repro_torch.kernels.ivf_topk.kernel import ivf_probe_work
+
+    flops, products, nbytes = ivf_probe_work(*q.shape, probe.shape[1], lists.shape[1], k,
+                                             live=ivf_live(probe, lists))
+    return (*roof(nbytes, flops * products), nbytes)
 
 
 def kernel_phase(index, state, users) -> dict:
@@ -853,9 +871,10 @@ def training_kernel_phase(beta, h0, positives) -> dict:
         err = max(err, e)
         log(f"  mips_topk full: B={b} P={p} L={l} K={k} (training contexts) "
             f"max_abs_err={e:.3g} ok")
+    flops, products, nbytes = mk.mips_topk_work(b, p, l, k)
     res["mips_topk"] = dict(max_abs_err=err, **timed(
         f"mips_topk B={b} P={p} K={k}", mk.mips_topk_cuda, mr.mips_topk_ref,
-        [(h, beta, k) for h in hs], p * l * 4 + b * l * 4 + b * k * 8, 2 * b * p * l,
+        [(h, beta, k) for h in hs], nbytes, flops * products,
         library_fn=lambda q, it, kk: torch.topk(q @ it.T, kk),
         library_note="torch.topk(h @ beta.T, K): two calls"))
     res["mips_topk"].update(mips_split_times(hs[0], beta, k))
@@ -943,7 +962,7 @@ def training_kernel_phase(beta, h0, positives) -> dict:
         f"fused_sampler B={b} S={s} K={k}",
         lambda sd, ti_, ts_: fk.fused_sampler_cuda(sd, eps, ti_, ts_, **kw),
         lambda sd, ti_, ts_: fr.fused_sampler_ref(sd, eps, ti_, ts_, **kw),
-        sets, b * k * 8 + b * s * 12, nops, op_rate=rate))
+        sets, fk.sampler_work(b, s, -(-s // TS) * TS, k)[2], nops, op_rate=rate))
     # what the draws' arms cost: no kappa-arm draw (eps 1: the row, the
     # table and the outputs alone), every draw on the kappa arm (eps 0)
     for e_, key in ((1.0, "ms_eps1"), (0.0, "ms_eps0")):
@@ -1028,24 +1047,29 @@ def training_kernel_phase(beta, h0, positives) -> dict:
     res["snis_covgrad_wide"] = covgrad_wide_times(steps, beta, gen)
     # the bounds count each call's distinct gathered rows once (a masked
     # slot reads row 0 in the forward, nothing in the backward), averaged
-    # over the timed sets
-    fwd_rows = covgrad_row_bytes(steps, l, live_only=False)
-    bwd_rows = covgrad_row_bytes(steps, l, live_only=True)
-    fwd_io = {False: b * s * 8 + b * l * 4, True: b * s * 16 + b * l * 8}
+    # over the timed sets (`kernel.snis_fwd_work`, `snis_bwd_work`)
+    fwd_rows = covgrad_rows(steps, live_only=False)
+    bwd_rows = covgrad_rows(steps, live_only=True)
+
+    def fwd_work(cg, rows):  # (bytes, operations)
+        flops, products, nbytes = sk.snis_fwd_work(b, s, l, p, cg, rows=rows)
+        return nbytes, flops * products
+
     for key, cg in (("snis_covgrad_fwd", False), ("snis_covgrad_fwd_covgrad_mode", True)):
         res[key] = timed(
             f"snis_covgrad_fwd {'covgrad mode' if cg else 'scores-only'} B={b} S={s} L={l} "
-            f"(4 input sets, {fwd_rows / 1e6:.2f} MB of distinct rows a call)",
+            f"(4 input sets, {fwd_rows * l * 4 / 1e6:.2f} MB of distinct rows a call)",
             lambda h, a, lq, r, cf, cg=cg: sk.snis_fwd_cuda(h, beta, a, lq, r, covgrad=cg),
             lambda h, a, lq, r, cf, cg=cg: sr.snis_fwd_ref(h, beta, a, lq, r, covgrad=cg),
-            steps, fwd_rows + fwd_io[cg], (6 if cg else 2) * b * s * l)
+            steps, *fwd_work(cg, fwd_rows))
     res["snis_covgrad_fwd"]["max_abs_err"] = ferr
+    flops, products, nbytes = sk.snis_bwd_work(b, s, l, p, rows=bwd_rows)
     res["snis_covgrad_bwd"] = dict(max_abs_err=berr, **timed(
-        f"snis_covgrad_bwd B={b} S={s} L={l} ({bwd_rows / 1e6:.2f} MB of distinct live rows "
-        "a call)",
+        f"snis_covgrad_bwd B={b} S={s} L={l} ({bwd_rows * l * 4 / 1e6:.2f} MB of distinct live "
+        "rows a call)",
         lambda h, a, lq, r, cf: sk.snis_bwd_cuda(cf, a, beta),
         lambda h, a, lq, r, cf: sr.snis_bwd_ref(cf, a, beta),
-        steps, bwd_rows + b * s * 8 + b * l * 4, 2 * b * s * l,
+        steps, nbytes, flops * products,
         library_fn=lambda h, a, lq, r, cf: torch.nn.functional.embedding_bag(
             a, beta, per_sample_weights=cf, mode="sum"),
         library_note="embedding_bag(actions, beta, per_sample_weights=coeff, mode='sum')"))
@@ -1061,7 +1085,7 @@ def training_kernel_phase(beta, h0, positives) -> dict:
         a, lq, _ = fk.fused_sampler_cuda(5000 + i, eps, ti_, ts_, **kw)
         r = (torch.rand((b, s), generator=gen, device=dev) < 0.01).float()
         far.append((h, a, lq, r, steps[0][4]))
-    far_rows = covgrad_row_bytes(far, l, live_only=False) * len(far)
+    far_rows = covgrad_rows(far, live_only=False) * l * 4 * len(far)
     check(far_rows > 100e6, f"the past-L2 sets gather only {far_rows / 1e6:.1f} MB")
     for key, cg in (("snis_covgrad_fwd", False), ("snis_covgrad_fwd_covgrad_mode", True)):
         fn = lambda h, a, lq, r, cf, cg=cg: sk.snis_fwd_cuda(h, beta, a, lq, r, covgrad=cg)
@@ -1069,8 +1093,8 @@ def training_kernel_phase(beta, h0, positives) -> dict:
         t["ms_all_dead"] = device_ms(fn, dead)
         t["ms_l2_hot"] = device_ms(fn, steps[:1])
         t["ms_past_l2"] = device_ms(fn, far)
-        t["bound_ms_all_dead"] = roof(l * 4 + fwd_io[cg], 0)[0]
-        t["bound_ms_past_l2"] = roof(far_rows / len(far) + fwd_io[cg], 0)[0]
+        t["bound_ms_all_dead"] = roof(fwd_work(cg, 1)[0], 0)[0]
+        t["bound_ms_past_l2"] = roof(fwd_work(cg, far_rows / len(far) / (l * 4))[0], 0)[0]
         log(f"  time snis_covgrad_fwd {'covgrad mode' if cg else 'scores-only'}, device ms per "
             f"call (CUDA graph): 4 input sets {t['ms']:.4f} (the timing kept from the first port; bound "
             f"{t['bound_ms']:.4f}), one set in L2 {t['ms_l2_hot']:.4f}, past L2 "
@@ -1092,16 +1116,16 @@ def training_kernel_phase(beta, h0, positives) -> dict:
     return res
 
 
-def covgrad_row_bytes(sets, l: int, live_only: bool) -> float:
-    """Bytes of beta rows one covgrad call must read, each distinct row
-    once, averaged over the input sets (h, actions, ...): the forward
-    scores a masked slot against row 0 (`live_only` False), the backward
-    reads no row for it."""
+def covgrad_rows(sets, live_only: bool) -> float:
+    """The beta rows one covgrad call must read, each distinct row once,
+    averaged over the input sets (h, actions, ...): the forward scores a
+    masked slot against row 0 (`live_only` False), the backward reads no
+    row for it."""
     import torch
 
     n = [torch.unique(a[a >= 0] if live_only else a.clamp(min=0)).numel()
          for _, a, *_ in sets]
-    return sum(n) / len(n) * l * 4
+    return sum(n) / len(n)
 
 
 def mips_split_times(h, beta, k) -> dict:
@@ -1171,7 +1195,12 @@ def covgrad_wide_times(steps, beta, gen) -> dict:
                     for h, a, lq, r, cf in steps]
             wide = contextlib.nullcontext()
         b, s = sets[0][1].shape
-        rows = b * s * ll * 4
+        pp = bt.shape[0]
+
+        def work(fn, *mode):  # (bytes, operations) with every slot live and distinct
+            flops, products, nbytes = fn(b, s, ll, pp, *mode)
+            return nbytes, flops * products
+
         with wide:
             if ll == beta.shape[1]:
                 h, a, lq, r, cf = sets[0]
@@ -1191,17 +1220,17 @@ def covgrad_wide_times(steps, beta, gen) -> dict:
                                                                       covgrad=False),
                              lambda h, a, lq, r, cf: sr.snis_fwd_ref(h, bt, a, lq, r,
                                                                      covgrad=False),
-                             sets, rows + b * s * 8 + b * ll * 4, 2 * b * s * ll),
+                             sets, *work(sk.snis_fwd_work, False)),
                 "covgrad": timed(f"snis_covgrad_fwd wide covgrad mode B={b} S={s} L={ll}",
                                  lambda h, a, lq, r, cf: sk.snis_fwd_cuda(h, bt, a, lq, r,
                                                                           covgrad=True),
                                  lambda h, a, lq, r, cf: sr.snis_fwd_ref(h, bt, a, lq, r,
                                                                          covgrad=True),
-                                 sets, rows + b * s * 16 + b * ll * 8, 6 * b * s * ll),
+                                 sets, *work(sk.snis_fwd_work, True)),
                 "bwd": timed(f"snis_covgrad_bwd wide B={b} S={s} L={ll}",
                              lambda h, a, lq, r, cf: sk.snis_bwd_cuda(cf, a, bt),
                              lambda h, a, lq, r, cf: sr.snis_bwd_ref(cf, a, bt),
-                             sets, rows + b * s * 8 + b * ll * 4, 2 * b * s * ll),
+                             sets, *work(sk.snis_bwd_work)),
             }
         del bt, sets
     return res
@@ -1306,6 +1335,7 @@ def train_phase(ds, theta0) -> dict:
         f"{100 * (1 - busy / wall):.1f}%")
     log("[train] top device entries (ms per step): "
         + "; ".join(f"{n[:48]} {t:.4f}" for t, n, _ in sorted(evs, reverse=True)[:8]))
+    idle = 1 - busy / wall
 
     # the first steps again on the CPU, through the plain versions
     t0 = time.perf_counter()
@@ -1341,7 +1371,8 @@ def train_phase(ds, theta0) -> dict:
         f"{RTOL} / atol {ATOL}, ids as sets but for boundary ties (rows equal as sets "
         f"{top_same}); the CPU's own draws: kappa-arm agreement {kappa_agree} (held >= "
         f"0.99), uniform arm exact")
-    return dict(counts=counts, p50_ms=p50, p99_ms=p99, kappa_agreement=min(kappa_agree))
+    return dict(counts=counts, p50_ms=p50, p99_ms=p99, idle=idle,
+                kappa_agreement=min(kappa_agree))
 
 
 # ---------------------------------------------------------------------------
@@ -2305,19 +2336,25 @@ def cluster_phase(cfg, params, payloads) -> dict:
 # embedding_bag (K8): kernel vs plain version, and its path at a DLRM shape
 # ---------------------------------------------------------------------------
 
-def eb_bound(table, idx) -> tuple[float, str, float]:
-    """The least time for one sum over these bags: each distinct live row
-    read once (an id >= V reads row V - 1), the ids read, the output
-    written; one add per element of a live row. (ms, "bytes" or
-    "operations", bytes)."""
+def eb_counts(table, idx) -> tuple[int, int]:
+    """(distinct live rows, live ids) of these bags; an id >= V reads row V - 1."""
     import torch
 
-    v, d = table.shape
-    es = table.element_size()
-    live = idx[idx >= 0].clamp(max=v - 1)
-    rows = torch.unique(live).numel()
-    nbytes = rows * d * es + idx.numel() * 4 + idx.shape[0] * d * es
-    return (*roof(nbytes, live.numel() * d), nbytes)
+    live = idx[idx >= 0].clamp(max=table.shape[0] - 1)
+    return torch.unique(live).numel(), live.numel()
+
+
+def eb_bound(table, idx) -> tuple[float, str, float]:
+    """The least time for one sum over these bags (`kernel.embedding_bag_work`
+    over this call's counts): each distinct live row read once, the ids
+    read, the output written; one add per element of a live row. (ms,
+    "bytes" or "operations", bytes)."""
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_work
+
+    rows, live = eb_counts(table, idx)
+    flops, products, nbytes = embedding_bag_work(*idx.shape, *table.shape,
+                                                 table.element_size(), rows=rows, live=live)
+    return (*roof(nbytes, flops * products), nbytes)
 
 
 def eb_mean_plain(table, idx):
@@ -5379,6 +5416,302 @@ def dryrun_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. the step's bytes through the op walker, K1-K8 as registered operators
+# ---------------------------------------------------------------------------
+
+# the walker's bytes of a fopo-paper step over the byte model's, by route
+# (PERF.md section 6 explains each band): on pallas beta is read twice, as
+# the step's argument and by K6's pass, where the model reads it once; on
+# ivf_pallas beta's argument alone is 5.1x the model, K7's rule charges
+# every slot of the 8 probed lists of capp 2048 (the model: 2 lists of
+# twice the mean size)
+STEP_BYTES_BAND = {"pallas": (1.95, 2.05), "ivf_pallas": (8.0, 10.5)}
+HOST_CALLS = 1200  # calls of each op and of its ctypes wrapper timed on the host
+
+
+def op_kernels() -> dict:
+    """{op name: (the kernel's ctypes wrapper, its plain version)} of K1-K8."""
+    from repro_torch.kernels.embedding_bag import kernel as ek, ref as er
+    from repro_torch.kernels.fused_sampler import kernel as fk, ref as fr
+    from repro_torch.kernels.ivf_topk import kernel as ik, ref as ir
+    from repro_torch.kernels.mips_topk import kernel as mk, ref as mr
+    from repro_torch.kernels.snis_covgrad import kernel as sk, ref as sr
+
+    return {"mips_topk": (mk.mips_topk_cuda, mr.mips_topk_ref),
+            "ivf_probe_topk": (ik.ivf_probe_topk_cuda, ir.ivf_probe_topk_ref),
+            "fused_sampler": (fk.fused_sampler_cuda, fr.fused_sampler_ref),
+            "snis_covgrad_fwd": (sk.snis_fwd_cuda, sr.snis_fwd_ref),
+            "snis_covgrad_bwd": (sk.snis_bwd_cuda, sr.snis_bwd_ref),
+            "embedding_bag": (ek.embedding_bag_cuda, er.embedding_bag_ref)}
+
+
+def direct_call(name: str, args: tuple):
+    """The op's call on its ctypes wrapper alone, with the op's arguments."""
+    fn = op_kernels()[name][0]
+    if name == "snis_covgrad_fwd":
+        return fn(*args[:5], covgrad=args[5])
+    if name == "fused_sampler":
+        seed, eps, ids, scores, s, p, ts, off = args
+        return fn(seed, eps, ids, scores, num_samples=s, num_items=p, sample_tile=ts,
+                  row_offset=off)
+    return fn(*args)
+
+
+@contextlib.contextmanager
+def recorded_kernel_terms(record: list):
+    """While active, every kernel op the walker costs is appended to
+    ``record`` as (name, args, outputs, bytes of its rule)."""
+    from repro_torch.launch import jaxpr_cost as pc
+
+    saved = dict(pc.KERNEL_RULES)
+    for name, rule in saved.items():
+        def wrapped(args, out, name=name, rule=rule):
+            cost = rule(args, out)
+            record.append((name, args, out, cost[1]))
+            return cost
+
+        pc.KERNEL_RULES[name] = wrapped
+    try:
+        yield
+    finally:
+        pc.KERNEL_RULES.update(saved)
+
+
+def data_bound_bytes(name: str, args: tuple, out) -> float:
+    """The bytes one kernel call must move for its data: its work function
+    fed this call's counts (distinct rows gathered, kappa-arm draws, live
+    list slots, distinct live bag rows)."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import kernel as ek
+    from repro_torch.kernels.fused_sampler import kernel as fk
+    from repro_torch.kernels.ivf_topk import kernel as ik
+    from repro_torch.kernels.mips_topk import kernel as mk
+    from repro_torch.kernels.snis_covgrad import kernel as sk
+
+    if name == "snis_covgrad_fwd":
+        h, beta, a, _, _, cg = args
+        return sk.snis_fwd_work(h.shape[0], a.shape[1], h.shape[1], beta.shape[0], cg,
+                                rows=torch.unique(a.clamp(min=0)).numel())[2]
+    if name == "snis_covgrad_bwd":
+        cf, a, beta = args
+        return sk.snis_bwd_work(*cf.shape, beta.shape[1], beta.shape[0],
+                                rows=torch.unique(a[a >= 0]).numel())[2]
+    if name == "fused_sampler":
+        _, _, ids, _, s, _, ts, _ = args
+        return fk.sampler_work(ids.shape[0], s, -(-s // ts) * ts, ids.shape[1],
+                               kappa_draws=int((out[2] >= 0).sum()))[2]
+    if name == "mips_topk":
+        q, items, k = args
+        return mk.mips_topk_work(q.shape[0], *items.shape, k)[2]
+    if name == "ivf_probe_topk":
+        q, probe, lists, _, k = args
+        return ik.ivf_probe_work(*q.shape, probe.shape[1], lists.shape[1], k,
+                                 live=ivf_live(probe, lists))[2]
+    table, idx = args
+    rows, live = eb_counts(table, idx)
+    return ek.embedding_bag_work(*idx.shape, *table.shape, table.element_size(), rows=rows,
+                                 live=live)[2]
+
+
+def walked_run(fn, args: tuple, expected: dict, tag: str) -> tuple[dict, list]:
+    """``fn(*args)`` on the card under the op walker with every K1-K8 counter
+    set to 0 just before and read just after: the walker's kernel ops must
+    equal the launch counters' deltas and ``expected``, and no plain
+    version may run. Returns (`analyze`'s result, the recorded kernel
+    terms)."""
+    import torch
+
+    from repro_torch.launch import jaxpr_cost as pc
+
+    kernels = op_kernels()
+    for kern, plain in kernels.values():
+        kern.launches, plain.calls = 0, 0
+    rec: list = []
+    with recorded_kernel_terms(rec):
+        r = pc.analyze(fn, *args)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, (k, _) in kernels.items() if k.launches}
+    plain = {n: p.calls for n, (_, p) in kernels.items() if p.calls}
+    check(r["kernel_ops"] == launches == expected,
+          f"{tag}: walker kernel ops {r['kernel_ops']}, launches {launches}, expected {expected}")
+    check(not plain, f"{tag}: plain versions ran on the card: {plain}")
+    return r, rec
+
+
+def term_ratios(rec: list, tag: str) -> dict:
+    """Each kernel op's term (its rule, shape-only) over the bytes its data
+    needs; fails where a term falls below them."""
+    out = {}
+    for name, args, res, nb in rec:
+        bound = data_bound_bytes(name, args, res)
+        check(nb >= bound, f"{tag}: {name}'s term {nb} is below its data's {bound} bytes")
+        out[name] = nb / bound
+    return out
+
+
+def host_us(fns: list, calls: int = HOST_CALLS) -> list[float]:
+    """Median host us of one call of each of ``fns``, each call timed
+    alone, the functions taking turns (so a drift of the host's speed
+    reaches all alike); the card is drained every 4 turns, not timed, so
+    no launch waits on a full queue."""
+    import torch
+
+    for _ in range(20):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    ts = [[] for _ in fns]
+    for i in range(calls):
+        for fn, t in zip(fns, ts):
+            t0 = time.perf_counter_ns()
+            fn()
+            t.append((time.perf_counter_ns() - t0) / 1e3)
+        if i % 4 == 3:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return [percentile(t, 50) for t in ts]
+
+
+def op_costs(name: str, args: tuple) -> dict:
+    """One op at its main-path arguments: host µs a call through the
+    registered operator and through its ctypes wrapper, and device ms a
+    call of both captured in a CUDA graph; the capture must run the op's
+    body (its launch counter moves once a captured call)."""
+    import torch
+
+    op = getattr(torch.ops.repro_torch, name).default
+    kern = op_kernels()[name][0]
+    res = dict(zip(("op_host_us", "wrapper_host_us"),
+                   host_us([lambda: op(*args), lambda: direct_call(name, args)])))
+    before = kern.launches
+    res["op_graph_ms"] = device_ms(lambda: op(*args), [()], calls=8, replays=4)
+    check(kern.launches - before == 9, f"{name}: the graph capture ran the op's body "
+          f"{kern.launches - before} times, not 9 (a warm-up and 8 captured)")
+    res["wrapper_graph_ms"] = device_ms(lambda: direct_call(name, args), [()], calls=8, replays=4)
+    return res
+
+
+def step_bytes_phase(ds, theta0, tres: dict) -> dict:
+    """Phase 13: one fopo-paper step at full width (P 750,000, L 100, S
+    1000, K 256, B 32; fused, fused_sampler, TS 8) on the pallas and the
+    ivf_pallas routes under the op walker, on the card and on meta
+    tensors; K8 once at the DLRM bag shape; each K1-K8 op's host and
+    graph costs against its ctypes wrapper."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import ExecutionPlan, SoftmaxPolicy
+    from repro_torch.core.policy import linear_tower_apply
+    from repro_torch.core.rewards import make_session_reward
+    from repro_torch.kernels.embedding_bag import ops as eo
+    from repro_torch.launch import jaxpr_cost as pc
+    from repro_torch.mips.ivf import IVFIndex, build_ivf
+    from repro_torch.obs.drift import jaxpr_step_bytes, predict_step_bytes
+    from repro_torch.optim.optimizers import value_and_grad
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    paper = get_arch("fopo-paper").CONFIG
+    b, l = paper.batch_size, paper.embed_dim
+    policy = SoftmaxPolicy(tower=linear_tower_apply, item_dim=l)
+
+    def step_of(plan):
+        def step(w, x, beta, pos):
+            return value_and_grad(lambda prm: plan.execute(
+                policy, prm, 7, x, beta, make_session_reward(pos))[0], {"w": w})
+        return step
+
+    args = (theta0["w"].to(dev), torch.from_numpy(ds.contexts[:b]).to(dev),
+            torch.from_numpy(ds.item_embeddings).to(dev),
+            torch.from_numpy(ds.positives[:b]).to(dev))
+    margs = tuple(torch.empty_like(t, device="meta") for t in args)
+    index = build_ivf(args[2], seed=0, device=dev)
+    meta_index = IVFIndex(*(torch.empty_like(t, device="meta") for t in index[:3]),
+                          index.num_items)
+    res, costs = {}, {}
+    for route in ("pallas", "ivf_pallas"):
+        fopo = dataclasses.replace(paper.fopo, retriever=route, fused=True, fused_sampler=True,
+                                   sample_tile=TS)
+        kw = mkw = None
+        if route == "ivf_pallas":
+            kw, mkw = {"index": index, "n_probe": N_PROBE}, {"index": meta_index,
+                                                              "n_probe": N_PROBE}
+        plan, mplan = (ExecutionPlan.resolve(fopo, retriever_kwargs=k) for k in (kw, mkw))
+        retrieval = "mips_topk" if route == "pallas" else "ivf_probe_topk"
+        expected = {retrieval: 1, "fused_sampler": 1, "snis_covgrad_fwd": 1,
+                    "snis_covgrad_bwd": 1}
+        r, rec = walked_run(step_of(plan), args, expected, f"step bytes {route}")
+        loss, grads = r["out"]
+        check(bool(torch.isfinite(loss)) and bool(torch.isfinite(grads["w"]).all())
+              and grads["w"].shape == (l, l), f"step bytes {route}: a non-finite step")
+        m = pc.analyze(step_of(mplan), *margs)
+        same = (m["bytes"], m["flops"], m["kernel_ops"]) == (r["bytes"], r["flops"],
+                                                             r["kernel_ops"])
+        check(same, f"step bytes {route}: meta {m['bytes']} B / {m['flops']} FLOPs / "
+              f"{m['kernel_ops']}, card {r['bytes']} / {r['flops']} / {r['kernel_ops']}")
+        ratios = term_ratios(rec, f"step bytes {route}")
+        jb = jaxpr_step_bytes(step_of(mplan), *margs)
+        pred = predict_step_bytes(plan, b, l)["total_bytes"]
+        lo, hi = STEP_BYTES_BAND[route]
+        check(jb == float(r["bytes"]) and lo <= jb / pred <= hi,
+              f"step bytes {route}: jaxpr_step_bytes {jb} over predict_step_bytes {pred} = "
+              f"{jb / pred:.4f}, outside [{lo}, {hi}]")
+        terms = {name: nb for name, _, _, nb in rec}
+        log(f"[step-bytes] {route}: kernel ops {r['kernel_ops']} = the launch counters' "
+            f"deltas, no plain version; the meta trace equals the card's exactly ({r['bytes']} "
+            f"bytes, {r['flops']} FLOPs); jaxpr_step_bytes {jb:.0f} beside predict_step_bytes "
+            f"{pred} = {jb / pred:.4f} (band [{lo}, {hi}]); kernel terms (bytes) {terms}, each "
+            "over its data's bound: " + ", ".join(f"{n} {v:.4f}" for n, v in ratios.items()))
+        if route == "ivf_pallas":
+            c, capp = index.lists.shape
+            log(f"[step-bytes] ivf_pallas index: C {c}, capp {capp}, n_probe {N_PROBE}")
+        res[route] = dict(bytes=r["bytes"], flops=r["flops"], kernel_ops=r["kernel_ops"],
+                          jaxpr_step_bytes=jb, predict_step_bytes=pred, ratio=jb / pred,
+                          term_over_data_bound=ratios, terms=terms)
+        for name, a, _, _ in rec:
+            if name not in costs:
+                costs[name] = op_costs(name, a)
+        del plan, mplan, r, m, rec
+    del index
+    torch.cuda.empty_cache()
+
+    # K8 through its op once, at phase 6's DLRM bag shape
+    v, d, bags, t = 40_000_000, 128, 4096, 100
+    gen = torch.Generator(device=dev).manual_seed(31)
+    table = torch.randn((v, d), generator=gen, device=dev)
+    idx = dlrm_bags(bags, t, v, gen, full=False)
+    r, rec = walked_run(lambda tb, ix: eo.embedding_bag(tb, ix), (table, idx),
+                        {"embedding_bag": 1}, "step bytes K8")
+    check(torch.equal(r["out"], op_kernels()["embedding_bag"][0](table, idx)),
+          "K8 under the walker differs from its ctypes wrapper")
+    res["embedding_bag"] = dict(bytes=r["bytes"], term_over_data_bound=term_ratios(
+        rec, "step bytes K8"), terms={rec[0][0]: rec[0][3]})
+    costs["embedding_bag"] = op_costs("embedding_bag", rec[0][1])
+    log(f"[step-bytes] K8 at the DLRM bag shape (40,000,000 x 128 fp32, B 4096, T 100 "
+        f"ragged): kernel ops {{'embedding_bag': 1}} = its launch counter's delta, no plain "
+        f"version; term {rec[0][3]} bytes, "
+        f"{res['embedding_bag']['term_over_data_bound']['embedding_bag']:.4f}x its data's "
+        "bound; bitwise the ctypes wrapper's sum")
+    del table, idx, r, rec
+    torch.cuda.empty_cache()
+    for name, c in costs.items():
+        log(f"[step-bytes] {name}: host us a call (median of {HOST_CALLS}) registered op "
+            f"{c['op_host_us']:.2f}, ctypes wrapper {c['wrapper_host_us']:.2f} (+"
+            f"{c['op_host_us'] - c['wrapper_host_us']:.2f}); device ms a call in a CUDA graph "
+            f"op {c['op_graph_ms']:.4f}, wrapper {c['wrapper_graph_ms']:.4f}")
+    log(f"[step-bytes] the fopo-paper step with the registered ops (phase 5): p50 "
+        f"{tres['p50_ms']:.3f} ms, p99 {tres['p99_ms']:.3f} ms, device idle "
+        f"{100 * tres['idle']:.1f} %; phase {time.perf_counter() - t_phase:.1f} s")
+    res["op_costs"] = costs
+    res["launches"] = {name: sum(res[key]["kernel_ops"].get(name, 0)
+                                 for key in ("pallas", "ivf_pallas"))
+                       for name in op_kernels()}
+    res["launches"]["embedding_bag"] = 1
+    return res
+
+
 def percentile(values: list[float], p: float) -> float:
     vs = sorted(values)
     return vs[min(len(vs) - 1, max(0, round(p / 100.0 * (len(vs) - 1))))]
@@ -5553,6 +5886,12 @@ def main() -> int:
     log("[dist] fopo-paper on the (data, model) grid of repro_torch.dist (fused, "
         "fused_sampler, TS 8): drill A on NCCL, drill B on gloo")
     dres = dist_phase(ds, theta0)
+
+    # 13. one fopo-paper step under the op walker on the card and on meta
+    # tensors, on both routes; K8 at the DLRM shape; K1-K8's host costs
+    log("[step-bytes] jaxpr_step_bytes over one fopo-paper step at full width, the K1-K8 "
+        "registered operators held to their launches, their rules and their data")
+    sres = step_bytes_phase(ds, theta0, tres)
     del ds, theta0, route, planner, state, index, users, engine
     torch.cuda.empty_cache()
 
@@ -5604,7 +5943,7 @@ def main() -> int:
     dry = dryrun_phase()
     dry_k = [c["launches"] for c in dry["cells"].values()]
 
-    # 13. the kernels line, the card, the result
+    # 14. the kernels line, the card, the result
     t = kres["timing"]["main K=10"]
     entries = [{
         "name": "ivf_topk",
@@ -5615,7 +5954,8 @@ def main() -> int:
                      + olm["gen"]["counts"]["ivf_probe_topk_cuda.launches"]
                      + sum(r["ivf_launches"] for r in rres.values())
                      + mres["counts"]["ivf_probe_topk_cuda.launches"]
-                     + clu["launches"] + dres["counts"]["ivf_probe_topk_cuda.launches"]),
+                     + clu["launches"] + dres["counts"]["ivf_probe_topk_cuda.launches"]
+                     + sres["launches"]["ivf_probe_topk"]),
         "max_abs_err": max(kres["max_abs_err"], lres["ivf_lm"]["max_abs_err"],
                            olm["gen"]["ivf_lm"]["max_abs_err"], mres["k7_err"],
                            clu["max_abs_err"]),
@@ -5625,6 +5965,7 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": None,
+        **sres["op_costs"]["ivf_probe_topk"],
         "shape": "SASRec serving: B 8, L 50, C 1024, n_probe 8, K 10 (main lists)",
         **{key: {x: tt[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")} for key, tt in (
             ("k256", kres["timing"]["main K=256"]),
@@ -5654,13 +5995,15 @@ def main() -> int:
             "launches": (tres["counts"][f"{launch_fn.__name__}.launches"]
                          + mres["counts"][f"{launch_fn.__name__}.launches"]
                          + ores["counts"][f"{launch_fn.__name__}.launches"]
-                         + dres["counts"][f"{launch_fn.__name__}.launches"]),
+                         + dres["counts"][f"{launch_fn.__name__}.launches"]
+                         + sres["launches"][name]),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            **sres["op_costs"][name],
         })
         if name == "mips_topk":
             entries[-1].update(floor_ms=r["floor_ms"], probe_ms=r["probe_ms"],
@@ -5751,9 +6094,10 @@ def main() -> int:
         "route": "cuda",
         "source": str(ek.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/embedding_bag/kernel.py:49",
-        "launches": eres["launches"],
+        "launches": eres["launches"] + sres["launches"]["embedding_bag"],
         "max_abs_err": eres["max_abs_err"],
         **{k: et["ragged fp32"][k] for k in keys},
+        **sres["op_costs"]["embedding_bag"],
         "shape": "table 40,000,000 x 128 fp32, B 4096, T 100, lengths uniform in 1-100 "
                  "(-1 padded), ids uniform; library: F.embedding_bag over the live ids with "
                  "offsets",

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.kernels import _build, _launch
 
-__all__ = ["SOURCE", "embedding_bag_cuda", "library", "vec_width"]
+__all__ = ["SOURCE", "embedding_bag_cuda", "embedding_bag_work", "library", "vec_width"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "embedding_bag.cu"
 
@@ -47,6 +47,19 @@ def vec_width(table: torch.Tensor) -> int:
     d = table.shape[1]
     word = 4 * table.element_size()
     return 4 if d % 4 == 0 and table.data_ptr() % word == 0 else 1
+
+
+def embedding_bag_work(b: int, t: int, v: int, d: int, itemsize: int,
+                       rows: int | None = None,
+                       live: int | None = None) -> tuple[int, int, int]:
+    """(adds, 1, bytes) of one sum over [B, T] bags of a [V, D] table:
+    each distinct live row read once (``rows``; an id >= V reads row
+    V - 1), the ids read, the [B, D] output written; one add an element
+    of each of the ``live`` ids' rows. By default every id is live and
+    distinct: B T ids, min(B T, V) rows."""
+    live = b * t if live is None else live
+    rows = min(b * t, v) if rows is None else rows
+    return live * d, 1, rows * d * itemsize + b * t * 4 + b * d * itemsize
 
 
 def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:

@@ -8,15 +8,23 @@ taken in the table's dtype and floored at 1e-9 (an empty bag stays 0);
 packages, because the TPU kernel computes only the sum. That is the
 reference's dispatch by combiner, not a fallback on failure.
 
-For ``sum`` and ``mean`` dispatch is by the table's device: on the CPU
-the plain PyTorch version (`ref.py`), on CUDA the hand-written kernel,
-or an error. There is no fallback from the kernel to the plain version.
+The table-gather sum is a registered operator, ``torch.ops.repro_torch.
+embedding_bag`` (`kernels/_library.py`); the mean's division stays
+outside it. Its body dispatches by the table's device: on the CPU the
+plain PyTorch version (`ref.py`), on CUDA the hand-written kernel, or
+an error. There is no fallback from the kernel to the plain version. A
+meta or fake tensor reaches the fake implementation, and the op walker
+costs a call by `kernel.embedding_bag_work`. No path of the port
+differentiates through the kernel (nor through the reference's), so the
+op has no autograd formula: the table goes in detached and the sum is a
+constant, on the CPU as on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.embeddings.bag import embedding_bag_padded
+from repro_torch.kernels import _library
 from repro_torch.kernels.embedding_bag import kernel as _kernel
 from repro_torch.kernels.embedding_bag import ref as _ref
 
@@ -25,6 +33,19 @@ __all__ = ["embedding_bag"]
 
 def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
+
+
+def _body(table, indices):
+    if _on_cuda(table):
+        return _kernel.embedding_bag_cuda(table, indices)
+    return _ref.embedding_bag_ref(table, indices)
+
+
+def _fake(table, indices):
+    return table.new_empty((indices.shape[0], table.shape[1]))
+
+
+_op = _library.define("embedding_bag(Tensor table, Tensor indices) -> Tensor", _body, _fake)
 
 
 def embedding_bag(
@@ -37,11 +58,7 @@ def embedding_bag(
         return embedding_bag_padded(table, indices, combiner="max")
     if combiner not in ("sum", "mean"):
         raise ValueError(f"unknown combiner {combiner!r}")
-    idx = indices.to(torch.int32).contiguous()
-    if _on_cuda(table):
-        out = _kernel.embedding_bag_cuda(table.contiguous(), idx)
-    else:
-        out = _ref.embedding_bag_ref(table, idx)
+    out = _op(table.detach().contiguous(), indices.to(torch.int32).contiguous())
     if combiner == "mean":
         counts = (indices >= 0).to(table.dtype).sum(dim=1, keepdim=True)
         out = out / torch.clamp(counts, min=1e-9)

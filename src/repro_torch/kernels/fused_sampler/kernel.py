@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.kernels import _build, _launch
 
-__all__ = ["SOURCE", "fused_sampler_cuda", "library"]
+__all__ = ["SOURCE", "fused_sampler_cuda", "library", "sampler_work"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_sampler.cu"
 
@@ -48,6 +48,18 @@ def library() -> ctypes.CDLL:
     _launch.declare(lib, "fused_sampler_smem_bytes", "i", ctypes.c_size_t)
     _launch.declare(lib, "fused_sampler_error_string", "i", ctypes.c_char_p)
     return lib
+
+
+def sampler_work(b: int, s: int, sp: int, k: int,
+                 kappa_draws: float | None = None) -> tuple[float, int, int]:
+    """(Gumbel slots scored, 1, bytes) of one call: each of the
+    ``kappa_draws`` draws on the top-K arm (by default every live one,
+    B S) scores the K slots of its row; the top-K row (ids and scores)
+    is read once and the three [B, Sp] outputs are written once. The
+    card's bound counts the kernel's instructions instead (its SASS,
+    `chip_smoke.py`)."""
+    kappa_draws = b * s if kappa_draws is None else kappa_draws
+    return kappa_draws * k, 1, b * k * 8 + b * sp * 12
 
 
 def fused_sampler_cuda(

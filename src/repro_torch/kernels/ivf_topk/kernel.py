@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels import _build, _launch
 
 __all__ = [
-    "MAX_K", "SOURCE", "ivf_probe_topk_cuda", "lanes_per_row", "library",
+    "MAX_K", "SOURCE", "ivf_probe_topk_cuda", "ivf_probe_work", "lanes_per_row", "library",
     "splits_for", "tile_rows",
 ]
 
@@ -84,6 +84,18 @@ def splits_for(batch: int, n_probe: int, capp: int, k: int, l: int) -> tuple[int
     per = -(-capp // want)
     chunk = -(-per // 32) * 32
     return -(-capp // chunk), chunk
+
+
+def ivf_probe_work(b: int, l: int, n_probe: int, capp: int, k: int,
+                   live: float | None = None) -> tuple[float, int, float]:
+    """(FLOPs of the product, 1, bytes) of one call: each query's probed
+    lists' ids read, and the embeddings of their ``live`` slots, summed
+    over the queries (by default every slot, B n_probe capp); the
+    queries and probe ids read, the [B, K] scores and ids written; 2 L
+    FLOPs a live candidate."""
+    live = b * n_probe * capp if live is None else live
+    nbytes = b * n_probe * capp * 4 + live * 4 * l + b * l * 4 + b * n_probe * 4 + b * k * 8
+    return 2 * l * live, 1, nbytes
 
 
 def ivf_probe_topk_cuda(

@@ -8,14 +8,20 @@ run once over the main lists and, when ``delta`` is given, once more
 over the delta buffers with the same probe ids; `merge_topk` merges the
 two passes.
 
-Dispatch is by the device of the tensors: on the CPU stage 2 is the
-plain PyTorch version (`ref.py`); on CUDA it is the hand-written kernel,
-or an error. There is no fallback from the kernel to the plain version.
+Stage 2 is a registered operator, ``torch.ops.repro_torch.
+ivf_probe_topk`` (`kernels/_library.py`), over tensors: the queries,
+the probe ids and one padded-list table, (scores, ids) out. Its body
+dispatches by the device of the tensors: on the CPU the plain PyTorch
+version (`ref.py`); on CUDA the hand-written kernel, or an error. There
+is no fallback from the kernel to the plain version. A meta or fake
+tensor reaches the fake implementation, and the op walker costs a call
+by `kernel.ivf_probe_work`.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _library
 from repro_torch.kernels.ivf_topk import kernel as _kernel
 from repro_torch.kernels.ivf_topk import ref as _ref
 from repro_torch.mips.exact import TopK, merge_topk
@@ -45,11 +51,26 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+def _body(queries, probe, lists, list_embs, k):
+    if _on_cuda(queries):
+        return _kernel.ivf_probe_topk_cuda(queries, probe, lists, list_embs, k)
+    return _ref.ivf_probe_topk_ref(queries, probe, lists, list_embs, k)
+
+
+def _fake(queries, probe, lists, list_embs, k):
+    shape = (queries.shape[0], k)
+    return (queries.new_empty(shape, dtype=torch.float32),
+            queries.new_empty(shape, dtype=torch.int32))
+
+
+_op = _library.define(
+    "ivf_probe_topk(Tensor queries, Tensor probe, Tensor lists, Tensor list_embs, int k) "
+    "-> (Tensor, Tensor)", _body, _fake)
+
+
 def _probe_lists(q, probe, lists, list_embs, k):
     """Stage 2 over one padded-list table (main or delta)."""
-    if _on_cuda(q):
-        return _kernel.ivf_probe_topk_cuda(q, probe, lists, list_embs, k)
-    return _ref.ivf_probe_topk_ref(q, probe, lists, list_embs, k)
+    return _op(q, probe, lists, list_embs.detach(), k)
 
 
 def ivf_topk(
@@ -67,7 +88,7 @@ def ivf_topk(
     `repro_torch.mips.refresh.RefreshState.delta()`, probed with the
     same probe ids as the main lists and merged into the result."""
     n_probe = min(n_probe, index.lists.shape[0])
-    q = queries.float().contiguous()
+    q = queries.detach().float().contiguous()
     c_scores = q @ index.centroids.float().T  # [B, C]
     probe = torch.topk(c_scores, n_probe, dim=1).indices.to(torch.int32)
     scores, ids = _probe_lists(q, probe, index.lists, index.list_embs, k)

@@ -26,7 +26,7 @@ from repro_torch.kernels import _build, _launch
 
 __all__ = [
     "MAX_K", "SOURCE", "TILE_ITEMS", "chunks_for", "library", "mips_topk_cuda",
-    "ring_stages", "sample_rows", "stage_bytes",
+    "mips_topk_work", "ring_stages", "sample_rows", "stage_bytes",
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mips_topk.cu"
@@ -93,6 +93,13 @@ def sample_rows(p: int) -> tuple[int, int]:
     chunks without it)."""
     stride = max(64, -(-p // _SAMPLE_MAX))
     return stride, -(-p // stride)
+
+
+def mips_topk_work(b: int, p: int, l: int, k: int) -> tuple[int, int, int]:
+    """(FLOPs of the product, 1, bytes) of one call: the catalog and the
+    queries read once, the [B, K] scores and ids written once; 2 B P L
+    FLOPs for queries @ items.T, whose [B, P] scores are never stored."""
+    return 2 * b * p * l, 1, p * l * 4 + b * l * 4 + b * k * 8
 
 
 def _launch_args(queries, items, k):

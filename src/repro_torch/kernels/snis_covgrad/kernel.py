@@ -31,7 +31,8 @@ from repro_torch.kernels import _build, _launch
 
 __all__ = [
     "BWD_SOURCE", "FWD_SOURCE", "bwd_library", "bwd_per_sm", "fwd_lanes", "fwd_library",
-    "fwd_pass", "snis_bwd_cuda", "snis_fwd_cuda", "splits_for",
+    "fwd_pass", "snis_bwd_cuda", "snis_bwd_work", "snis_fwd_cuda", "snis_fwd_work",
+    "splits_for",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -101,6 +102,31 @@ def bwd_per_sm(l: int) -> int:
     chunks leave fewer partials for the last block of a row to add (B 32,
     S 1000: 8 chunks of 128); four in the wide path, as the forward."""
     return 2 if l % 4 == 0 and l <= 256 else 4
+
+
+def snis_fwd_work(b: int, s: int, l: int, p: int, covgrad: bool,
+                  rows: float | None = None) -> tuple[int, int, float]:
+    """(FLOPs of each product, products, bytes) of one forward call over
+    [B, S] slots (S as launched, padded). Each distinct beta row gathered
+    is read once (a masked slot scores row 0): ``rows`` of them, by
+    default the most there can be, min(B S, P). Scores mode reads the
+    actions and h and writes the scores; covgrad mode also reads log q
+    and the rewards and writes the gradient. Each product takes 2 B S L
+    FLOPs: the scores, and in covgrad mode the two weighted row sums of
+    the online softmax."""
+    rows = min(b * s, p) if rows is None else rows
+    io = b * s * 16 + b * l * 8 if covgrad else b * s * 8 + b * l * 4
+    return 2 * b * s * l, 3 if covgrad else 1, rows * l * 4 + io
+
+
+def snis_bwd_work(b: int, s: int, l: int, p: int,
+                  rows: float | None = None) -> tuple[int, int, float]:
+    """(FLOPs of the product, 1, bytes) of one backward call over [B, S]
+    slots: each distinct live beta row read once (a masked slot reads
+    none; ``rows``, by default min(B S, P)), the coefficients and actions
+    read, grad_h written; 2 B S L FLOPs."""
+    rows = min(b * s, p) if rows is None else rows
+    return 2 * b * s * l, 1, rows * l * 4 + b * s * 8 + b * l * 4
 
 
 def _check_rows(name, t, b, s, dtype, dev):

@@ -12,15 +12,22 @@ Masking is by value: callers mark dead sample slots with action -1 and
 log_q LOG_Q_PAD. A row whose slots are all masked gets an exactly-zero
 gradient row and zero SNIS weights.
 
-Dispatch is by the device of the tensors: on the CPU the plain PyTorch
-versions (`ref.py`); on CUDA the hand-written kernels, or an error.
-There is no fallback from a kernel to its plain version.
+The kernels are registered operators (`kernels/_library.py`):
+``torch.ops.repro_torch.snis_covgrad_fwd`` (K1 / K2: the padded inputs
+and the mode in, [scores [B, Sp]] or [scores, grad [B, L]] out) and
+``snis_covgrad_bwd`` (K3 / K4). Their body dispatches by the device of
+the tensors: on the CPU the plain PyTorch versions (`ref.py`); on CUDA
+the hand-written kernels, or an error. There is no fallback from a
+kernel to its plain version. A meta or fake tensor reaches the fake
+implementations, which give the kernels' output shapes, and the op
+walker costs each call by `kernel.snis_fwd_work` / `snis_bwd_work`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.constants import LOG_Q_PAD
+from repro_torch.kernels import _library
 from repro_torch.kernels.snis_covgrad import kernel as _kernel
 from repro_torch.kernels.snis_covgrad import ref as _ref
 
@@ -57,21 +64,49 @@ def _padded(s: int, sample_tile: int) -> int:
     return -(-s // ts) * ts
 
 
+def _fwd_body(h, beta, actions, log_q, rewards, covgrad):
+    fn = _kernel.snis_fwd_cuda if _on_cuda(h) else _ref.snis_fwd_ref
+    out = fn(h, beta, actions, log_q, rewards, covgrad=covgrad)
+    return list(out) if covgrad else [out]
+
+
+def _fwd_fake(h, beta, actions, log_q, rewards, covgrad):
+    scores = h.new_empty(actions.shape, dtype=torch.float32)
+    return [scores, h.new_empty(h.shape, dtype=torch.float32)] if covgrad else [scores]
+
+
+_fwd_op = _library.define(
+    "snis_covgrad_fwd(Tensor h, Tensor beta, Tensor actions, Tensor log_q, Tensor rewards, "
+    "bool covgrad) -> Tensor[]", _fwd_body, _fwd_fake)
+
+
+def _bwd_body(coeff, actions, beta):
+    fn = _kernel.snis_bwd_cuda if _on_cuda(coeff) else _ref.snis_bwd_ref
+    return fn(coeff, actions, beta)
+
+
+def _bwd_fake(coeff, actions, beta):
+    return coeff.new_empty((coeff.shape[0], beta.shape[1]), dtype=torch.float32)
+
+
+_bwd_op = _library.define("snis_covgrad_bwd(Tensor coeff, Tensor actions, Tensor beta) -> Tensor",
+                          _bwd_body, _bwd_fake)
+
+
 def _forward(h, beta, actions, log_q, rewards, sample_tile, covgrad):
     s = actions.shape[1]
     sp = _padded(s, sample_tile)
-    args = (
-        h.float().contiguous(),
-        beta.float().contiguous(),
+    out = _fwd_op(
+        h.detach().float().contiguous(),
+        beta.detach().float().contiguous(),
         _tile_pad(actions.to(torch.int32), sp, -1).contiguous(),
-        _tile_pad(log_q.float(), sp, LOG_Q_PAD).contiguous(),
-        _tile_pad(rewards.float(), sp, 0.0).contiguous(),
+        _tile_pad(log_q.detach().float(), sp, LOG_Q_PAD).contiguous(),
+        _tile_pad(rewards.detach().float(), sp, 0.0).contiguous(),
+        covgrad,
     )
-    fn = _kernel.snis_fwd_cuda if _on_cuda(args[0]) else _ref.snis_fwd_ref
-    out = fn(*args, covgrad=covgrad)
     if covgrad:
         return out[0][:, :s], out[1]
-    return out[:, :s]
+    return out[0][:, :s]
 
 
 def snis_covgrad_fused(
@@ -115,8 +150,6 @@ def snis_covgrad_bwd(
     """grad_h [B, L] = sum_s coeff[b, s] beta[actions[b, s]], dead lanes
     adding nothing whatever their coefficient."""
     sp = _padded(actions.shape[1], sample_tile)
-    cf = _tile_pad(coeff.float(), sp, 0.0).contiguous()
+    cf = _tile_pad(coeff.detach().float(), sp, 0.0).contiguous()
     acts = _tile_pad(actions.to(torch.int32), sp, -1).contiguous()
-    b32 = beta.float().contiguous()
-    fn = _kernel.snis_bwd_cuda if _on_cuda(cf) else _ref.snis_bwd_ref
-    return fn(cf, acts, b32)
+    return _bwd_op(cf, acts, beta.detach().float().contiguous())

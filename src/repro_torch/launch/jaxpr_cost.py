@@ -27,9 +27,15 @@ The rules are the reference's (`jaxpr_cost.py:160-215`):
     in_bytes / 4);
   * an in-place slice update (`copy_` into a view) costs 2 x the update
     (read-modify-write of the touched region);
-  * a kernel op (namespace ``repro_torch``) costs what its rule in
-    `KERNEL_RULES` says; one with no rule raises. Nothing costs a
-    kernel's plain version in its place.
+  * a kernel op (namespace ``repro_torch``: K1-K10, each a registered
+    operator with a fake implementation) costs what its rule in
+    `KERNEL_RULES` says, its kernel's work function (`kernel.py`) at the
+    shape-only upper end; one with no rule raises. Nothing costs a
+    kernel's plain version in its place, on any device, meta included.
+    The reference's `pallas_call` rule charges every BlockSpec block once
+    per grid step instead, which counts a tiled kernel's whole resident
+    block again at every step (the [P, L] beta of its SNIS kernels): a
+    TPU artefact the Hopper kernels do not share.
 
 `analyze` adds the program's I/O once (arguments read, outputs written).
 The count is of what the step runs: the port's layers run in Python
@@ -113,8 +119,70 @@ def _flash_bwd_rule(args, out) -> tuple[int, int]:
     return flops * products, nb
 
 
-# kernel op name -> rule(args, outputs) -> (flops, bytes), over global shapes
+def _covgrad_fwd_rule(args, out) -> tuple[int, int]:
+    from repro_torch.kernels.snis_covgrad.kernel import snis_fwd_work
+
+    h, beta, actions, _, _, covgrad = args
+    flops, products, nb = snis_fwd_work(h.shape[0], actions.shape[1], h.shape[1],
+                                        beta.shape[0], covgrad)
+    return flops * products, nb
+
+
+def _covgrad_bwd_rule(args, out) -> tuple[int, int]:
+    from repro_torch.kernels.snis_covgrad.kernel import snis_bwd_work
+
+    coeff, _, beta = args
+    (b, s), (p, l) = coeff.shape, beta.shape
+    flops, products, nb = snis_bwd_work(b, s, l, p)
+    return flops * products, nb
+
+
+def _sampler_rule(args, out) -> tuple[int, int]:
+    from repro_torch.kernels.fused_sampler.kernel import sampler_work
+
+    _, _, ids, _, num_samples, _, sample_tile, _ = args
+    b, k = ids.shape
+    flops, products, nb = sampler_work(b, num_samples, -(-num_samples // sample_tile)
+                                       * sample_tile, k)
+    return flops * products, nb
+
+
+def _mips_rule(args, out) -> tuple[int, int]:
+    from repro_torch.kernels.mips_topk.kernel import mips_topk_work
+
+    queries, items, k = args
+    flops, products, nb = mips_topk_work(queries.shape[0], *items.shape, k)
+    return flops * products, nb
+
+
+def _ivf_rule(args, out) -> tuple[int, int]:
+    from repro_torch.kernels.ivf_topk.kernel import ivf_probe_work
+
+    queries, probe, lists, _, k = args
+    flops, products, nb = ivf_probe_work(*queries.shape, probe.shape[1], lists.shape[1], k)
+    return flops * products, nb
+
+
+def _embedding_bag_rule(args, out) -> tuple[int, int]:
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_work
+
+    table, indices = args
+    flops, products, nb = embedding_bag_work(*indices.shape, *table.shape,
+                                             table.element_size())
+    return flops * products, nb
+
+
+# kernel op name -> rule(args, outputs) -> (flops, bytes), over global
+# shapes: each kernel's work function (`kernel.py`) at the shape-only
+# upper end (every action live and distinct, every list slot live,
+# every bag id distinct), the arithmetic of its bound in `chip_smoke.py`
 KERNEL_RULES = {
+    "snis_covgrad_fwd": _covgrad_fwd_rule,
+    "snis_covgrad_bwd": _covgrad_bwd_rule,
+    "fused_sampler": _sampler_rule,
+    "mips_topk": _mips_rule,
+    "ivf_probe_topk": _ivf_rule,
+    "embedding_bag": _embedding_bag_rule,
     "flash_attention_fwd": _flash_fwd_rule,
     "flash_attention_bwd": _flash_bwd_rule,
 }

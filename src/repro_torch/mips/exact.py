@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.constants import NEG_INF
 
-__all__ = ["TopK", "merge_topk", "recall_at_k", "topk_exact"]
+__all__ = ["TopK", "merge_topk", "recall_at_k", "topk_exact", "topk_scores_only"]
 
 
 class TopK(NamedTuple):
@@ -34,6 +34,11 @@ def topk_exact(queries: torch.Tensor, items: torch.Tensor, k: int) -> TopK:
     """queries [B, L], items [P, L] -> top-k by inner product."""
     vals, idx = torch.topk(queries @ items.T, k, dim=1)
     return TopK(scores=vals, indices=idx.to(torch.int32))
+
+
+def topk_scores_only(queries: torch.Tensor, items: torch.Tensor, k: int) -> torch.Tensor:
+    """The [B, K] scores of `topk_exact`, descending."""
+    return topk_exact(queries, items, k).scores
 
 
 def merge_topk(scores: torch.Tensor, ids: torch.Tensor, k: int) -> TopK:

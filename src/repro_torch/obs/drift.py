@@ -22,8 +22,13 @@ The byte formulas are the reference's analytic models
 `dist_comms_model` at one model shard, `ivf_query_model`'s per-route
 bytes), kept here so the port imports nothing of the reference; at the
 same plan shape they give the same counts. The memory rate is the H100
-SXM's, 3.35 TB/s. The reference's jaxpr cross-check (`jaxpr_step_bytes`)
-waits for the port's dry run.
+SXM's, 3.35 TB/s.
+
+`jaxpr_step_bytes(fn, *args)` is the reference's cross-check of that
+model: the bytes of one run of ``fn(*args)`` through the op walker
+(`launch.jaxpr_cost.analyze`), which costs each kernel by its rule.
+Meta arguments trace without the card and give the same count as real
+ones on any device.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ __all__ = [
     "DriftMonitor",
     "HBM_BYTES_PER_S",
     "ivf_query_bytes",
+    "jaxpr_step_bytes",
     "predict_step_bytes",
     "predict_step_seconds",
     "sampler_hbm_bytes",
@@ -221,3 +227,17 @@ def predict_step_seconds(
     """Memory-bound time of one step: the predicted bytes over the
     card's memory rate. `DriftMonitor` calibrates the constant away."""
     return predict_step_bytes(plan, batch_size, embed_dim)["total_bytes"] / hbm_bw
+
+
+def jaxpr_step_bytes(fn, *args) -> float | None:
+    """Cross-check: the bytes of ``fn(*args)`` from the op walker
+    (`repro_torch.launch.jaxpr_cost.analyze`), the program's I/O
+    included. Heavier than the closed-form models (one traced run), so
+    call it once per plan, not per step. ``args`` may be meta tensors
+    (nothing runs) or real ones on any device. None when the run fails."""
+    try:
+        from repro_torch.launch.jaxpr_cost import analyze
+
+        return float(analyze(fn, *args)["bytes"])
+    except Exception:
+        return None

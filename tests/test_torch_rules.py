@@ -456,14 +456,3 @@ def test_reference_modules_without_a_port_file_are_the_shims_and_the_cu_sources(
     assert (PKG / "kernels/flash_attention/csrc/flash_attention_bwd.cu").exists()
     assert (PKG / "kernels/snis_covgrad/csrc/snis_covgrad_bwd.cu").exists()
 
-
-def test_jaxpr_step_bytes_is_still_queued():
-    """`obs/drift.py:jaxpr_step_bytes` (the reference's cross-check of the
-    byte model) is not ported yet: on a "cuda" plan it reaches K1-K7,
-    which have no fake implementation and cost rule yet."""
-    from repro_torch.obs import drift
-
-    assert not hasattr(drift, "jaxpr_step_bytes"), (
-        "jaxpr_step_bytes is ported: take its item (with the fake implementations and "
-        "cost rules of K1-K8) off ROADMAP.md Queue A and drop this test")
-    assert "jaxpr_step_bytes" in (ROOT / "ROADMAP.md").read_text()
