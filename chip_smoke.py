@@ -19,7 +19,11 @@ more each:
                   every probed list dead and with K 256 above the live
                   candidates; mips_topk at K 10 / 64 / 256, B 1 / 33 / 64,
                   also against the emulation of its 3xTF32 arithmetic, and
-                  its floor, probe and merge kernels timed apart; the covgrad
+                  its floor, probe and merge kernels timed apart, and at
+                  B 4096 its counting probe kernel: the same top-K bit for
+                  bit, consistent counts, its time beside the plain
+                  kernel's, the cycles by phase (alone: `python3
+                  chip_smoke.py --k6-count`); the covgrad
                   kernels also at L 18, 50 and 260, their wide path,
                   checked and timed; the sampler with repeated ids, id -1
                   at K > P, odd K, the largest K a block holds, eps 0 and
@@ -1146,12 +1150,114 @@ def mips_split_times(h, beta, k) -> dict:
             check(err == 0, f"mips_topk {name} launch failed ({err})")
         ms[name] = device_ms(launch, [()])
     b, m = bufs[5].shape
-    stride = args[-1]
+    stride = args[17]
     log(f"  mips_topk B={b} P={beta.shape[0]} K={k}, its kernels apart: device ms per call (CUDA "
         f"graph) floor {ms['floor']:.4f} ({m} rows sampled, every {stride}th), probe "
         f"{ms['probe']:.4f}, merge {ms['merge']:.4f} (chunks {args[13]} of {args[14]} rows, "
         f"{args[15]} ring stages)")
     return dict(floor_ms=ms["floor"], probe_ms=ms["probe"], merge_ms=ms["merge"])
+
+
+def k6_count_phase(beta, h0, k: int = 256) -> dict:
+    """K6's counting probe kernel at the training cell's shape (B 4096, P
+    750,000, L 100, K 256): the same top-K bit for bit as the plain
+    kernel, directly and through the op under a tracer; its counts
+    consistent (the queries; tiles = each chunk's 64-row tiles x the
+    query groups; at least K appends a query); the probe kernel's two
+    instantiations timed in turns (plain, counting, counting, plain;
+    device ms a call from replayed CUDA graphs, the floor computed
+    first), and one call's cycles by phase applied to the plain probe
+    kernel's time."""
+    import torch
+
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.mips_topk import kernel as mk
+    from repro_torch.kernels.mips_topk.ops import mips_topk
+    from repro_torch.obs.trace import Tracer, tracing
+
+    b, p = h0.shape[0], beta.shape[0]
+    fields = mk.COUNT_FIELDS
+    plain = mk.mips_topk_cuda(h0, beta, k)
+    counters = torch.zeros(len(fields), dtype=torch.int64, device=h0.device)
+    counted = mk.mips_topk_cuda(h0, beta, k, counters)
+    tracer = Tracer()
+    with tracing(tracer):
+        via_op = mips_topk(h0, beta, k)
+    torch.cuda.synchronize()
+    for tag, (s_, i_) in (("the counting kernel", counted),
+                          ("the op under a tracer", (via_op.scores, via_op.indices))):
+        check(torch.equal(plain[0], s_) and torch.equal(plain[1], i_),
+              f"mips_topk: {tag} gives another top-K than the plain kernel")
+    c = dict(zip(fields, counters.tolist()))
+    op_c = dict(zip(fields, tracer.counter_totals()["mips_topk"]))
+    chunks, per = mk.chunks_for(p, mk.TILE_ITEMS, _launch.sm_count(0))
+    groups = -(-b // 32)
+    tiles = sum(-(-min(per, p - i * per) // mk.TILE_ITEMS) for i in range(chunks)) * groups
+    check(c["queries"] == b, f"mips_topk counted {c['queries']} queries, not {b}")
+    check(c["tiles"] == tiles, f"mips_topk counted {c['tiles']} tiles, not {tiles} ({chunks} "
+          f"chunks of {per} rows x {groups} query groups)")
+    check(c["appends"] >= k * b, f"mips_topk appended {c['appends']} < K B = {k * b}")
+    for f in fields[:4]:  # the counts, unlike the cycles, repeat
+        check(op_c[f] == c[f], f"mips_topk's {f} through the op: {op_c[f]}, directly {c[f]}")
+
+    lib, args, _ = mk._launch_args(h0, beta, k)
+    buf = torch.zeros(len(fields), dtype=torch.int64, device=h0.device)
+    _, args_c, _ = mk._launch_args(h0, beta, k, buf)
+    for a in (args, args_c):  # each call's floor, which the probe reads
+        err = lib.mips_topk_launch(*a, 1, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, "mips_topk floor launch failed")
+    torch.cuda.synchronize()
+
+    def probe(a):
+        def launch():  # on the stream current at the call: the graph's while it captures
+            err = lib.mips_topk_launch(*a, 2, torch.cuda.current_stream().cuda_stream)
+            check(err == 0, "mips_topk probe launch failed")
+        return device_ms(launch, [()], calls=8, replays=5)
+
+    order = (("plain", args), ("counting", args_c), ("counting", args_c), ("plain", args))
+    ms = {"plain": [], "counting": []}
+    for name, a in order:
+        ms[name].append(probe(a))
+    plain_ms = sum(ms["plain"]) / 2
+    count_ms = sum(ms["counting"]) / 2
+    cyc = [c[f] for f in fields[4:]]
+    share = [x / sum(cyc) for x in cyc]
+    res = {
+        "shape": f"B {b}, P {p}, L {beta.shape[1]}, K {k}; {chunks} chunks of {per} rows, "
+                 f"{groups} query groups",
+        "counts": c, "probe_ms_plain": ms["plain"], "probe_ms_counting": ms["counting"],
+        "counting_over_plain": count_ms / plain_ms,
+        "cycle_share": dict(zip(fields[4:], share)),
+        "select_ms": plain_ms * (share[2] + share[3]), "stage_wait_ms": plain_ms * share[0],
+        "product_ms": plain_ms * share[1],
+    }
+    log(f"  mips_topk counting probe kernel, {res['shape']}: top-K bitwise equal to the plain "
+        f"kernel's; queries {c['queries']}, tiles {c['tiles']}, appends {c['appends']} "
+        f"({c['appends'] / b:.1f} a query), folds {c['folds']}; probe kernel device ms plain "
+        f"{ms['plain']}, counting {ms['counting']} (ratio {count_ms / plain_ms:.4f}); cycles "
+        f"waiting / products / appends / folds {' / '.join(f'{x:.4f}' for x in share)}: of "
+        f"{plain_ms:.3f} ms, selection {res['select_ms']:.3f}, stage waits "
+        f"{res['stage_wait_ms']:.3f}, products {res['product_ms']:.3f}")
+    return res
+
+
+def k6_count_main() -> int:
+    """``--k6-count``: the environment, K6's build and `k6_count_phase`
+    alone, on the training cell's queries (h0 of the module's dataset)."""
+    import torch
+
+    from repro_torch.kernels.mips_topk import kernel as mk
+
+    card = card_line()
+    log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, card: {card}")
+    t0 = time.perf_counter()
+    mk.library()
+    log(f"[build] {mk.SOURCE.relative_to(ROOT)} built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    _, _, beta, h0 = training_data(torch.device("cuda"))
+    res = k6_count_phase(beta, h0)
+    log(json.dumps({"k6_count": res, "card": card}))
+    return 0
 
 
 @contextlib.contextmanager
@@ -5874,6 +5980,7 @@ def main() -> int:
         "uniform arm, kappa arm >= 0.999, log q within 1e-6)")
     with torch.no_grad():
         tk = training_kernel_phase(beta, h0, ds.positives)
+        tk["mips_topk"]["counting"] = k6_count_phase(beta, h0)
     del beta, h0
     tres = train_phase(ds, theta0)
 
@@ -6117,4 +6224,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--dist-rank":  # a rank of phase 5f's drill B
         sys.exit(dist_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:] == ["--k6-count"]:  # K6's counting kernel alone (phase 3c)
+        sys.exit(k6_count_main())
     sys.exit(main())

@@ -14,6 +14,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.obs.trace import span
+
 
 @dataclasses.dataclass
 class LoaderState:
@@ -69,11 +71,13 @@ class BatchLoader:
             self.state = LoaderState(
                 epoch=self.state.epoch + 1, position=0, seed=self.state.seed
             )
-        perm = self._perm(self.state.epoch)
+        with span("permute"):
+            perm = self._perm(self.state.epoch)
         lo = self.state.position * self.batch_size
         idx = perm[lo : lo + self.batch_size]
         self.state = dataclasses.replace(self.state, position=self.state.position + 1)
-        return {k: v[idx] for k, v in self.arrays.items()}
+        with span("gather"):
+            return {k: v[idx] for k, v in self.arrays.items()}
 
     def epoch_batches(self):
         for _ in range(self.batches_per_epoch - self.state.position):

@@ -16,18 +16,37 @@ version (`ref.py`); on CUDA the hand-written kernel, or an error. There
 is no fallback from the kernel to the plain version. A meta or fake
 tensor reaches the fake implementation, and the op walker costs a call
 by `kernel.ivf_probe_work`.
+
+While a tracer is active (`repro_torch.obs.trace`), `ivf_topk` counts
+from the very probe ids stage 2 is handed: the queries
+(``ivf_topk.queries``, on the host) and, on the device, the tracer's
+``ivf_topk.rows`` buffer (`ROW_FIELDS`): the live rows of the lists
+each query probes, summed over the queries, and the live rows of the
+union of the batch's probed lists (a scatter mask: no `unique`, no
+sync), for the main lists and for the delta pass. Nothing is read back.
+Both passes are counted in one go, and each table's live rows a list
+are kept until the table changes: nine small ops a batch, whose
+launches are most of the cost (a host that launches each batch's ops in
+about the device's time feels them).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from repro_torch.kernels import _library
 from repro_torch.kernels.ivf_topk import kernel as _kernel
 from repro_torch.kernels.ivf_topk import ref as _ref
 from repro_torch.mips.exact import TopK, merge_topk
 from repro_torch.mips.ivf import DEFAULT_N_PROBE, IVFIndex, resolve_cap_tile
+from repro_torch.obs import trace as _trace
 
-__all__ = ["ivf_topk", "tile_align_index"]
+__all__ = ["ROW_FIELDS", "ivf_topk", "tile_align_index"]
+
+# the fields of the ``ivf_topk.rows`` counters
+ROW_FIELDS = ("probed_rows", "union_rows", "delta_probed_rows", "delta_union_rows")
+
+_LIVE = WeakTensorKeyDictionary()  # a list table -> (its version, its live rows a list)
 
 
 def tile_align_index(index: IVFIndex, cap_tile: int | None) -> tuple[IVFIndex, int]:
@@ -73,6 +92,31 @@ def _probe_lists(q, probe, lists, list_embs, k):
     return _op(q, probe, lists, list_embs.detach(), k)
 
 
+def _live_rows(lists: torch.Tensor) -> torch.Tensor:
+    """[C] int64: the live slots of each list of ``lists``, counted again
+    only once the table has changed (its version counter moved)."""
+    try:
+        version = lists._version
+    except RuntimeError:  # an inference tensor keeps no version: count every time
+        return (lists >= 0).sum(dim=1)
+    kept = _LIVE.get(lists)
+    if kept is None or kept[0] != version:
+        kept = _LIVE[lists] = (version, (lists >= 0).sum(dim=1))
+    return kept[1]
+
+
+def _count_rows(tracer, probe, tables) -> None:
+    """The live rows ``probe`` (int64) reads in each of ``tables`` (the
+    main lists and, where given, the delta lists): each query's lists
+    summed over the queries, then the union of the batch's lists, added
+    to the tracer's ``ivf_topk.rows`` in `ROW_FIELDS` order."""
+    live = torch.stack([_live_rows(t) for t in tables])  # [tables, C]
+    hit = torch.zeros_like(live[0]).index_fill_(0, probe.flatten(), 1)
+    rows = torch.stack([live[:, probe].sum(dim=(1, 2)), (live * hit).sum(dim=1)], dim=1)
+    buf = tracer.device_counters("ivf_topk.rows", len(ROW_FIELDS), live.device)
+    buf[:rows.numel()] += rows.flatten()
+
+
 def ivf_topk(
     queries: torch.Tensor,  # [B, L]
     index: IVFIndex,
@@ -90,7 +134,12 @@ def ivf_topk(
     n_probe = min(n_probe, index.lists.shape[0])
     q = queries.detach().float().contiguous()
     c_scores = q @ index.centroids.float().T  # [B, C]
-    probe = torch.topk(c_scores, n_probe, dim=1).indices.to(torch.int32)
+    probe64 = torch.topk(c_scores, n_probe, dim=1).indices
+    probe = probe64.to(torch.int32)
+    tracer = _trace.current()
+    if tracer is not None:
+        tracer.count("ivf_topk.queries", q.shape[0])
+        _count_rows(tracer, probe64, (index.lists,) if delta is None else (index.lists, delta[0]))
     scores, ids = _probe_lists(q, probe, index.lists, index.list_embs, k)
     if delta is None:
         return TopK(scores=scores, indices=ids)

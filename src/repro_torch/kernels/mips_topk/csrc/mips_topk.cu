@@ -69,6 +69,25 @@
 //     padded or copied on the host. The ring is zeroed once, so the
 //     columns past L that the last k-step reads are finite (their query
 //     fragments are 0).
+//
+// Counting. Given a counters buffer, the launch runs the probe kernel's
+// kCount instantiation (without one, the plain instantiation, whose code
+// has none of this): the block counts its tiles, the appends, the folds
+// and the scoring warps' cycles (the 32-bit clock) in four phases:
+// waiting for a full stage; the products; the appends with the team's
+// barrier; the folds with their barrier, and the last fold and sort. The
+// clock is read at each phase's end; the products are what the other
+// three phases leave of the warp's whole time. A lane keeps its appends
+// and its waits in registers; each warp adds the append and fold cycles to
+// its own slots in shared memory as it goes, every lane storing the same
+// sum. At the end the block sums the warps' slots and adds each field to
+// the buffer with one atomic (kCountFields int64, `CountField` order). On
+// an H100 at the training cell's shape (B 4096, P 750,000, L 100, K 256)
+// this costs 0.2-1.5 % of the probe kernel's time. Measured there too: the
+// waits in shared memory as well, 1.5-2.9 %; the products summed too,
+// 1.9-3.6 %; every count in registers, 3-19 % (spills in the product
+// loop); a branch or a predicated reduction for lane 0 alone, 4-8 %; shared
+// sums that all warps add to, 40 % (the appends serialised).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,6 +118,21 @@ constexpr float kMarginRel = 1.0f / 4096.0f;
 constexpr int kMergeThreads = 256;
 constexpr int kMergeCap = 256;                    // the merge's append slots
 constexpr int kMergeRoom = 8192;                  // partial-list pairs the merge stages at once
+constexpr int kScoreThreads = kScoreWarps * 32;
+constexpr int kCountBarrier = 5;                  // the scoring warps' barrier (1-4: the teams')
+
+// The fields of the counters buffer (kernel.py: COUNT_FIELDS).
+enum CountField {
+  kQueries,      // queries probed (added by each query group's first chunk)
+  kTiles,        // 64-row tiles scored, by every block
+  kAppends,      // candidates appended past the gate
+  kFolds,        // a query's buffer folded during the scan (the last fold apart)
+  kWaitCycles,   // scoring warps' cycles waiting for a full stage
+  kProductCycles,  // ... in the products (the whole time less the other three)
+  kAppendCycles,   // ... in the appends and the team's barrier after them
+  kFoldCycles,     // ... in the folds, their barrier, and the last fold and sort
+  kCountFields
+};
 
 // Bytes of one ring stage: 64 rows of L floats, 32 bytes of zeros that the
 // last row's over-read finds, rounded to 128 bytes.
@@ -158,6 +192,22 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
 // later bulk copies (the async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the low 32 bits of the SM's cycle counter (a phase is far shorter than
+// their wrap); %clock64 is read in fixed latency, %clock is not
+__device__ __forceinline__ unsigned clock32() {
+  unsigned long long c;
+  asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(c));
+  return (unsigned)c;
+}
+
+// the cycles since `since`, added to the warp's slot `f` (every lane
+// stores the same sum: no branch); returns the clock read
+__device__ __forceinline__ unsigned add_cycles(unsigned* slots, int f, unsigned since) {
+  const unsigned now = clock32();
+  slots[f] += now - since;
+  return now;
 }
 
 // a barrier of one team's 4 warps (ids 1-4; 0 is __syncthreads)
@@ -376,12 +426,14 @@ __global__ void __launch_bounds__(kFloorThreads) mips_floor_kernel(
 // catalog rows [c * per_chunk, min(P, (c + 1) * per_chunk)) against
 // queries [y * kTileQ, ...) and writes each query's top-K of that range,
 // sorted, to part_s / part_i [B, chunks, K]. Dynamic shared memory: the
-// ring (stages x stage_bytes(L)), then the slots' scores and ids.
-template <bool kVec>
+// ring (stages x stage_bytes(L)), then the slots' scores and ids. With
+// kCount, it also adds its counts to `counters` (kCountFields).
+template <bool kVec, bool kCount>
 __global__ void __launch_bounds__(kThreads, 1) mips_probe_kernel(
     const float* __restrict__ q, const float* __restrict__ items,
     const float* __restrict__ floor_in, float* __restrict__ part_s, int* __restrict__ part_i,
-    int B, int L, int P, int k, int per_chunk, int stages) {
+    int B, int L, int P, int k, int per_chunk, int stages,
+    unsigned long long* __restrict__ counters) {
   extern __shared__ __align__(128) unsigned char smem[];
   const size_t sb = stage_bytes(L);
   float* ts = reinterpret_cast<float*>(smem + stages * sb);  // [kTileQ][kSlots]
@@ -450,12 +502,30 @@ __global__ void __launch_bounds__(kThreads, 1) mips_probe_kernel(
   const int npass = ((L + 7) / 8 + kKReg - 1) / kKReg;
   uint32_t bb[kKReg][2], bs[kKReg][2];
   if (active && npass == 1) load_queries(bb, bs, q, q0 + team * 8 + g, B, L, 0, lane);
+  // kCount: each scoring warp's slots, in CountField order, which no other
+  // warp touches until the end; the appends this lane made as a leader
+  [[maybe_unused]] unsigned* counts = nullptr;
+  [[maybe_unused]] unsigned* slots = nullptr;
+  [[maybe_unused]] unsigned appended = 0;
+  if constexpr (kCount) {
+    __shared__ unsigned warp_counts[kScoreWarps * kCountFields];
+    counts = warp_counts;
+    slots = counts + warp * kCountFields;
+    for (int f = 0; f < kCountFields; ++f) slots[f] = 0u;
+  }
+  // kCount: the clock at the current phase's start; this lane's wait cycles
+  [[maybe_unused]] unsigned c0 = 0, waited = 0;
+  if constexpr (kCount) {
+    c0 = clock32();
+    slots[kProductCycles] = 0u - c0;  // less the warp's start (the end adds the rest)
+  }
 
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % stages;
     const int t0 = lo + t * kTileItems;
     const int m = min(kTileItems, hi - t0);
     mbar_wait(&full[s], (t / stages) & 1);
+    if constexpr (kCount) { const unsigned now = clock32(); waited += now - c0; c0 = now; }
     // big * big, small * big and big * small in three accumulators: three
     // chains of 13 mma, not one of 26
     float cm[4] = {0.f, 0.f, 0.f, 0.f}, ca[4] = {0.f, 0.f, 0.f, 0.f}, cb[4] = {0.f, 0.f, 0.f, 0.f};
@@ -480,6 +550,7 @@ __global__ void __launch_bounds__(kThreads, 1) mips_probe_kernel(
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp has read the stage
+    if constexpr (kCount) c0 = clock32();
     if (!active) continue;
 
     const float th0 = qa < nq ? fmaxf(theta[qa], floor_s[qa]) : 0.f;
@@ -504,6 +575,7 @@ __global__ void __launch_bounds__(kThreads, 1) mips_probe_kernel(
       int base = 0;
       if (n && lane == leader) {
         base = atomicAdd(&cnt[qq], n);
+        if constexpr (kCount) appended += n;
         // the one append that takes the count past the fold line
         crossed |= base <= kCap - kTileItems && base + n > kCap - kTileItems;
       }
@@ -524,26 +596,61 @@ __global__ void __launch_bounds__(kThreads, 1) mips_probe_kernel(
     // the team instead of one per query), and waits for the folds before
     // its next appends. A tile that folds nothing needs no second barrier:
     // appends from two tiles only add to the counts.
-    if (team_sync_or(team, crossed)) {
+    const bool fold = team_sync_or(team, crossed);
+    if constexpr (kCount) c0 = add_cycles(slots, kAppendCycles, c0);
+    if (fold) {
 #pragma unroll
       for (int o = 0; o < 2; ++o) {
         const int qq = team * 8 + strip * 2 + o;
-        if (qq < nq)
+        if (qq < nq) {
+          if constexpr (kCount) {
+            if (lane == 0 && cnt[qq] >= 1) atomicAdd(&slots[kFolds], 1u);
+          }
           fold_if<kTopR, kCap>(ts + qq * kSlots, ti + qq * kSlots, &cnt[qq], &theta[qq], k, 1,
                                lane);
+        }
       }
       team_sync(team);
+      if constexpr (kCount) c0 = add_cycles(slots, kFoldCycles, c0);
     }
   }
-  if (!active) return;
-  // each owner warp: the last fold, one sort, the query's partial list
+  if constexpr (!kCount) {
+    if (!active) return;
+    // each owner warp: the last fold, one sort, the query's partial list
 #pragma unroll
-  for (int o = 0; o < 2; ++o) {
-    const int qq = team * 8 + strip * 2 + o;
-    if (qq >= nq) continue;
-    const size_t out = ((size_t)(q0 + qq) * gridDim.x + blockIdx.x) * k;
-    write_top<kTopR, kCap>(ts + qq * kSlots, ti + qq * kSlots, &cnt[qq], &theta[qq], k, lane,
-                           part_s + out, part_i + out);
+    for (int o = 0; o < 2; ++o) {
+      const int qq = team * 8 + strip * 2 + o;
+      if (qq >= nq) continue;
+      const size_t out = ((size_t)(q0 + qq) * gridDim.x + blockIdx.x) * k;
+      write_top<kTopR, kCap>(ts + qq * kSlots, ti + qq * kSlots, &cnt[qq], &theta[qq], k, lane,
+                             part_s + out, part_i + out);
+    }
+  } else {
+    if (active) {
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        const int qq = team * 8 + strip * 2 + o;
+        if (qq >= nq) continue;
+        const size_t out = ((size_t)(q0 + qq) * gridDim.x + blockIdx.x) * k;
+        write_top<kTopR, kCap>(ts + qq * kSlots, ti + qq * kSlots, &cnt[qq], &theta[qq], k,
+                               lane, part_s + out, part_i + out);
+      }
+      c0 = add_cycles(slots, kFoldCycles, c0);
+    }
+    slots[kWaitCycles] += waited;
+    __syncwarp();
+    if (lane == 0)  // the products: the warp's whole time (c0 less its start) less the rest
+      slots[kProductCycles] += c0 - slots[kWaitCycles] - slots[kAppendCycles] - slots[kFoldCycles];
+    const unsigned warp_appends = __reduce_add_sync(0xffffffffu, appended);
+    if (lane == 0) slots[kAppends] = warp_appends;
+    // every scoring warp's slots are written (the copy warp is gone)
+    asm volatile("bar.sync %0, %1;\n" ::"n"(kCountBarrier), "n"(kScoreThreads) : "memory");
+    if (tid < kCountFields) {
+      unsigned long long sum = tid == kTiles ? ntiles : tid == kQueries && blockIdx.x == 0 ? nq : 0;
+      if (tid != kTiles && tid != kQueries)
+        for (int w = 0; w < kScoreWarps; ++w) sum += counts[w * kCountFields + tid];
+      if (sum) atomicAdd(&counters[tid], sum);
+    }
   }
 }
 
@@ -584,11 +691,12 @@ extern "C" {
 // 64)], floor [B]), the probe kernel (which & 2) and the merge kernel
 // (which & 4); returns cudaGetLastError(). A call launches all (7); one
 // part alone times its share. part_s / part_i: scratch of B * chunks * k
-// entries each.
+// entries each. `counters` (kCountFields int64, or null) runs the probe
+// kernel's counting instantiation, which adds into it.
 int mips_topk_launch(const void* q, const void* items, void* part_s, void* part_i,
                      void* out_s, void* out_i, void* samp, void* amax, void* floor_buf, int B,
                      int L, int P, int k, int chunks, int per_chunk, int stages, int m,
-                     int stride, int which, void* stream) {
+                     int stride, void* counters, int which, void* stream) {
   if (k < 1 || k > kTop || stages < 1 || stages > kMaxStages || m < 1 || m > kSampleMax)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -615,17 +723,17 @@ int mips_topk_launch(const void* q, const void* items, void* part_s, void* part_
   }
   if (which & 2) {
     const size_t smem0 = smem_bytes(L, stages, 0);
-    const void* probe = vec ? (const void*)mips_probe_kernel<true>
-                            : (const void*)mips_probe_kernel<false>;
-    err = ensure_smem(vec ? 0 : 1, probe, smem0);
+    auto* cn = static_cast<unsigned long long*>(counters);
+    // the plain instantiations (0, 1) or the counting ones (4, 5)
+    using Probe = void (*)(const float*, const float*, const float*, float*, int*, int, int, int,
+                           int, int, int, unsigned long long*);
+    const Probe probe = cn ? (vec ? mips_probe_kernel<true, true> : mips_probe_kernel<false, true>)
+                           : (vec ? mips_probe_kernel<true, false>
+                                  : mips_probe_kernel<false, false>);
+    err = ensure_smem((vec ? 0 : 1) + (cn ? 4 : 0), (const void*)probe, smem0);
     if (err != cudaSuccess) return (int)err;
     dim3 grid0(chunks, (B + kTileQ - 1) / kTileQ);
-    if (vec)
-      mips_probe_kernel<true><<<grid0, kThreads, smem0, st>>>(qf, itf, fl, ps, pi, B, L, P, k,
-                                                              per_chunk, stages);
-    else
-      mips_probe_kernel<false><<<grid0, kThreads, smem0, st>>>(qf, itf, fl, ps, pi, B, L, P, k,
-                                                               per_chunk, stages);
+    probe<<<grid0, kThreads, smem0, st>>>(qf, itf, fl, ps, pi, B, L, P, k, per_chunk, stages, cn);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

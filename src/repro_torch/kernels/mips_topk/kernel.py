@@ -12,7 +12,10 @@ shared memory left beside the top-K state (`ring_stages`), allocates the
 outputs and the partial top-K scratch with `torch.empty`, launches on
 PyTorch's current stream without synchronising, and raises if the
 launch is refused. It counts its launches in
-``mips_topk_cuda.launches``.
+``mips_topk_cuda.launches``. Given a ``counters`` buffer (int64, one
+entry a name of `COUNT_FIELDS`), the probe kernel's counting
+instantiation runs and adds its counts into it; without one the plain
+instantiation runs.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 from repro_torch.kernels import _build, _launch
 
 __all__ = [
-    "MAX_K", "SOURCE", "TILE_ITEMS", "chunks_for", "library", "mips_topk_cuda",
+    "COUNT_FIELDS", "MAX_K", "SOURCE", "TILE_ITEMS", "chunks_for", "library", "mips_topk_cuda",
     "mips_topk_work", "ring_stages", "sample_rows", "stage_bytes",
 ]
 
@@ -42,6 +45,13 @@ _SAMPLE_ROWS = 64  # sampled rows per block of the sample kernel (kSampleRows)
 # the most shared memory a Hopper block can use, less 1 KB for the
 # kernel's static shared memory (thresholds, counts, mbarriers)
 _SMEM_BUDGET = 232_448 - 1024
+# the counting probe kernel's fields (mips_topk.cu: CountField): queries,
+# 64-row tiles scored, candidates appended past the gate, query buffers
+# folded in the scan, and the scoring warps' clock cycles waiting for a
+# full stage, in the products, in the appends (with the team's barrier)
+# and in the folds (with theirs, and the last fold and sort)
+COUNT_FIELDS = ("queries", "tiles", "appends", "folds", "wait_cycles", "product_cycles",
+                "append_cycles", "fold_cycles")
 
 
 @functools.cache
@@ -49,7 +59,7 @@ def library() -> ctypes.CDLL:
     """Build (first use) and load the kernel's library, with its C
     signatures declared."""
     lib = _build.load(SOURCE)
-    _launch.declare(lib, "mips_topk_launch", "p" * 9 + "i" * 10 + "p")
+    _launch.declare(lib, "mips_topk_launch", "p" * 9 + "i" * 9 + "pip")
     _launch.declare(lib, "mips_topk_error_string", "i", ctypes.c_char_p)
     return lib
 
@@ -102,7 +112,7 @@ def mips_topk_work(b: int, p: int, l: int, k: int) -> tuple[int, int, int]:
     return 2 * b * p * l, 1, p * l * 4 + b * l * 4 + b * k * 8
 
 
-def _launch_args(queries, items, k):
+def _launch_args(queries, items, k, counters=None):
     """(library, launch arguments but `which` and the stream, outputs):
     the checks and the buffers of one call."""
     dev = queries.device
@@ -122,6 +132,11 @@ def _launch_args(queries, items, k):
         raise ValueError(f"k={k} exceeds the kernel's {MAX_K} top slots per query")
     if b > 65535 * 32:
         raise ValueError(f"batch {b} exceeds the grid's y limit")
+    if counters is not None:
+        _launch.check("counters", counters, torch.int64, 1, dev)
+        if counters.numel() != len(COUNT_FIELDS):
+            raise ValueError(f"counters holds {counters.numel()} fields, not "
+                             f"{len(COUNT_FIELDS)}")
     stages = ring_stages(l)
     items = _launch.aligned16(items)  # the bulk copies start on 16 bytes
     chunks, per = chunks_for(p, TILE_ITEMS, _launch.sm_count(dev.index or 0))
@@ -137,6 +152,7 @@ def _launch_args(queries, items, k):
         queries.data_ptr(), items.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
         out_s.data_ptr(), out_i.data_ptr(), samp.data_ptr(), amax.data_ptr(), floor.data_ptr(),
         b, l, p, k, chunks, per, stages, m, stride,
+        None if counters is None else counters.data_ptr(),
     )
     return library(), args, (items, part_s, part_i, out_s, out_i, samp, amax, floor)
 
@@ -145,10 +161,11 @@ def mips_topk_cuda(
     queries: torch.Tensor,  # [B, L] float32
     items: torch.Tensor,  # [P, L] float32
     k: int,
+    counters: torch.Tensor | None = None,  # [len(COUNT_FIELDS)] int64, added into
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(scores [B, K] float32 descending, ids [B, K] int32) on the card;
     a row short of K items back-fills (-3e38, -1). K <= 256."""
-    lib, args, bufs = _launch_args(queries, items, k)
+    lib, args, bufs = _launch_args(queries, items, k, counters)
     err = lib.mips_topk_launch(*args, 7, _launch.stream(queries.device))
     _launch.raise_on_error(err, lib, "mips_topk_error_string", "mips_topk")
     mips_topk_cuda.launches += 1

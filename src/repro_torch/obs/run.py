@@ -10,7 +10,9 @@ enters it around `train()` (`with ObsRun(...) as run:`), records through
 With ``run_dir`` set the run leaves artifacts behind:
 
     <run_dir>/metrics.jsonl   every drained record, one JSON line each
-                              (appended across train() calls of one run)
+                              (appended across train() calls of one run;
+                              the tracer's counter totals come last, as
+                              `counter` records)
     <run_dir>/trace.json      Chrome-trace phase spans (chrome://tracing)
     <run_dir>/torchprof/      the torch.profiler Chrome trace
                               (torch_profiler=True only)
@@ -20,6 +22,7 @@ into a markdown run report.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -46,7 +49,8 @@ class ObsConfig:
     jsonl           write the JSONL record stream (needs run_dir)
     trace           record phase spans into a Chrome trace (written to
                     run_dir when set; recording a span costs one list
-                    append)
+                    append) and count work on the device (kernels'
+                    counters, handed to the bus at exit)
     torch_profiler  run a torch.profiler session into run_dir/torchprof:
                     host operators and the card's kernels, strictly
                     config-gated
@@ -101,11 +105,12 @@ class ObsRun:
         if cfg is not None and cfg.drift is not None and predicted_step_s:
             self.drift = DriftMonitor(predicted_step_s, cfg.drift)
         self._profiling = False
+        self._active = contextlib.ExitStack()
 
     # -- lifecycle ------------------------------------------------------
     def __enter__(self) -> "ObsRun":
-        if self.tracer is not None:
-            trace_mod.activate(self.tracer)
+        if self.tracer is not None:  # the tracer active before comes back at exit
+            self._active.enter_context(trace_mod.tracing(self.tracer))
         if self.cfg is not None and self.cfg.torch_profiler and self.run_dir:
             self._profiling = trace_mod.start_torch_profiler(
                 os.path.join(self.run_dir, PROFILE_DIR)
@@ -113,10 +118,16 @@ class ObsRun:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
+        self._active.close()
         if self.tracer is not None:
-            trace_mod.deactivate()
             if self.run_dir:
                 self.tracer.write(os.path.join(self.run_dir, TRACE_FILE))
+            for name, total in self.tracer.counter_totals().items():
+                if isinstance(total, list):  # a kernel's buffer: one record a field
+                    for i, v in enumerate(total):
+                        self.bus.counter(f"{name}.{i}", v)
+                else:
+                    self.bus.counter(name, total)
         if self._profiling:
             trace_mod.stop_torch_profiler()
             self._profiling = False

@@ -567,25 +567,28 @@ class FOPOTrainer:
             for _ in range(n):
                 if self.fault_plan is not None:
                     self.fault_plan.maybe_kill(self.step)
-                batch = self.loader.next_batch()
-                seed = self._next_seed()
-                eps = (
-                    adaptive_epsilon(self.step, cfg.num_steps).to(self.device)
-                    if cfg.adaptive_eps else 0.0
-                )
-                fault = None
-                if self.fault_plan is not None:
-                    fault = torch.from_numpy(self.fault_plan.signals(self.step)).to(
-                        self.device
+                with span("load", step=self.step):
+                    batch = self.loader.next_batch()
+                    seed = self._next_seed()
+                    eps = (
+                        adaptive_epsilon(self.step, cfg.num_steps).to(self.device)
+                        if cfg.adaptive_eps else 0.0
                     )
-                contexts = torch.from_numpy(batch["contexts"])
-                positives = torch.from_numpy(batch["positives"])
-                if self.dist is not None:  # this rank's rows of the global batch
-                    from repro_torch.dist.fopo import data_rows
+                    fault = None
+                    if self.fault_plan is not None:
+                        fault = torch.from_numpy(self.fault_plan.signals(self.step)).to(
+                            self.device
+                        )
+                    contexts = torch.from_numpy(batch["contexts"])
+                    positives = torch.from_numpy(batch["positives"])
+                    if self.dist is not None:  # this rank's rows of the global batch
+                        from repro_torch.dist.fopo import data_rows
 
-                    contexts = data_rows(contexts, self.dist)
-                    positives = data_rows(positives, self.dist)
-                contexts, positives = contexts.to(self.device), positives.to(self.device)
+                        contexts = data_rows(contexts, self.dist)
+                        positives = data_rows(positives, self.dist)
+                    with span("h2d"):
+                        contexts = contexts.to(self.device)
+                        positives = positives.to(self.device)
                 t0 = time.perf_counter()
                 with span("dispatch", step=self.step):
                     loss, aux, verdict = self.train_step(seed, contexts, positives, eps, fault)

@@ -55,6 +55,52 @@ def test_cpu_tensors_take_the_plain_version():
     assert ops._ref.ivf_probe_topk_ref.calls == plain_before + 1
 
 
+def test_tracer_counts_the_rows_probed_from_the_probe_ids():
+    """With a tracer active, `ivf_topk` counts from the probe ids it hands
+    stage 2: the queries, each query's probed lists' live rows, the
+    union's, the delta pass's apart, and answers as without one."""
+    from repro_torch.obs.trace import Tracer, tracing
+
+    _, jindex = jax_index(500, 16, 8, seed=516, key=3, kmeans_iters=6)
+    _, q = data(500, 16, 6, seed=9)
+    index, qt = to_port(jindex), torch.from_numpy(q)
+    c, cap = index.lists.shape
+    delta_lists = torch.full((c, 4), -1, dtype=torch.int32)
+    delta_lists[1, :2] = torch.tensor([3, 7])
+    delta_lists[5, 0] = 11
+    delta = (delta_lists, torch.zeros(c, 4, index.list_embs.shape[-1]))
+    bare = ivf_topk(qt, index, 8, n_probe=3, delta=delta)
+    tracer = Tracer()
+    with tracing(tracer):
+        out = ivf_topk(qt, index, 8, n_probe=3, delta=delta)
+    assert torch.equal(out.scores, bare.scores) and torch.equal(out.indices, bare.indices)
+    probe = torch.topk(qt @ index.centroids.T, 3, dim=1).indices
+
+    def rows(lists):
+        live = (lists >= 0).sum(dim=1)
+        return int(live[probe].sum()), int(live[torch.unique(probe)].sum())
+
+    (probed, union), (d_probed, d_union) = rows(index.lists), rows(delta_lists)
+    assert tracer.counter_totals() == {"ivf_topk.queries": 6,
+                                       "ivf_topk.rows": [probed, union, d_probed, d_union]}
+    assert ops.ROW_FIELDS == ("probed_rows", "union_rows", "delta_probed_rows",
+                              "delta_union_rows")
+    assert probed > union > 0
+    with tracing(tracer):  # without delta lists: the main pass's fields alone
+        ivf_topk(qt, index, 8, n_probe=3)
+    assert tracer.counter_totals()["ivf_topk.rows"] == [2 * probed, 2 * union, d_probed, d_union]
+    # a list's live rows are counted again once its table changes in place
+    c0 = int(probe[0, 0])
+    dead = int((index.lists[c0] >= 0).sum())
+    index.lists[c0] = -1
+    tracer = Tracer()
+    with tracing(tracer):
+        ivf_topk(qt, index, 8, n_probe=3)
+    probed2, union2 = rows(index.lists)
+    assert tracer.counter_totals()["ivf_topk.rows"] == [probed2, union2, 0, 0]
+    assert union2 == union - dead and probed2 < probed
+
+
 @pytest.mark.parametrize(
     "batch,n_probe,capp,k,l",
     [

@@ -84,6 +84,41 @@ def test_cpu_tensors_take_the_plain_version():
     assert ops._ref.mips_topk_ref.calls == plain_before + 1
 
 
+def test_counters_leave_the_answer_the_fake_and_the_cost_unchanged():
+    """The op with a counters buffer: the same top-K as without (the CPU
+    body counts the queries alone), a fake implementation that takes it,
+    and the op walker's cost of a call as before; `mips_topk` passes the
+    ambient tracer's buffer."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import jaxpr_cost
+    from repro_torch.obs.trace import Tracer, tracing
+
+    items, q = data(3000, 24, 5, seed=7)
+    qt, it = torch.from_numpy(q), torch.from_numpy(items)
+    counters = torch.zeros(len(kernel.COUNT_FIELDS), dtype=torch.int64)
+    bare = ops._op(qt, it, 64)
+    counted = ops._op(qt, it, 64, counters)
+    assert torch.equal(bare[0], counted[0]) and torch.equal(bare[1], counted[1])
+    assert counters.tolist() == [5] + [0] * (len(kernel.COUNT_FIELDS) - 1)
+    with FakeTensorMode():
+        fs, fi = ops._op(torch.empty(5, 24), torch.empty(3000, 24), 64,
+                         torch.zeros(len(kernel.COUNT_FIELDS), dtype=torch.int64))
+    assert fs.shape == fi.shape == (5, 64) and fi.dtype == torch.int32
+    costs = [jaxpr_cost.analyze(fn, qt, it) for fn in (
+        lambda a, b: ops._op(a, b, 64),
+        lambda a, b: ops._op(a, b, 64, torch.zeros(len(kernel.COUNT_FIELDS),
+                                                   dtype=torch.int64)))]
+    assert [(c["flops"], c["bytes"], c["kernel_ops"]) for c in costs] == [
+        (costs[0]["flops"], costs[0]["bytes"], {"mips_topk": 1})] * 2
+    tracer = Tracer()
+    with tracing(tracer):
+        out = mips_topk(qt, it, 64)
+        mips_topk(qt, it, 64)
+    assert torch.equal(out.indices, bare[1])
+    assert tracer.counter_totals() == {"mips_topk": [10] + [0] * (len(kernel.COUNT_FIELDS) - 1)}
+
+
 @pytest.mark.parametrize("p", [1, 63, 64, 3000, 750_000])
 def test_chunks_cover_the_catalog_about_once_per_sm(p):
     """The catalog is cut into at most one chunk per SM, each a whole

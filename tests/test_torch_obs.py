@@ -287,10 +287,8 @@ def test_tracer_spans_nest_and_write(tmp_path):
     assert outer["dur"] >= inner["dur"]
     assert all(e["ph"] == "X" for e in tr.events)
     assert outer["args"] == {"step": 1}
-    tr.instant("mark", why="test")
     doc = json.load(open(tr.write(str(tmp_path / "trace.json"))))
-    assert {e["name"] for e in doc["traceEvents"]} == {"inner", "outer", "mark"}
-    assert doc["traceEvents"][-1]["ph"] == "i"
+    assert {e["name"] for e in doc["traceEvents"]} == {"inner", "outer"}
 
 
 def test_span_is_noop_without_tracer():
@@ -307,6 +305,95 @@ def test_span_is_noop_without_tracer():
     finally:
         trace_mod.deactivate()
     assert trace_mod.current() is None and [e["name"] for e in tr.events] == ["real"]
+
+
+def test_spans_are_profiler_ranges_only_while_a_session_records():
+    """A tracer's spans open `span:<name>` ranges on the profiler's clock,
+    nested as opened, only while a session records; with no tracer a span
+    opens none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = Tracer()
+    with profile(activities=[ProfilerActivity.CPU]) as bare:
+        with span("phantom"):
+            pass
+    with tracing(tr):
+        with span("before"):
+            pass
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with span("outer"):
+                with span("inner"):
+                    torch.ones(4) + 1
+        with span("after"):
+            pass
+    assert not [e for e in bare.events() if e.name.startswith(trace_mod.SPAN_PREFIX)]
+    ranges = {e.name: e.time_range for e in prof.events()
+              if e.name.startswith(trace_mod.SPAN_PREFIX)}
+    assert set(ranges) == {"span:outer", "span:inner"}
+    outer, inner = ranges["span:outer"], ranges["span:inner"]
+    assert outer.start <= inner.start and inner.end <= outer.end
+    assert [e["name"] for e in tr.events] == ["before", "inner", "outer", "after"]
+
+
+def test_counters_sum_without_a_read_and_are_noops_without_a_tracer(monkeypatch):
+    """`count` adds a host number on the host and a tensor on its device;
+    `device_counters` hands out one zeroed buffer a name; neither reads a
+    tensor; with no tracer both do nothing. The totals read every buffer
+    once."""
+    assert trace_mod.device_counters("k", 3, torch.device("cpu")) is None
+    trace_mod.count("rows", torch.tensor(5))  # nowhere to go: must not raise
+    tr = Tracer()
+
+    def no_read(*_a, **_k):
+        raise AssertionError("a counter read a tensor")
+
+    with tracing(tr):
+        with monkeypatch.context() as m:
+            for name in ("item", "tolist", "__int__", "__float__", "__bool__"):
+                m.setattr(torch.Tensor, name, no_read)
+            buf = trace_mod.device_counters("k", 3, torch.device("cpu"))
+            assert trace_mod.device_counters("k", 3, torch.device("cpu")) is buf
+            buf += torch.tensor([1, 2, 3])
+            v = torch.tensor(4)
+            trace_mod.count("rows", v)
+            trace_mod.count("rows", torch.tensor(6))
+            trace_mod.count("calls", 2)
+            trace_mod.count("calls", 1)
+            v += 100  # added when counted, not when read
+        with pytest.raises(ValueError):
+            trace_mod.device_counters("k", 4, torch.device("cpu"))
+    assert trace_mod.current() is None
+    assert tr.counter_totals() == {"k": [1, 2, 3], "rows": 10, "calls": 3}
+    assert Tracer().counter_totals() == {}
+
+
+def test_obsrun_restores_an_outer_tracer_and_puts_the_counters_on_its_bus():
+    outer = Tracer()
+    with tracing(outer):
+        with ObsRun(ObsConfig(drift=None)) as run:
+            assert trace_mod.current() is run.tracer and run.tracer is not outer
+            trace_mod.count("rows", torch.tensor(7))
+            trace_mod.device_counters("k", 2, torch.device("cpu")).add_(torch.tensor([3, 4]))
+        assert trace_mod.current() is outer
+        with ObsRun(None):  # no tracer of its own: the outer stays
+            assert trace_mod.current() is outer
+        assert trace_mod.current() is outer
+    assert trace_mod.current() is None
+    counters = {r["name"]: r["value"] for r in run.ring.records if r["kind"] == "counter"}
+    assert counters == {"rows": 7, "k.0": 3, "k.1": 4}
+    assert run.bus.total("rows") == 7 and outer.counter_totals() == {}
+
+
+def test_profiled_obsrun_names_the_program_phases_on_the_profilers_clock(ds, tmp_path):
+    """With `torch_profiler`, the program's spans are ranges of the
+    profiler's own trace, so its idle gaps can be named by them."""
+    run_dir = str(tmp_path / "run")
+    _trainer(ds, obs=ObsConfig(run_dir=run_dir, drift=None, torch_profiler=True)).train(2)
+    events = json.load(open(os.path.join(run_dir, "torchprof", trace_mod.PROFILE_FILE)))[
+        "traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"span:load", "span:permute", "span:gather", "span:h2d", "span:dispatch",
+            "span:drain", "span:retrieval"} <= names
 
 
 def test_torch_profiler_exports_a_chrome_trace(tmp_path):
@@ -536,6 +623,29 @@ def test_obs_is_bitwise_noop_on_trajectory(ds, tmp_path):
     h_obs = instrumented.train(6)
     assert h_bare["loss"] == h_obs["loss"]
     assert torch.equal(bare.params["w"], instrumented.params["w"])
+
+
+def test_trainer_load_span_encloses_the_loaders_phases_once_a_step(ds):
+    """A traced step: one `load` span from the batch request to the batch
+    on the device, enclosing the loader's `permute` and `gather` and the
+    copy's `h2d`, each once a step, before the step's `dispatch`."""
+    tr = Tracer()
+    with tracing(tr):
+        _trainer(ds).train(3)
+    by_name = {}
+    for e in tr.events:
+        by_name.setdefault(e["name"], []).append(e)
+    for name in ("load", "permute", "gather", "h2d", "dispatch"):
+        assert len(by_name[name]) == 3, name
+    for i, load in enumerate(by_name["load"]):
+        assert load["args"] == {"step": i}
+        for name in ("permute", "gather", "h2d"):
+            inner = by_name[name][i]
+            assert load["ts"] <= inner["ts"]
+            assert inner["ts"] + inner["dur"] <= load["ts"] + load["dur"]
+        assert load["ts"] + load["dur"] <= by_name["dispatch"][i]["ts"]
+    p, g, h = (by_name[n][0] for n in ("permute", "gather", "h2d"))
+    assert p["ts"] + p["dur"] <= g["ts"] and g["ts"] + g["dur"] <= h["ts"]
 
 
 @pytest.mark.parametrize("profiler", [False, True])
