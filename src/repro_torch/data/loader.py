@@ -7,6 +7,14 @@ permutation seed), so it round-trips through checkpoints and a restarted
 job resumes mid-epoch on the exact batch it would have seen — required
 for bitwise-reproducible fault recovery. Per-host sharding for multi-host
 data parallelism is a pure function of (host_id, num_hosts).
+
+The loader holds the per-host slice of the permutation it drew last,
+keyed by the (seed, epoch) it was drawn for, and draws again only when
+the state's key differs: once an epoch, and after any assignment of
+``state`` (a restore, a rollback) that lands on another epoch or seed.
+The held slice is a cache derived from the state, not part of it. The
+counters ``loader.batches`` (one a batch) and ``loader.permutations``
+(one a draw) give its hit share, 1 - permutations / batches.
 """
 from __future__ import annotations
 
@@ -14,7 +22,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.obs.trace import span
+from repro_torch.obs.trace import count, span
 
 
 @dataclasses.dataclass
@@ -53,6 +61,7 @@ class BatchLoader:
         self.num_hosts = num_hosts
         self.state = LoaderState(seed=seed)
         self.drop_remainder = drop_remainder
+        self._held: tuple[tuple[int, int], np.ndarray] | None = None  # (seed, epoch), slice
 
     @property
     def batches_per_epoch(self) -> int:
@@ -71,8 +80,13 @@ class BatchLoader:
             self.state = LoaderState(
                 epoch=self.state.epoch + 1, position=0, seed=self.state.seed
             )
-        with span("permute"):
-            perm = self._perm(self.state.epoch)
+        key = (self.state.seed, self.state.epoch)
+        if self._held is None or self._held[0] != key:
+            with span("permute"):
+                self._held = (key, self._perm(self.state.epoch))
+            count("loader.permutations", 1)
+        count("loader.batches", 1)
+        perm = self._held[1]
         lo = self.state.position * self.batch_size
         idx = perm[lo : lo + self.batch_size]
         self.state = dataclasses.replace(self.state, position=self.state.position + 1)

@@ -626,26 +626,39 @@ def test_obs_is_bitwise_noop_on_trajectory(ds, tmp_path):
 
 
 def test_trainer_load_span_encloses_the_loaders_phases_once_a_step(ds):
-    """A traced step: one `load` span from the batch request to the batch
-    on the device, enclosing the loader's `permute` and `gather` and the
-    copy's `h2d`, each once a step, before the step's `dispatch`."""
-    tr = Tracer()
+    """Traced steps into a second epoch: one `load` span a step from the
+    batch request to the batch on the device, enclosing the loader's
+    `gather` and the copy's `h2d`, each once a step, before the step's
+    `dispatch`; the loader's `permute` once an epoch, inside the load of
+    the step that enters it, before that step's `gather`."""
+    tr, trainer = Tracer(), _trainer(ds)
+    per_epoch = trainer.loader.batches_per_epoch
+    steps = per_epoch + 2
     with tracing(tr):
-        _trainer(ds).train(3)
+        trainer.train(steps)
     by_name = {}
     for e in tr.events:
         by_name.setdefault(e["name"], []).append(e)
-    for name in ("load", "permute", "gather", "h2d", "dispatch"):
-        assert len(by_name[name]) == 3, name
+    for name in ("load", "gather", "h2d", "dispatch"):
+        assert len(by_name[name]) == steps, name
+    assert len(by_name["permute"]) == 2
+    totals = tr.counter_totals()
+    assert (totals["loader.batches"], totals["loader.permutations"]) == (steps, 2)
+
+    def inside(inner, outer):
+        return (outer["ts"] <= inner["ts"]
+                and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
     for i, load in enumerate(by_name["load"]):
         assert load["args"] == {"step": i}
-        for name in ("permute", "gather", "h2d"):
-            inner = by_name[name][i]
-            assert load["ts"] <= inner["ts"]
-            assert inner["ts"] + inner["dur"] <= load["ts"] + load["dur"]
+        for name in ("gather", "h2d"):
+            assert inside(by_name[name][i], load)
         assert load["ts"] + load["dur"] <= by_name["dispatch"][i]["ts"]
-    p, g, h = (by_name[n][0] for n in ("permute", "gather", "h2d"))
-    assert p["ts"] + p["dur"] <= g["ts"] and g["ts"] + g["dur"] <= h["ts"]
+    for p, i in zip(by_name["permute"], (0, per_epoch), strict=True):
+        assert inside(p, by_name["load"][i])
+        assert p["ts"] + p["dur"] <= by_name["gather"][i]["ts"]
+    g, h = by_name["gather"][0], by_name["h2d"][0]
+    assert g["ts"] + g["dur"] <= h["ts"]
 
 
 @pytest.mark.parametrize("profiler", [False, True])

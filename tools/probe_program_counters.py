@@ -16,13 +16,16 @@ the card is synchronised and the tracer's counters read
 fopo-paper.exact-b4096: the mean host ms a step of the program's
 `load`, `permute`, `gather`, `h2d`, `dispatch` and `drain` spans, and
 K6's counts (`kernels/mips_topk/kernel.py:COUNT_FIELDS`) with the share
-of the scoring warps' cycles in each phase. sasrec.bulk-b4096: the
-program's probed and union rows (`kernels/ivf_topk/ops.py`) against the
-cell's own recount of the same batches (`Run.counters`), and the
-bound of `ivf_topk_roofline.serve` (`work.ivf_probe` at 3.35 TB/s and
-495 TFLOP/s) from each: the outside count batch by batch, the program's
-from its totals, as many batches of their mean. Prints the card and
-one JSON line; exits 2 without a card.
+of the scoring warps' cycles in each phase, and each traced window's
+loader counts (`loader.batches`, `loader.permutations`) with their hit
+share, 1 - permutations / batches (none where the loader counts
+nothing). sasrec.bulk-b4096: the program's probed and union rows
+(`kernels/ivf_topk/ops.py`) against the cell's own recount of the same
+batches (`Run.counters`), and the bound of `ivf_topk_roofline.serve`
+(`work.ivf_probe` at 3.35 TB/s and 495 TFLOP/s) from each: the outside
+count batch by batch, the program's from its totals, as many batches
+of their mean. Prints the card and one JSON line; exits 2 without a
+card.
 """
 from __future__ import annotations
 
@@ -71,7 +74,13 @@ def train_report(traced: list) -> dict:
         "k6": k6,
         "k6_per_step": {f: k6[f] / steps for f in COUNT_FIELDS[:4]},
         "k6_cycle_share": {f: c / all_cycles for f, c in cycles.items()},
+        "loader": [loader_counts(t) for _, t, _ in traced if "loader.batches" in t],
     }
+
+
+def loader_counts(totals: dict) -> dict:
+    batches, draws = totals["loader.batches"], totals.get("loader.permutations", 0)
+    return {"batches": batches, "permutations": draws, "hit_share": 1 - draws / batches}
 
 
 def probe_bound_s(c: dict, union: float, probed: float) -> float:
