@@ -21,8 +21,22 @@ had before them, on the same batches and step seeds, drawing from the
 recorded top-K: near-equal scores that 3xTF32 and fp32 order otherwise
 would otherwise swap their Gumbel noise and change draws, and with them
 the rewards, which no product's precision explains. Each recorded top-K
-is checked by itself against the reference's exact top-K of its own h
-at that step.
+is checked by itself against the reference's top-K of its own h at that
+step.
+
+The traffic may name a ``data_seed``: the catalog and the contexts
+(and on the IVF route the index) then come from it, the same for every
+run, and the run's seed draws theta0, the positives, the batches'
+order and the step seeds. The traffic may name a ``route``, merged
+over the configuration's. On
+``retriever="ivf_pallas"`` set-up builds the program's IVF index over
+the catalog (``num_clusters`` lists, ``kmeans_iters`` Lloyd iterations,
+seeded from the data's seed) under torch's deterministic algorithms and
+hands it to the trainer, which probes ``n_probe`` lists a context; the
+reference builds its own index from the same items and seed
+(`bench.reference.sasrec.build_index`, the same algorithms) and its
+probe's top-K is what each recorded top-K is checked against. Elsewhere
+that is the exact top-K over the whole catalog.
 """
 from __future__ import annotations
 
@@ -36,13 +50,14 @@ import torch
 from bench.harness import PhaseClock, bench_span, run_window
 from bench.reference import compare
 from bench.reference import fopo as ref
+from bench.reference import sasrec as ivf_ref
 from bench.reference.precision import fp32_products
 from bench.yardstick import gen, work
 from bench.yardstick.stats import percentile
 
 __all__ = ["Run"]
 
-STEP_SEED_STREAM, LOADER_STREAM, DATA_STREAM = 1000, 2, 1
+STEP_SEED_STREAM, LOADER_STREAM, DATA_STREAM, INDEX_STREAM = 1000, 2, 1, 3
 INT32_MAX = 2**31 - 1
 
 
@@ -94,10 +109,19 @@ class Run:
         self.phases = PhaseClock(device)
         self.device, self.seed = device, seed
         c, t = config, traffic
+        route = {**c["route"], **t.get("route", {})}
         self.shape = ref.FopoShape(
             num_items=c["num_items"], embed_dim=c["embed_dim"], num_samples=c["num_samples"],
             top_k=c["top_k"], epsilon=c["epsilon"], learning_rate=c["learning_rate"],
-            sample_tile=c["route"]["sample_tile"], batch=t["batch"])
+            sample_tile=route["sample_tile"], batch=t["batch"])
+        self.ivf = ({k: route[k] for k in ("num_clusters", "n_probe", "kmeans_iters")}
+                    if route["retriever"] == "ivf_pallas" else None)
+        # the catalog, its contexts and the index come from the traffic's
+        # data_seed where it names one, so that every run seed meets the
+        # same lists; elsewhere from the run's seed
+        data = t.get("data_seed", seed)
+        self.index_seed = gen.sub_seed(data, INDEX_STREAM) % INT32_MAX
+        self._ref_index: dict = {}
         self.steps_per_call = t["steps_per_call"]
         self.trace_seconds = t["trace_seconds"]
         self.ref_steps, self.window_steps = t["reference_steps"], t["window_reference_steps"]
@@ -107,7 +131,8 @@ class Run:
         l = c["embed_dim"]
         self.beta, self.contexts = gen.clustered_catalog(
             c["num_items"], l, t["catalog_clusters"], c["num_users"], std=t["cluster_std"],
-            query_blend=t["query_blend"], gen=g)
+            query_blend=t["query_blend"],
+            gen=g if data == seed else gen.device_generator(device, data, DATA_STREAM))
         self.w0 = torch.randn((l, l), generator=g, device=device).div_(l ** 0.5)
         self.positives = gen.session_positives(self.contexts @ self.w0, self.beta,
                                                t["positives_from_top"], t["positives"], g)
@@ -116,7 +141,16 @@ class Run:
         ds = SessionDataset(contexts=self.contexts.cpu().numpy(),
                             positives=self.positives.cpu().numpy(),
                             item_embeddings=self.beta, num_items=c["num_items"])
-        route = c["route"]
+        retriever_kwargs = {}
+        if self.ivf is not None:
+            from repro_torch.mips import ivf
+
+            with ivf_ref.deterministic():
+                index = ivf.build_ivf(self.beta, self.ivf["num_clusters"],
+                                      kmeans_iters=self.ivf["kmeans_iters"],
+                                      seed=self.index_seed, device=device)
+            retriever_kwargs = {"index": index, "n_probe": self.ivf["n_probe"]}
+            self.phases("index")
         fopo = FOPOConfig(num_items=c["num_items"], num_samples=c["num_samples"],
                           top_k=c["top_k"], epsilon=c["epsilon"], retriever=route["retriever"],
                           fused=route["fused"], fused_sampler=route["fused_sampler"],
@@ -124,7 +158,8 @@ class Run:
         cfg = TrainerConfig(estimator="fopo", fopo=fopo, batch_size=t["batch"],
                             learning_rate=c["learning_rate"], num_steps=2**62,
                             seed=self.loader_seed)
-        self.trainer = FOPOTrainer(cfg, ds, device=device, params={"w": self.w0.clone()},
+        self.trainer = FOPOTrainer(cfg, ds, retriever_kwargs=retriever_kwargs, device=device,
+                                   params={"w": self.w0.clone()},
                                    step_seeds=lambda s: step_seed(seed, s))
         self.clock = _Clock(device)
         self.marks: list = []
@@ -211,6 +246,8 @@ class Run:
         s = self.shape
         return {"steps": win["steps"], "batch": s.batch, "num_items": s.num_items,
                 "embed_dim": s.embed_dim, "num_samples": s.num_samples, "top_k": s.top_k,
+                "n_probe": self.ivf["n_probe"] if self.ivf is not None else None,
+                "num_clusters": self.ivf["num_clusters"] if self.ivf is not None else None,
                 "step_flops": work.fopo_step_flops(s.batch, s.num_items, s.embed_dim,
                                                    s.num_samples)}
 
@@ -225,17 +262,36 @@ class Run:
         theta0, then the first steps of the window's last call."""
         return [self.program] + ([self._last] if self._last is not None else [])
 
+    def _retrieve(self, precision: str, index_seed: int):
+        """The reference's retrieval h -> (scores, ids) on this route: None
+        (the exact top-K) or the probe of its own IVF index, built once
+        for each precision and seed."""
+        if self.ivf is None:
+            return None
+        key = (precision, index_seed)
+        if key not in self._ref_index:
+            with ivf_ref.deterministic():
+                self._ref_index[key] = ivf_ref.build_index(
+                    self.beta, self.ivf["num_clusters"], index_seed, precision,
+                    iters=self.ivf["kmeans_iters"])
+        cents, lists = self._ref_index[key]
+        k, n_probe = self.shape.top_k, self.ivf["n_probe"]
+        return lambda h: ivf_ref.answers(h, cents, lists, self.beta, k, n_probe, precision)
+
     def reference(self, seg: dict, precision: str = "fp32", follow: bool = True,
-                  **fault) -> dict:
+                  index_seed: int | None = None, **fault) -> dict:
         """The reference over ``seg``'s steps from the state they started
-        from, drawing from their recorded top-K where ``follow``."""
+        from, drawing from their recorded top-K where ``follow``; on the
+        IVF route its index is built with ``index_seed`` (default: the
+        program's)."""
         # the set-up's steps start from the benchmark's own theta0
         start = None if seg["first_step"] == 0 else (seg["start"], *seg["moments"])
+        retrieve = self._retrieve(precision, self.index_seed if index_seed is None else index_seed)
         return ref.reference_run(self.contexts, self.positives, self.beta, self.w0,
                                  lambda s: step_seed(self.seed, s), self.loader_seed,
                                  self.shape, steps=len(seg["losses"]), precision=precision,
                                  follow=seg["topk"] if follow else None, start=start,
-                                 first_step=seg["first_step"], **fault)
+                                 first_step=seg["first_step"], retrieve=retrieve, **fault)
 
     def _numbers(self, as_program) -> dict:
         """The numbers with ``as_program(seg)`` in the program's place: the
@@ -257,11 +313,13 @@ class Run:
     def calibration(self, control: bool, seconds: float) -> dict:
         """The readings the limits are set from: the program's numbers after
         a window of ``seconds``; with ``control`` also the control's (the
-        reference in TF32 in the program's place) and those of two faults
+        reference in TF32 in the program's place) and those of faults
         planted in the reference put there: a step that returns its state
-        unchanged, and half of the batch left out with the mean taken over
+        unchanged; half of the batch left out with the mean taken over
         the rest (its top-K covers half the rows, so it is held to the
-        reference drawing from its own)."""
+        reference drawing from its own); a stale top-K (each step draws
+        from its run's first top-K); and on the IVF route a top-K from
+        an index built with another seed."""
         run_window(self, seconds)
         line = {"program": self.judge()}
         if control:
@@ -273,4 +331,10 @@ class Run:
                 line["half_batch"] = compare.training_numbers(
                     [(self.reference(seg, follow=False, keep_rows=0.5),
                       self.reference(seg, follow=False)) for seg in self.segments()], self.beta)
+                line["stale_topk"] = self._numbers(
+                    lambda seg: self.reference(dict(seg, topk=seg["topk"][:1] * len(seg["topk"]))))
+                if self.ivf is not None:
+                    other = gen.sub_seed(self.index_seed, INDEX_STREAM) % INT32_MAX
+                    line["other_index"] = self._numbers(
+                        lambda seg: self.reference(seg, follow=False, index_seed=other))
         return line

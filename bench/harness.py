@@ -14,6 +14,13 @@ built and warmed, its first steps driven), then the measured window of
 run, each number held to its limit). With ``trace`` a run of its own
 traces a steady part of the window with `torch.profiler` and reports
 the per-layer metrics and a breakdown instead of the end-to-end ones.
+
+A per-layer metric's reader gets ``ctx``: ``trace`` (the traced
+window's `TraceSummary`), ``window`` (its stats), ``counters`` (the
+driver's own counts of the window's work, `Run.counters`) and
+``program`` (the program's own counter totals over the traced window,
+`repro_torch.obs.trace.Tracer.counter_totals`; empty where it counted
+nothing).
 """
 from __future__ import annotations
 
@@ -51,20 +58,6 @@ def bench_span(name: str):
         return
     with torch.profiler.record_function(trace_mod.SPAN_PREFIX + name):
         yield
-
-
-def _forwarding_tracer():
-    """A `repro_torch.obs.trace.Tracer` whose spans become profiler ranges,
-    so the program's own spans name the device's idle gaps."""
-    from repro_torch.obs import trace as obs_trace
-
-    class Forwarder(obs_trace.Tracer):
-        @contextlib.contextmanager
-        def span(self, name: str, **args):  # noqa: ARG002 — the Tracer signature
-            with torch.profiler.record_function(trace_mod.SPAN_PREFIX + name):
-                yield
-
-    return obs_trace, Forwarder()
 
 
 class PhaseClock:
@@ -164,27 +157,38 @@ def run_window(run, seconds: float) -> dict:
     return stats
 
 
-def _traced_window(run, seconds: float) -> tuple[dict, trace_mod.TraceSummary]:
+def _traced_window(run, seconds: float) -> tuple[dict, trace_mod.TraceSummary, dict]:
+    """A quarter of the window untraced, then up to ``run.trace_seconds``
+    under `torch.profiler` with a `repro_torch.obs.trace.Tracer` active:
+    (the traced part's stats, its trace, the program's counter totals).
+    The tracer's spans open ``span:<name>`` ranges while the profiler
+    records, so the program's phases name the device's idle gaps; its
+    counters are read once the device has finished the window."""
     global _PROFILING
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.obs import trace as obs_trace
+
     run_window(run, seconds * PRE_ROLL)
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize()
-    obs_trace, forwarder = _forwarding_tracer()
+    tracer = obs_trace.Tracer()
     traced = min(seconds, float(run.trace_seconds))
     with profile(activities=activities) as prof:
         _PROFILING = True
-        obs_trace.activate(forwarder)
+        obs_trace.activate(tracer)
         try:
             with bench_span(trace_mod.WINDOW):
                 stats = run_window(run, traced)
         finally:
             obs_trace.deactivate()
             _PROFILING = False
-    return stats, trace_mod.summarize(trace_mod.profiler_events(prof))
+        if cuda:
+            torch.cuda.synchronize()
+    return stats, trace_mod.summarize(trace_mod.profiler_events(prof)), tracer.counter_totals()
 
 
 def device_info(device: torch.device) -> dict:
@@ -220,13 +224,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device="c
     gc.freeze()
     setup_s = time.perf_counter() - t_start
     if trace:
-        stats, summary = _traced_window(run, seconds)
+        stats, summary, program = _traced_window(run, seconds)
     else:
-        stats, summary = run_window(run, seconds), None
+        stats, summary, program = run_window(run, seconds), None, {}
     gc.unfreeze()
     dev_info = device_info(device)
     attempted, failed = run.attempted_failed(stats)
-    ctx = {"trace": summary, "window": stats, "counters": run.counters(stats)} if trace else None
+    ctx = {"trace": summary, "window": stats, "counters": run.counters(stats),
+           "program": program} if trace else None
     numbers = run.judge()
     checks = {k: {"value": _finite(float(numbers[k])), "limit": float(v)}
               for k, v in cell.limits.items()}

@@ -30,7 +30,8 @@ def _worse(a: float, b: float) -> float:
 def _topk_numbers(top: tuple, h: torch.Tensor, exact: torch.Tensor,
                   beta: torch.Tensor) -> tuple[float, float]:
     """(score error, rank gap) of a step's top-K (scores, ids) against the
-    reference's h and its exact top-K scores at that step."""
+    reference's h and its top-K scores at that step (the exact top-K's,
+    or on the IVF route the reference's probe of its own index)."""
     p_s, p_i = top
     ids = p_i.to(torch.int64)
     if tuple(ids.shape) != tuple(exact.shape) or bool(((ids < 0) | (ids >= beta.shape[0])).any()):
@@ -52,7 +53,8 @@ def training_numbers(segments: list[tuple[dict, dict]], beta: torch.Tensor) -> d
                     |score - h . item| over its top-K slots, h the
                     reference's, over the row's exact top score
     topk_rank_gap   the largest shortfall of its j-th best true score
-                    below the reference's exact j-th, over the same scale
+                    below the reference's j-th (its exact top-K, or its
+                    IVF probe on that route), over the same scale
     loss_gap        the largest |loss - loss_ref| / |loss_ref|
     ess_gap         the largest relative gap of the SNIS effective sample
                     size (the step's batch-mean ESS)

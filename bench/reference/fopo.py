@@ -2,7 +2,9 @@
 Algorithm 1) with the paper's linear tower h = x W:
 
   1. h = x W
-  2. the exact top-K of h beta^T over the whole catalog, sorted
+  2. the exact top-K of h beta^T over the whole catalog, sorted (or,
+     on a route that retrieves otherwise, that route's top-K: the
+     caller hands it in as ``retrieve``)
   3. S draws a context from q = eps/P + (1 - eps) softmax(top-K scores)
   4. rewards 1[a in Y]
   5. SNIS weights and the covariance gradient of the surrogate
@@ -135,14 +137,18 @@ def topk_exact(h: torch.Tensor, beta: torch.Tensor, k: int, precision: str,
 
 def step_loss_grad(w: torch.Tensor, x: torch.Tensor, positives: torch.Tensor,
                    beta: torch.Tensor, seed: int, shape: FopoShape, precision: str,
-                   block: int = 512, topk=None) -> dict:
+                   block: int = 512, topk=None, retrieve=None) -> dict:
     """One step at parameters ``w`` on the batch (``x`` [B, L],
     ``positives`` [B, Y], -1 padded): its loss, dLoss/dW, ESS (the batch
     mean of 1 / sum wbar^2, 0 for a row with no live draw), h and the
     top-K (scores, ids) the draws came from. ``topk`` hands in the top-K
-    to draw from in place of the step's own."""
+    to draw from in place of the step's own, which is ``retrieve(h)``
+    (default: the exact top-K in ``precision``)."""
     h = cast(x, precision) @ cast(w, precision)
-    top_s, top_i = topk if topk is not None else topk_exact(h, beta, shape.top_k, precision)
+    if topk is None:
+        topk = retrieve(h) if retrieve is not None else topk_exact(h, beta, shape.top_k,
+                                                                   precision)
+    top_s, top_i = topk
     actions, log_q = mixture_draws(seed, top_i, top_s, shape)
     valid = actions >= 0
     a = actions.clamp(min=0)
@@ -183,13 +189,14 @@ def reference_run(contexts: torch.Tensor, positives: torch.Tensor, beta: torch.T
                   w0: torch.Tensor, step_seed: Callable[[int], int], loader_seed: int,
                   shape: FopoShape, steps: int = 3, precision: str = "fp32",
                   follow: list | None = None, start: tuple | None = None, first_step: int = 0,
-                  keep_rows: float = 1.0, frozen: bool = False) -> dict:
+                  keep_rows: float = 1.0, frozen: bool = False, retrieve=None) -> dict:
     """``steps`` steps from ``w0`` with Adam's moments at zero, or from
     ``start`` = (W, m, v) before step number ``first_step`` (0-based: its
     batch, its step seed and Adam's count follow from it). Returns each
     step's loss, ESS and the top-K (scores, ids) its draws came from,
-    each step's h and the exact top-K scores of that h (``exact``), the
-    first step's gradient as Adam's state after it holds it
+    each step's h and the top-K scores of that h (``exact``: the exact
+    top-K's, or ``retrieve(h)``'s where the route retrieves otherwise),
+    the first step's gradient as Adam's state after it holds it
     (m - b1 m_before) / (1 - b1), and the parameters at the start and
     after the last step.
 
@@ -199,7 +206,11 @@ def reference_run(contexts: torch.Tensor, positives: torch.Tensor, beta: torch.T
     faults can be planted, for the reference put in the program's place:
     ``keep_rows`` < 1 lets only that share of each batch's rows into the
     step, the mean taken over them; ``frozen`` returns the state unchanged
-    from every step."""
+    from every step. ``retrieve`` (h -> (scores, ids)) is the route's own
+    retrieval, in ``precision``; without it, the exact top-K."""
+    if retrieve is None:
+        def retrieve(h):
+            return topk_exact(h, beta, shape.top_k, precision)
     n = contexts.shape[0]
     if start is None:
         w, m, v = w0.clone(), torch.zeros_like(w0), torch.zeros_like(w0)
@@ -215,10 +226,9 @@ def reference_run(contexts: torch.Tensor, positives: torch.Tensor, beta: torch.T
             raise FollowMismatch(f"step {k}: a top-K of {tuple(given[1].shape)} for "
                                  f"{len(rows)} rows")
         st = step_loss_grad(w, contexts[rows], positives[rows], beta, step_seed(k), shape,
-                            precision, topk=given)
+                            precision, topk=given, retrieve=retrieve)
         out["h"].append(st["h"])
-        out["exact"].append(topk_exact(st["h"], beta, shape.top_k, precision)[0]
-                            if given is not None else st["topk"][0])
+        out["exact"].append(retrieve(st["h"])[0] if given is not None else st["topk"][0])
         out["losses"].append(st["loss"])
         out["ess"].append(st["ess"])
         out["topk"].append(st["topk"])

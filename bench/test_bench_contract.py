@@ -9,7 +9,7 @@ import re
 import pytest
 
 from bench import harness
-from bench.tinycells import TINY, tiny_run
+from bench.tinycells import TINY, TINY_DIR, tiny_run
 from bench.yardstick.trace import TraceSummary
 
 BM = harness.load_json(harness.ROOT / "BENCHMARK.json")
@@ -55,7 +55,8 @@ def test_names_units_and_keys():
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
-    assert any(m["name"] == "setup_s" for m in BM["end_to_end"])
+    setup = [m for m in BM["end_to_end"] if m["name"] == "setup_s"]
+    assert len(setup) == 1 and "workloads" not in setup[0]  # every cell, later ones too
     for m in BM["per_layer"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
         assert "\n" not in m["layer"] and len(m["layer"]) <= 200
@@ -107,3 +108,40 @@ def test_last_line_keys(workload, trace):
         result["checks"])
     json.dumps(result, allow_nan=False)
     assert workload in TINY
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_cell_has_its_tiny_size_file(workload):
+    """Every cell's CPU size is a file of its own, and `TINY` is what the
+    files hold."""
+    sizes = harness.load_json(TINY_DIR / f"{workload}.json")
+    assert set(sizes) == {"config", "traffic"}
+    assert TINY[workload] == (sizes["config"], sizes["traffic"])
+    cell = harness.Cell.find(workload)
+    assert set(sizes["config"]) <= set(cell.config)
+    assert set(sizes["traffic"]) <= set(cell.traffic)
+
+
+# the tiny sizes as a literal table held them before they became files
+_FORMER_TINY = {
+    "fopo-paper.exact-b4096": (
+        {"num_items": 3000, "embed_dim": 16, "num_samples": 64, "top_k": 32, "num_users": 512},
+        {"batch": 64, "catalog_clusters": 32, "positives_from_top": 16, "steps_per_call": 3,
+         "trace_seconds": 0.3},
+    ),
+    "sasrec.bulk-b4096": (
+        {"item_vocab": 5000, "embed_dim": 16, "seq_len": 12, "num_clusters": 64, "n_probe": 4},
+        {"batch": 64, "users": 1024, "judge_every": 2, "warm_batches": 1, "ahead": 3,
+         "trace_seconds": 0.3},
+    ),
+}
+
+
+@pytest.mark.parametrize("workload", list(_FORMER_TINY))
+def test_moved_tiny_sizes_are_unchanged(workload):
+    assert TINY[workload] == _FORMER_TINY[workload]
+
+
+def test_tinycells_names_no_cell():
+    text = (harness.BENCH / "tinycells.py").read_text()
+    assert not any(w in text for w in WORKLOADS)

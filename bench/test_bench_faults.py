@@ -28,6 +28,8 @@ def test_control_fails_and_program_passes(workload):
     assert _over(line["control"], cell.limits)
     if "half_batch" in line:
         assert _over(line["half_batch"], cell.limits)
+    for fault in set(line) - {"seed", "program", "control"}:  # each planted in the reference
+        assert _over(line[fault], cell.limits), fault
 
 
 def _train_step_unchanged(orig):
@@ -46,9 +48,9 @@ def _train_step_half(orig):
     return step
 
 
-def _after_setup() -> int:
-    """The number of steps the tiny training cell's set-up runs."""
-    t = tiny_cell("fopo-paper.exact-b4096").traffic
+def _after_setup(workload: str = "fopo-paper.exact-b4096") -> int:
+    """The number of steps a tiny training cell's set-up runs."""
+    t = tiny_cell(workload).traffic
     return t["reference_steps"] + t["steps_per_call"]
 
 
@@ -64,10 +66,10 @@ def _train_step_stale_batch(orig):
     return step
 
 
-def _resolve_stale_topk(orig):
+def _resolve_stale_topk(orig, workload: str = "fopo-paper.exact-b4096"):
     """A plan whose retrieval, from the window on, hands back the top-K
     of the window's first step: a cached retrieval."""
-    after = _after_setup()
+    after = _after_setup(workload)
 
     def resolve(*args, **kwargs):
         plan = orig(*args, **kwargs)
@@ -80,6 +82,14 @@ def _resolve_stale_topk(orig):
             return cache.setdefault("top", inner(h, beta))
         return dataclasses.replace(plan, retriever=retriever)
     return staticmethod(resolve)
+
+
+def _build_ivf_other_seed(orig):
+    """The training route's IVF index built with another seed than the
+    one the run gives it."""
+    def build(*args, seed=0, **kwargs):
+        return orig(*args, seed=seed + 1, **kwargs)
+    return build
 
 
 def _run_altered(orig):
@@ -122,6 +132,10 @@ FAULTS = {
                     "train_step", _train_step_stale_batch),
     "stale_topk": ("fopo-paper.exact-b4096", "repro_torch.core.plan.ExecutionPlan", "resolve",
                    _resolve_stale_topk),
+    "stale_topk_ivf": ("fopo-paper.ivf-b4096", "repro_torch.core.plan.ExecutionPlan", "resolve",
+                       lambda orig: _resolve_stale_topk(orig, "fopo-paper.ivf-b4096")),
+    "index_other_seed": ("fopo-paper.ivf-b4096", "repro_torch.mips.ivf", "build_ivf",
+                         _build_ivf_other_seed),
     "answer_altered": ("sasrec.bulk-b4096", "repro_torch.serve.routes.RecsysMIPSRoute",
                        "run", _run_altered),
     "half_batch_left_out": ("sasrec.bulk-b4096", "repro_torch.serve.routes.RecsysMIPSRoute",
@@ -136,8 +150,11 @@ def test_fault_is_not_correct(fault, monkeypatch):
     import importlib
 
     workload, target, attr, wrap = FAULTS[fault]
-    mod, cls = target.rsplit(".", 1)
-    klass = getattr(importlib.import_module(mod), cls)
-    monkeypatch.setattr(klass, attr, wrap(getattr(klass, attr)))
+    try:
+        owner = importlib.import_module(target)  # a module's function
+    except ModuleNotFoundError:
+        mod, cls = target.rsplit(".", 1)
+        owner = getattr(importlib.import_module(mod), cls)
+    monkeypatch.setattr(owner, attr, wrap(getattr(owner, attr)))
     result, lines = tiny_run(workload, seed=2**31 + 5)
     assert not result["correct"], lines

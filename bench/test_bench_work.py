@@ -39,6 +39,30 @@ def test_fopo_step_flops_match_the_reference_products(b, p, l, s):
     assert _flops(step) == work.fopo_step_flops(b, p, l, s)
 
 
+@pytest.mark.parametrize("b,p,l,s,c", [(4, 60, 8, 6, 5), (3, 40, 5, 9, 4)])
+def test_fopo_ivf_step_flops_match_the_reference_products(b, p, l, s, c):
+    g = torch.Generator().manual_seed(4)
+    x, w = torch.randn(b, l, generator=g), torch.randn(l, l, generator=g)
+    beta = torch.randn(p, l, generator=g)
+    cents, lists = sasrec_ref.build_index(beta, c, 7, "fp32", iters=2)
+    a = torch.randint(0, p, (b, s), generator=g)
+    coeff = torch.randn(b, s, generator=g)
+    probe = torch.topk((x @ w) @ cents.T, 2, dim=1).indices
+    probed = float((lists[probe] >= 0).sum())
+
+    def step():
+        h = x @ w
+        _ = h @ cents.T
+        for r in range(b):  # each query's probed live candidates
+            cand = lists[probe[r]].flatten()
+            _ = beta[cand[cand >= 0].long()] @ h[r:r + 1].T
+        _ = torch.einsum("bl,bsl->bs", h, beta[a])
+        g_h = torch.einsum("bs,bsl->bl", coeff, beta[a])
+        _ = x.T @ g_h
+
+    assert _flops(step) == work.fopo_ivf_step_flops(b, l, s, c, probed)
+
+
 def test_mips_topk_counts():
     flops, nbytes = work.mips_topk(4096, 750_000, 100, 256)
     assert flops == 2 * 4096 * 750_000 * 100

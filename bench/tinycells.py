@@ -1,6 +1,11 @@
 """Each cell shrunk to a size the CPU tests can run through the whole
 harness in seconds, with the program's CPU path (the kernels' plain
-versions) under it. Widths are cut here, in the tests only."""
+versions) under it. Widths are cut here, in the tests only.
+
+A cell's tiny size is `bench/tiny/<cell>.json`, ``{"config": {...},
+"traffic": {...}}``: the keys it overrides in the cell's configuration
+and traffic. `TINY` holds them, as (config, traffic), for every workload
+of `BENCHMARK.json` that has the file (the contract tests ask each to)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,18 +14,17 @@ import torch
 
 from bench import harness
 
-TINY = {
-    "fopo-paper.exact-b4096": (
-        {"num_items": 3000, "embed_dim": 16, "num_samples": 64, "top_k": 32, "num_users": 512},
-        {"batch": 64, "catalog_clusters": 32, "positives_from_top": 16, "steps_per_call": 3,
-         "trace_seconds": 0.3},
-    ),
-    "sasrec.bulk-b4096": (
-        {"item_vocab": 5000, "embed_dim": 16, "seq_len": 12, "num_clusters": 64, "n_probe": 4},
-        {"batch": 64, "users": 1024, "judge_every": 2, "warm_batches": 1, "ahead": 3,
-         "trace_seconds": 0.3},
-    ),
-}
+TINY_DIR = harness.BENCH / "tiny"
+
+
+def _tiny(workload: str) -> tuple[dict, dict]:
+    sizes = harness.load_json(TINY_DIR / f"{workload}.json")
+    return sizes["config"], sizes["traffic"]
+
+
+TINY = {w["name"]: _tiny(w["name"])
+        for w in harness.load_json(harness.ROOT / "BENCHMARK.json")["workloads"]
+        if (TINY_DIR / f"{w['name']}.json").is_file()}
 
 
 def tiny_cell(workload: str) -> harness.Cell:

@@ -10,7 +10,8 @@ what `sasrec_user_vector` computes)."""
 from __future__ import annotations
 
 __all__ = [
-    "centroid_stage_flops", "fopo_step_flops", "ivf_probe", "mips_topk", "sasrec_tower_flops",
+    "centroid_stage_flops", "fopo_ivf_step_flops", "fopo_step_flops", "ivf_probe", "mips_topk",
+    "sasrec_tower_flops",
 ]
 
 F32 = 4  # bytes of an fp32 value or an int32 id
@@ -29,6 +30,14 @@ def fopo_step_flops(b: int, p: int, l: int, s: int) -> float:
     top-K (2 B P L), the S sampled scores (2 B S L), their gradient into
     h (2 B S L) and the weight gradient x^T dh (2 B L^2)."""
     return 2.0 * b * p * l + 4.0 * b * s * l + 4.0 * b * l * l
+
+
+def fopo_ivf_step_flops(b: int, l: int, s: int, c: int, probed_live: float) -> float:
+    """Useful FLOPs of one FOPO step of the linear tower on the IVF
+    route: `fopo_step_flops` with the catalog's scoring replaced by the
+    centroid stage (2 B C L) and 2 L for each probed live candidate of
+    each query (``probed_live`` summed over the batch)."""
+    return 2.0 * b * c * l + 2.0 * l * probed_live + 4.0 * b * s * l + 4.0 * b * l * l
 
 
 def sasrec_tower_flops(b: int, t: int, d: int, blocks: int) -> float:
