@@ -1,6 +1,8 @@
 """Architecture registry of the port: --arch <id> resolves here.
 
-The ids are the reference's, every one of them ported. Each config
+The ids are the reference's, every one of them ported, and the port's
+own "trinity-mini" (reachable by `get_arch`, outside `ARCH_IDS` and
+`all_cells`, which stay the reference's). Each config
 module exports FAMILY, CONFIG, SHAPES, SKIPPED_SHAPES and SMOKE_CONFIG;
 an unknown id raises KeyError.
 """
@@ -39,6 +41,8 @@ PORTED = {
     "din": "din",
     "dien": "dien",
     "wide-deep": "wide_deep",
+    # the port's own: no reference counterpart, so not in ARCH_IDS
+    "trinity-mini": "trinity_mini",
 }
 
 

@@ -83,6 +83,46 @@ class LMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AFMoEConfig(LMConfig):
+    """An `LMConfig` with the fields AFMoE (Trinity) needs, none of them in
+    the reference (a subclass, so that every other configuration keeps
+    the reference's fields exactly). `models.lm` runs the AFMoE block for
+    it, whose parts are not options: q / k norms, the attention's sigmoid
+    gate, RoPE on "sliding" layers only, sandwich norms, the muP embedding
+    scale; then leading dense layers and `models.moe.afmoe_moe`."""
+
+    layer_types: tuple[str, ...] = ()  # "sliding" / "full", one a layer
+    num_dense_layers: int = 0  # leading layers with the dense MLP
+    route_norm: bool = True  # the selected sigmoid scores summed to 1
+    route_scale: float = 1.0
+    num_shared_experts: int = 0  # SwiGLU experts of moe_d_ff that every token takes
+    held_experts: tuple[int, int] | None = None  # [lo, hi): routed experts held here
+    compute_dtype: str | None = None  # the trunk's dtype over fp32 master parameters
+
+    @property
+    def num_held_experts(self) -> int:
+        """The routed experts whose weights this device holds."""
+        if self.held_experts is None:
+            return self.num_experts
+        lo, hi = self.held_experts
+        return hi - lo
+
+    def param_count(self) -> int:
+        """Trainable and frozen parameters held here: the held experts and
+        the shared expert, the dense layers' MLP, the gate, the four
+        norms a layer and the q / k norms."""
+        d, dh, h, kv = self.d_model, self.dh, self.num_heads, self.num_kv_heads
+        attn = 2 * d * h * dh + 2 * d * kv * dh + h * dh * d + 4 * d + 2 * dh
+        eff = self.moe_d_ff or self.d_ff
+        moe = (self.num_held_experts + self.num_shared_experts) * 3 * d * eff + d * self.num_experts
+        dense = 3 * d * self.d_ff
+        n_dense = self.num_dense_layers
+        layers = self.num_layers * attn + n_dense * dense + (self.num_layers - n_dense) * moe
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return layers + embed + d
+
+
+@dataclasses.dataclass(frozen=True)
 class GNNConfig:
     name: str
     num_layers: int = 16

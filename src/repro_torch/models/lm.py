@@ -37,9 +37,19 @@ over its B tokens. A short serving batch is padded by the engine, so the
 padding rows take capacity as in the reference. ``cfg.dense_residual``
 (Arctic) adds the dense gated MLP, run in parallel on the same input.
 `forward` returns the layers' summed load-balancing loss.
+
+AFMoE (Trinity, an `AFMoEConfig`) runs `_afmoe_block`: per-layer
+attention types, q / k norms, RoPE on sliding layers only, the
+attention's sigmoid gate, sandwich norms, the muP embedding scale, two
+leading dense layers, then `models.moe.afmoe_moe` over the experts this
+device holds. Its parameter tree splits the layers' MLPs into
+`dense_layers` and `moe_layers`. ``make_train_step(cfg, optimizer,
+"fopo", plan=, unembed=)`` trains it as a FOPO-LM policy
+(`_fopo_train_step`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, NamedTuple
 
@@ -47,13 +57,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import decode_attention, flash_attention
-from repro_torch.models.configs_base import LMConfig
+from repro_torch.models.configs_base import AFMoEConfig, LMConfig
 from repro_torch.models.layers import gated_mlp, rms_norm, rope, softcap
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import afmoe_moe, moe_ffn
+from repro_torch.obs import trace as _trace
 from repro_torch.optim.optimizers import grad_like, tree_leaves, value_and_grad
 
 __all__ = [
-    "KVCache", "abstract_cache", "abstract_params", "decode_step", "final_hidden", "forward",
+    "KVCache", "abstract_cache", "abstract_params", "compute_params", "decode_step",
+    "final_hidden", "forward",
     "init_cache", "init_params",
     "loss_and_grads", "loss_fn", "make_train_step", "prefill",
 ]
@@ -89,6 +101,9 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device=None) -> Any:
         w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
         return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
 
+    if isinstance(cfg, AFMoEConfig):
+        return _init_afmoe(cfg, mat, lambda shape: torch.zeros(shape, dtype=dtype, device=dev))
+
     layers = {
         "attn_norm": torch.zeros((n, d), dtype=dtype, device=dev),
         "mlp_norm": torch.zeros((n, d), dtype=dtype, device=dev),
@@ -121,6 +136,51 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device=None) -> Any:
     return params
 
 
+def _init_afmoe(cfg: AFMoEConfig, mat, zeros) -> dict:
+    """AFMoE's parameters: `layers` holds every layer's attention and its
+    four norms (`attn_norm`, `post_attn_norm`, `mlp_norm`,
+    `post_mlp_norm`), the q / k norms [n, Dh] and the gate `wg` [n, d,
+    H Dh]; `dense_layers` the leading layers' MLP; `moe_layers` the
+    router over every expert [n_moe, d, E], the held experts `we_*` [n_moe,
+    H_held, ...] and the shared ones `ws_*` [n_moe, N, ...]."""
+    d, dh, h, kv, n = cfg.d_model, cfg.dh, cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+    n_dense = cfg.num_dense_layers
+    n_moe, f = n - n_dense, cfg.moe_d_ff or cfg.d_ff
+    e_held, e_shared = cfg.num_held_experts, cfg.num_shared_experts
+    params = {
+        "embed": mat((cfg.vocab_size, d), d),
+        "final_norm": zeros((d,)),
+        "layers": {
+            **{name: zeros((n, d)) for name in
+               ("attn_norm", "post_attn_norm", "mlp_norm", "post_mlp_norm")},
+            "q_norm": zeros((n, dh)),
+            "k_norm": zeros((n, dh)),
+            "wq": mat((n, d, h * dh), d),
+            "wk": mat((n, d, kv * dh), d),
+            "wv": mat((n, d, kv * dh), d),
+            "wg": mat((n, d, h * dh), d),
+            "wo": mat((n, h * dh, d), h * dh),
+        },
+        "dense_layers": {
+            "w_gate": mat((n_dense, d, cfg.d_ff), d),
+            "w_up": mat((n_dense, d, cfg.d_ff), d),
+            "w_down": mat((n_dense, cfg.d_ff, d), cfg.d_ff),
+        },
+        "moe_layers": {
+            "router": mat((n_moe, d, cfg.num_experts), d),
+            "we_gate": mat((n_moe, e_held, d, f), d),
+            "we_up": mat((n_moe, e_held, d, f), d),
+            "we_down": mat((n_moe, e_held, f, d), f),
+            "ws_gate": mat((n_moe, e_shared, d, f), d),
+            "ws_up": mat((n_moe, e_shared, d, f), d),
+            "ws_down": mat((n_moe, e_shared, f, d), f),
+        },
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = mat((cfg.vocab_size, d), d)
+    return params
+
+
 def abstract_params(cfg: LMConfig) -> Any:
     """The parameter tree's shapes and dtypes, on the meta device (the
     reference's `jax.eval_shape` of `init_params`)."""
@@ -145,7 +205,10 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, device=None)
 
 def layer_window(cfg: LMConfig, i: int) -> int | None:
     """Layer i's attention window: alternating models (Gemma-2) are local
-    on even layers and global on odd ones."""
+    on even layers and global on odd ones; AFMoE's "sliding" layers have
+    the window, its "full" ones none."""
+    if isinstance(cfg, AFMoEConfig):
+        return cfg.sliding_window if cfg.layer_types[i] == "sliding" else None
     if cfg.local_global_alternating and cfg.sliding_window:
         return cfg.sliding_window if i % 2 == 0 else None
     return cfg.sliding_window or None
@@ -169,6 +232,8 @@ def _self_attention(cfg: LMConfig, q, k_, v_, *, window):
 
 def _embed(cfg: LMConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"][tokens.long()]
+    if isinstance(cfg, AFMoEConfig):
+        return x * math.sqrt(float(cfg.d_model))
     if cfg.name.startswith("gemma"):
         # the scale is cast to x's dtype first, as the reference does
         x = x * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=x.dtype, device=x.device)
@@ -189,10 +254,16 @@ def _layers(params) -> list[dict]:
     (a view per `w[i]` would add a zero-filled full-size gradient per
     layer). On a mesh each view's gradient takes the view's layout
     (`optimizers.grad_like`) before the stack."""
-    per_name = {name: [grad_like(x) for x in w.unbind(0)]
-                for name, w in params["layers"].items()}
-    n = len(next(iter(per_name.values())))
-    return [{name: ws[i] for name, ws in per_name.items()} for i in range(n)]
+    def views(group: dict) -> list[dict]:
+        per_name = {name: [grad_like(x) for x in w.unbind(0)] for name, w in group.items()}
+        n = len(next(iter(per_name.values())))
+        return [{name: ws[i] for name, ws in per_name.items()} for i in range(n)]
+
+    layers = views(params["layers"])
+    if "moe_layers" in params:  # AFMoE: the leading dense layers' MLP, then the MoE layers'
+        ffn = views(params["dense_layers"]) + views(params["moe_layers"])
+        layers = [{**a, **b} for a, b in zip(layers, ffn, strict=True)]
+    return layers
 
 
 def _ffn(cfg: LMConfig, y: torch.Tensor, layer: dict,
@@ -213,6 +284,80 @@ def _ffn(cfg: LMConfig, y: torch.Tensor, layer: dict,
     if cfg.dense_residual:
         out = out + dense()
     return out, aux["aux_loss"]
+
+
+class _HostCountBackward(torch.autograd.Function):
+    """The identity; its backward adds ``n`` to the ambient tracer's host
+    counter ``name``."""
+
+    @staticmethod
+    def forward(ctx, x, name, n):
+        ctx.name, ctx.n = name, n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        _trace.count(ctx.name, ctx.n)
+        return g, None, None
+
+
+@functools.lru_cache(maxsize=64)
+def _live_pairs(s: int, window: int | None) -> int:
+    from repro_torch.kernels.flash_attention.kernel import live_pairs
+
+    return live_pairs(s, s, True, window, 0)
+
+
+def _afmoe_block(cfg: AFMoEConfig, i: int, x: torch.Tensor, layer: dict,
+                 positions: torch.Tensor, record: dict | None = None):
+    """AFMoE's block i over x [B, S, d] (`modeling_afmoe.py`'s decoder
+    layer): q and k RMS-normed a head, then RoPE on "sliding" layers only,
+    attention over the layer's window, the output times sigmoid(y W_g),
+    the output projection normed again before the residual (sandwich),
+    then the MLP between its two norms. With a tracer active the
+    attention adds B x its live (query, key) pairs to the host counter
+    ``attention.pairs.<type>`` each forward pass and
+    ``attention.pairs.<type>_backward`` each backward pass."""
+    b, s, d = x.shape
+    h, kv, dh, eps = cfg.num_heads, cfg.num_kv_heads, cfg.dh, cfg.rms_eps
+    kind, window = cfg.layer_types[i], layer_window(cfg, i)
+    y = rms_norm(x, layer["attn_norm"], eps)
+    q = (y @ layer["wq"]).reshape(b, s, h, dh)
+    k_ = (y @ layer["wk"]).reshape(b, s, kv, dh)
+    v_ = (y @ layer["wv"]).reshape(b, s, kv, dh)
+    q, k_ = rms_norm(q, layer["q_norm"], eps), rms_norm(k_, layer["k_norm"], eps)
+    if _uses_rope(cfg, i):
+        q, k_ = rope(q, positions, cfg.rope_theta), rope(k_, positions, cfg.rope_theta)
+    with _trace.span("attention", window=window):
+        att = _self_attention(cfg, q, k_, v_, window=window).reshape(b, s, h * dh)
+    if _trace.current() is not None:
+        pairs = b * _live_pairs(s, window)
+        _trace.count(f"attention.pairs.{kind}", pairs)
+        if att.requires_grad:
+            att = _HostCountBackward.apply(att, f"attention.pairs.{kind}_backward", pairs)
+    att = att * torch.sigmoid(y @ layer["wg"])
+    x = x + rms_norm(att @ layer["wo"], layer["post_attn_norm"], eps)
+    z = rms_norm(x, layer["mlp_norm"], eps)
+    if i < cfg.num_dense_layers:
+        f = gated_mlp(z, layer["w_gate"], layer["w_up"], layer["w_down"], cfg.gated_act)
+    else:
+        zf = z.reshape(b * s, d)
+        if record is not None:
+            record.setdefault("moe_inputs", []).append(zf.detach())
+        f = afmoe_moe(zf, layer, k=cfg.num_experts_per_tok, route_norm=cfg.route_norm,
+                      route_scale=cfg.route_scale, held=_held(cfg),
+                      record=None if record is None else record.setdefault("routes", []))
+        f = f.reshape(b, s, d)
+    return x + rms_norm(f, layer["post_mlp_norm"], eps), k_, v_, None
+
+
+def _uses_rope(cfg: AFMoEConfig, i: int) -> bool:
+    """RoPE on "sliding" layers; "full" ones have no position encoding."""
+    return cfg.layer_types[i] == "sliding"
+
+
+def _held(cfg: AFMoEConfig) -> tuple[int, int]:
+    return cfg.held_experts or (0, cfg.num_experts)
 
 
 def _block(cfg: LMConfig, x: torch.Tensor, layer: dict, positions: torch.Tensor,
@@ -244,7 +389,10 @@ def prefill(cfg: LMConfig, params, tokens: torch.Tensor, cache: KVCache,
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for i, layer in enumerate(_layers(params)):
-        x, k_, v_, _ = _block(cfg, x, layer, positions, layer_window(cfg, i))
+        if isinstance(cfg, AFMoEConfig):
+            x, k_, v_, _ = _afmoe_block(cfg, i, x, layer, positions)
+        else:
+            x, k_, v_, _ = _block(cfg, x, layer, positions, layer_window(cfg, i))
         cache.k[i, :, :s] = k_.to(cache.k.dtype)
         cache.v[i, :, :s] = v_.to(cache.v.dtype)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -293,21 +441,30 @@ def forward(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Tensor, 
     return _head(cfg, params, x, False), aux_loss
 
 
-def final_hidden(cfg: LMConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+def final_hidden(cfg: LMConfig, params, tokens: torch.Tensor,
+                 record: dict | None = None) -> torch.Tensor:
     """tokens [B, S] -> the hidden states [B, S, d] after the final norm,
-    before the unembedding: what the FOPO LM head (`core.lm_head`) reads."""
-    return _trunk(cfg, params, tokens)[0]
+    before the unembedding: what the FOPO LM head (`core.lm_head`) reads.
+    An AFMoE model appends each MoE layer's input [B S, d] and selection
+    [B S, k] to ``record["moe_inputs"]`` / ``record["routes"]`` where
+    ``record`` is given."""
+    return _trunk(cfg, params, tokens, record)[0]
 
 
-def _trunk(cfg: LMConfig, params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _trunk(cfg: LMConfig, params, tokens: torch.Tensor,
+           record: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The layers and the final norm: (hidden [B, S, d], summed aux loss)."""
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    afmoe = isinstance(cfg, AFMoEConfig)
     for i, layer in enumerate(_layers(params)):
-        def fn(x_, layer=layer, window=layer_window(cfg, i)):
-            x_, _, _, aux = _block(cfg, x_, layer, positions, window)
+        def fn(x_, layer=layer, window=layer_window(cfg, i), i=i):
+            if afmoe:
+                x_, _, _, aux = _afmoe_block(cfg, i, x_, layer, positions, record)
+            else:
+                x_, _, _, aux = _block(cfg, x_, layer, positions, window)
             return x_, aux
 
         if cfg.remat and torch.is_grad_enabled():
@@ -351,12 +508,23 @@ def loss_and_grads(cfg: LMConfig, params, tokens: torch.Tensor,
     return value_and_grad(lambda tree: loss_fn(cfg, tree, tokens, labels), params)
 
 
-def make_train_step(cfg: LMConfig, optimizer):
+def make_train_step(cfg: LMConfig, optimizer, objective: str = "xent", *, plan=None,
+                    unembed: torch.Tensor | None = None):
     """(params, opt_state, tokens, labels) -> (params, opt_state, loss).
     With ``cfg.microbatch`` giving n_micro > 1 microbatches, micro j takes
     rows {j, n_micro + j, ...} (the reference's strided split); their
     gradients are added in place in the parameters' dtype and divided by
-    n_micro, their losses summed in fp32 and divided likewise."""
+    n_micro, their losses summed in fp32 and divided likewise.
+
+    ``objective="fopo"`` trains the LM as a FOPO-LM policy instead
+    (`_fopo_train_step`): ``plan`` (an `ExecutionPlan`) runs the step over
+    the frozen ``unembed`` [V, d], the catalog."""
+    if objective == "fopo":
+        if plan is None or unembed is None:
+            raise ValueError('objective="fopo" needs plan= and unembed=')
+        return _fopo_train_step(cfg, optimizer, plan, unembed)
+    if objective != "xent":
+        raise ValueError(f"unknown objective {objective!r}")
 
     def train_step(params, opt_state, tokens, labels):
         b = tokens.shape[0]
@@ -391,3 +559,69 @@ def make_train_step(cfg: LMConfig, optimizer):
 
     return train_step
 
+
+def compute_params(cfg: LMConfig, params) -> Any:
+    """The parameters the trunk runs on: with ``cfg.compute_dtype`` a copy
+    of every floating leaf in that dtype (the cast is differentiable, so
+    the gradients reach the fp32 masters in fp32), the routers kept in
+    fp32; without it ``params`` itself."""
+    dt = getattr(cfg, "compute_dtype", None)
+    if dt is None:
+        return params
+
+    def cast(tree, keep=False):
+        if isinstance(tree, dict):
+            return {k: cast(v, keep or k == "router") for k, v in tree.items()}
+        return tree if keep or not tree.is_floating_point() else tree.to(_dtype(dt))
+
+    return cast(params)
+
+
+def _fopo_train_step(cfg: LMConfig, optimizer, plan, unembed: torch.Tensor):
+    """(params, opt_state, batch, seed) -> (params, opt_state, loss, aux):
+    one FOPO-LM step (`core.lm_head`'s estimator through the plan). Each
+    token position is a context; the policy's tower is `final_hidden`
+    flattened to [B S, d] in fp32; beta is ``unembed`` (frozen, outside
+    ``params``); the reward is `make_session_reward` with each position's
+    next token, ``batch["labels"]`` [B, S] (-1 where there is none), as
+    its positive. ``batch["tokens"]`` [B, S] are the inputs. The trunk
+    runs on `compute_params` (cast once a step); ``plan.execute`` does the
+    rest, its detached proposal forward included. ``aux`` is the plan's
+    diagnostics. The keyword ``record`` (a dict) gets the proposal pass's
+    MoE inputs and selections (`final_hidden`) and its ``hidden`` [B S,
+    d]."""
+    from repro_torch.core.policy import SoftmaxPolicy
+    from repro_torch.core.rewards import make_session_reward
+
+    beta = unembed.detach()
+
+    def train_step(params, opt_state, batch, seed: int, *, record: dict | None = None):
+        tokens, labels = batch["tokens"], batch["labels"]
+        reward_fn = make_session_reward(labels.reshape(-1, 1))
+        passes = [0]
+
+        def tower(p, toks):
+            rec = record if passes[0] == 0 else None
+            passes[0] += 1
+            h = final_hidden(cfg, p, toks, rec)
+            h = h.reshape(-1, h.shape[-1]).float()
+            if rec is not None:
+                rec["hidden"] = h.detach()
+            return h
+
+        policy = SoftmaxPolicy(tower=tower, item_dim=cfg.d_model)
+        aux_box: dict = {}
+
+        def loss(p):
+            value, aux = plan.execute(policy, compute_params(cfg, p), seed, tokens, beta,
+                                      reward_fn)
+            aux_box.update(aux)
+            return value
+
+        loss_val, grads = value_and_grad(loss, params)
+        box = [grads]
+        del grads
+        params, opt_state = optimizer.update(box.pop(), opt_state, params)
+        return params, opt_state, loss_val, {k: v.detach() for k, v in aux_box.items()}
+
+    return train_step

@@ -161,9 +161,13 @@ def adam(
     eps: float = 1e-8,
     weight_decay: float = 0.0,
     moments_dtype: torch.dtype | None = None,
+    in_place: bool = False,
 ) -> Optimizer:
     """Adam; weight_decay > 0 gives AdamW (decoupled). moments_dtype
-    overrides the m / v storage type."""
+    overrides the m / v storage type. ``in_place`` updates the fp32
+    parameters and moments in their own storage, the same numbers op for
+    op, and returns the same trees: a caller whose masters and moments
+    fill most of the card (`models.lm`'s FOPO step) holds no second copy."""
     sched = lr if callable(lr) else constant_schedule(lr)
 
     def _zeros(p):
@@ -193,8 +197,14 @@ def adam(
         for row in rows:
             p, g, m_, v_ = row
             row[1] = None
-            m = b1 * m_ + (1 - b1) * g
-            v = b2 * v_ + (1 - b2) * g * g
+            if in_place:
+                if not p.dtype == m_.dtype == v_.dtype == torch.float32:
+                    raise ValueError("an in-place update takes fp32 parameters and moments")
+                m = m_.mul_(b1).add_((1 - b1) * g)
+                v = v_.mul_(b2).add_((1 - b2) * g * g)
+            else:
+                m = b1 * m_ + (1 - b1) * g
+                v = b2 * v_ + (1 - b2) * g * g
             del g
             # u = (m mhat) / (sqrt(v vhat) + eps); the in-place steps act on
             # this leaf's own temporaries (the same values, fewer live copies)
@@ -203,7 +213,7 @@ def adam(
             del denom
             if weight_decay:
                 u = u + weight_decay * p
-            new_p.append(p - u.mul_(lr_t))
+            new_p.append(p.sub_(u.mul_(lr_t)) if in_place else p - u.mul_(lr_t))
             new_m.append(m)
             new_v.append(v)
             del u
